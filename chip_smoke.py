@@ -1,0 +1,587 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``sitator_tpu_torch``) once on one GPU.
+
+Run from the root of a checkout, with no arguments::
+
+    python3 chip_smoke.py
+
+Phases; any failure exits non-zero before the result lines:
+
+1. device: the card's name and power limit (``nvidia-smi``), the CUDA and
+   ``nvcc`` versions;
+2. build: compiles ``sitator_tpu_torch/csrc/*.cu`` for ``sm_90a`` into
+   ``build/`` (skipped when a library for these sources is there);
+3. every kernel against its plain PyTorch version on the same inputs on the
+   card, at the bench width of ``bench.py`` (9261 static + 739 mobile atoms,
+   9261 landmarks x 8 vertices, 1024 centres) with its random centres
+   (timed) and with site centres, plus a ``peak_evening='clip'`` case and a
+   triclinic case at a reduced width; the unique-atom (K1) and gather (K3)
+   labels against each other;
+4. the slice end to end through the user entry points, with the launch
+   counters reset first and read after: ``LandmarkAnalysis`` (K2) then
+   ``JumpAnalysis``; ``SpmdLandmarkPipeline`` over 8 blocks x 32 frames with
+   the carry (K1), timed; the pipeline on a small basis without vertex
+   sharing (K3), and the dense route on the same input as its reference.
+   The ions hop among 1024 sites, and the pipeline's 1024 centres are the
+   unit landmark vectors of an ion on each of them: under ``bench.py``'s
+   random centres every similarity is far below the threshold, every label
+   is -1 and no jump would be recorded, at the same work per frame;
+5. one JSON line of per-kernel results, then the ``ok`` line, last.
+
+Label comparisons are gated on the reference's top-2 margin: labels must be
+equal wherever the best and second-best cosine similarities (f32, from the
+kernel-checked landmark vectors) differ by more than 8e-3 with bf16 operands
+(about 2 bf16 ulps near 1) or 1e-5 in f32, and the best one is not within
+the confidence tolerance of the threshold.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+
+LV_RTOL, LV_ATOL = 1e-4, 1e-6        # f32 sums in another order, then exp
+CONF_ATOL = {True: 1e-2, False: 1e-5}  # bf16 / f32 similarity operands
+MARGIN = {True: 8e-3, False: 1e-5}
+MID, STEEP, THR, CUTOFF = 4.0, 3.0, 0.35, "logistic_r2"   # bench.py
+
+
+class SmokeError(RuntimeError):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeError(msg)
+
+
+# -- timing and comparison --------------------------------------------------
+
+def timed(fn, reps):
+    """Median milliseconds of ``fn()`` over ``reps`` runs, timed with CUDA
+    events after one warm-up run."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return float(np.median(ts))
+
+
+def sync():
+    import torch
+    torch.cuda.synchronize()
+
+
+def top2_margin(lv, centers, peak_evening):
+    """Reference top-1 minus top-2 cosine similarity and top-1 value of
+    every (frame, ion), in f32 from landmark vectors ``lv (B, M, S)`` in the
+    caller's site order and unit ``centers (K, S)``; zero similarities of
+    the kernels' padded centre columns included."""
+    import torch
+    from sitator_tpu_torch.ops import landmark as lmops
+    c = torch.as_tensor(centers, device=lv.device, dtype=torch.float32)
+    lv_n, _ = lmops.normalize_landmark_vectors(lmops.peak_even(
+        lv, peak_evening))
+    sims = lv_n @ c.T
+    pad = (-c.shape[0]) % 128
+    if pad:
+        sims = torch.nn.functional.pad(sims, (0, pad))
+    top = sims.topk(2, dim=-1).values
+    return (top[..., 0] - top[..., 1]).cpu().numpy(), \
+        top[..., 0].cpu().numpy()
+
+
+def compare_assign(name, got, want, margin, top1, bf16):
+    """Labels equal outside the margin gate; confidences within tolerance.
+    Returns the max confidence error."""
+    gl, gc = (np.asarray(x.cpu()) for x in got)
+    wl, wc = (np.asarray(x.cpu()) for x in want)
+    check(gl.shape == wl.shape == margin.shape,
+          f"{name}: shapes {gl.shape} {wl.shape} {margin.shape}")
+    check(np.isfinite(gc).all(), f"{name}: non-finite confidences")
+    err = float(np.abs(gc - wc).max())
+    check(err <= CONF_ATOL[bf16], f"{name}: conf error {err:.3g} > "
+          f"{CONF_ATOL[bf16]}")
+    gated = (margin <= MARGIN[bf16]) | (np.abs(top1 - THR) <= CONF_ATOL[bf16])
+    bad = np.argwhere((gl != wl) & ~gated)
+    check(not len(bad), f"{name}: {len(bad)} labels differ outside the "
+          f"margin gate (first at {bad[:1].tolist()})")
+    print(f"  {name}: labels equal on {int((~gated).sum())} ungated rows "
+          f"({int(gated.sum())} gated, {int((gl != wl).sum())} differ "
+          f"there); max conf err {err:.3g}", flush=True)
+    return err
+
+
+def compare_lv(name, got, want):
+    import torch
+    check(got.shape == want.shape, f"{name}: {got.shape} vs {want.shape}")
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite lv")
+    err = float((got - want).abs().max())
+    ok = bool(((got - want).abs() <= LV_ATOL + LV_RTOL * want.abs()).all())
+    check(ok, f"{name}: lv outside rtol={LV_RTOL}, atol={LV_ATOL} "
+          f"(max abs err {err:.3g})")
+    print(f"  {name}: lv within rtol={LV_RTOL}, atol={LV_ATOL}; max abs err "
+          f"{err:.3g}", flush=True)
+    return err
+
+
+# -- systems ------------------------------------------------------------------
+
+def lattice_system(n_c, n_ions, n_frames, n_centres, *, seed, shear=None,
+                   a=4.0, hop=0.01):
+    """The bench geometry at ``n_c`` cells a side: a simple-cubic host
+    lattice, sites at the cube centres with their 8 corner atoms as
+    vertices.  ``n_centres`` sites carry a centre; ions start on the first
+    ``n_ions`` of them and, each frame with probability ``hop``, hop to a
+    free one.  ``shear`` (3, 3) makes the cell triclinic.  Centres are
+    filled in later (:func:`add_site_centres`); ``random_centres`` are
+    random positive unit rows as in ``bench.py``."""
+    rng = np.random.default_rng(seed)
+    g = np.arange(n_c)
+    grid = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    cell = np.eye(3) * a * n_c if shear is None \
+        else (np.eye(3) + shear) * a * n_c
+    verts = np.zeros((len(grid), 8), np.int32)
+    for j, d in enumerate(np.stack(np.meshgrid([0, 1], [0, 1], [0, 1],
+                                               indexing="ij"),
+                                   -1).reshape(-1, 3)):
+        v = (grid + d) % n_c
+        verts[:, j] = (v[:, 0] * n_c + v[:, 1]) * n_c + v[:, 2]
+    host = (grid / n_c) @ cell
+    sites = ((grid + 0.5) / n_c) @ cell
+    return hopping(rng, cell, host, verts, sites, n_ions, n_frames,
+                   n_centres, hop, sigma=0.25)
+
+
+def hopping(rng, cell, host, verts, sites, n_ions, n_frames, n_centres, hop,
+            sigma):
+    """Thermal jitter on the host lattice; ions on ``n_centres`` randomly
+    chosen ("centred") sites, hopping to a free one with probability
+    ``hop`` per frame."""
+    centred = rng.choice(len(sites), n_centres, replace=False)
+    occ = centred[:n_ions].copy()
+    free = list(centred[n_ions:])
+    site_of = np.empty((n_frames, n_ions), np.int64)
+    for f in range(n_frames):
+        for i in np.flatnonzero(rng.random(n_ions) < hop):
+            j = int(rng.integers(len(free)))
+            occ[i], free[j] = free[j], occ[i]
+        site_of[f] = occ
+    static = host[None] + rng.normal(scale=0.05,
+                                     size=(n_frames,) + host.shape)
+    mobile = sites[site_of] + rng.normal(scale=sigma,
+                                         size=(n_frames, n_ions, 3))
+    random_centres = rng.random((n_centres, len(sites)))
+    random_centres /= np.linalg.norm(random_centres, axis=1, keepdims=True)
+    return dict(cell=np.asarray(cell, np.float32), verts=verts,
+                site_pos=sites, static_ref=host,
+                static=static.astype(np.float32),
+                mobile=mobile.astype(np.float32), centred=centred,
+                random_centres=random_centres.astype(np.float32))
+
+
+def bench_system(n_frames, seed):
+    """The bench width of ``bench.build_system``: its cell, vertices and
+    1024 random centres, with ions hopping among 1024 centred sites."""
+    import bench
+    cell, verts, _, centres, _ = bench.build_system()
+    sy = lattice_system(bench.N_CELLS, bench.N_IONS, n_frames,
+                        bench.K_CENTERS, seed=seed, a=bench.A_LAT)
+    check(np.array_equal(sy["verts"], verts)
+          and np.allclose(sy["cell"], cell), "bench geometry differs")
+    sy["random_centres"] = centres
+    return sy
+
+
+def add_site_centres(sy, device):
+    """Fitted-like centres: the unit landmark vector of an ion sitting
+    exactly on each centred site of the reference lattice (K2 on the card,
+    its plain version on the CPU)."""
+    import torch
+    from sitator_tpu_torch.ops import landmark_mxu as mx
+    from sitator_tpu_torch.ops.kernel_common import kernel_cell
+    basis = mx.prepare_mxu_basis(sy["verts"], np.ones_like(sy["verts"], bool),
+                                 sy["site_pos"], sy["cell"], s_tile=128)
+    probes = torch.as_tensor(sy["site_pos"][sy["centred"]][None],
+                             dtype=torch.float32, device=device)
+    ref = torch.as_tensor(sy["static_ref"][None], dtype=torch.float32,
+                          device=device)
+    lv = mx.mxu_landmark_blocks(probes, ref, mx.basis_from_jax(basis, device),
+                                kernel_cell(sy["cell"]), midpoint=MID,
+                                steepness=STEEP, cutoff_shape=CUTOFF)[0]
+    sy["centers"] = (lv / lv.norm(dim=1, keepdim=True)).cpu().numpy()
+    return sy
+
+
+def site_network(sy):
+    """A SiteNetwork over ``sy``: static atoms first, then the ions (frame-0
+    positions), the sites with their vertex polyhedra."""
+    from sitator_tpu_torch import SiteNetwork, Structure
+    n_static = len(sy["static_ref"])
+    n_ions = sy["mobile"].shape[1]
+    pos = np.concatenate([sy["static_ref"], sy["mobile"][0]])
+    species = np.concatenate([np.full(n_static, 16), np.full(n_ions, 3)])
+    mask = np.arange(n_static + n_ions) < n_static
+    sn = SiteNetwork(Structure(pos, species, sy["cell"]), mask, ~mask)
+    sn.centers = sy["site_pos"]
+    sn.vertices = list(sy["verts"])
+    return sn
+
+
+def frames_of(sy):
+    return np.concatenate([sy["static"], sy["mobile"]], axis=1)
+
+
+# -- phases -------------------------------------------------------------------
+
+def phase_device():
+    import torch
+    from sitator_tpu_torch.ops import _cuda
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    nvcc = subprocess.run([_cuda._nvcc(), "--version"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()
+    print(smi, flush=True)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"nvcc: {nvcc[-1]}", flush=True)
+    # the plain versions hold full f32 where the reference does
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return smi
+
+
+def phase_build():
+    from sitator_tpu_torch.ops import _cuda
+    path, seconds, log = _cuda.build()
+    _cuda.library()
+    print(f"build: {path.relative_to(ROOT)} in {seconds:.1f} s "
+          f"({'compiled' if seconds else 'already built'})", flush=True)
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line:
+            print("  ptxas:", line.strip(), flush=True)
+
+
+def kernel_cases(sy, centers, device, *, peak_evening, n_lv_frames,
+                 s_tile_gather, full_mask, label, reps, bf16=True):
+    """K2, K1 and K3 against their plain versions on one system with the
+    given centres; K1 against K3.  Returns {kernel: (max_abs_err, ms,
+    plain_ms)} (times only when ``reps``)."""
+    import torch
+    from sitator_tpu_torch.ops import landmark_mxu as mx
+    from sitator_tpu_torch.ops import landmark_pallas as lp
+    from sitator_tpu_torch.ops.kernel_common import kernel_cell
+
+    kcell = kernel_cell(sy["cell"])
+    basis = mx.prepare_engine_basis(
+        sy["verts"], np.ones_like(sy["verts"], bool), sy["site_pos"],
+        sy["cell"], midpoint=MID, steepness=STEEP, cutoff_shape=CUTOFF,
+        static_ref=sy["static_ref"], drift_budget=3.0)
+    check(basis is not None, f"{label}: basis shares too few vertices")
+    basis = mx.basis_from_jax(basis, device)
+    mobile = torch.as_tensor(sy["mobile"], device=device)
+    static = torch.as_tensor(sy["static"], device=device)
+    print(f"{label}: B={mobile.shape[0]} M={mobile.shape[1]} "
+          f"N={static.shape[1]} S={len(sy['verts'])} "
+          f"K={len(centers)} s_tile={basis['s_tile']} "
+          f"n_st={basis['n_st']} UP={basis['UP']} "
+          f"preshift={basis['preshift']} peak={peak_evening}", flush=True)
+    out = {}
+
+    a2 = mx._lv_inputs(mobile[:n_lv_frames], static[:n_lv_frames], basis,
+                       kcell, midpoint=MID, steepness=STEEP,
+                       cutoff_shape=CUTOFF)
+    lv_k = mx._mxu_lv_cuda(**a2)
+    sync()
+    lv_p = mx._mxu_lv_plain(**a2)
+    err2 = compare_lv(f"{label} K2", lv_k, lv_p)
+    out["K2"] = (err2,) + ((timed(lambda: mx._mxu_lv_cuda(**a2), reps),
+                            timed(lambda: mx._mxu_lv_plain(**a2), 2))
+                           if reps else (None, None))
+    del lv_p
+
+    # reference margins from the kernel-checked landmark vectors
+    lv_all = torch.cat([mx._mxu_lv_cuda(**mx._lv_inputs(
+        mobile[i:i + n_lv_frames], static[i:i + n_lv_frames], basis, kcell,
+        midpoint=MID, steepness=STEEP, cutoff_shape=CUTOFF))
+        for i in range(0, mobile.shape[0], n_lv_frames)])
+    margin, top1 = top2_margin(lv_all, centers, peak_evening)
+    del lv_all, lv_k
+
+    a1 = mx._assign_inputs(mobile, static, basis, kcell,
+                           mx.permute_centers(centers, basis),
+                           midpoint=MID, steepness=STEEP, threshold=THR,
+                           mxu_bf16=bf16, cutoff_shape=CUTOFF,
+                           peak_evening=peak_evening)
+    M = mobile.shape[1]
+    k1 = [x[:, :M] for x in mx._mxu_assign_cuda(**a1)]
+    sync()
+    p1 = [x[:, :M] for x in mx._mxu_assign_plain(**a1)]
+    err1 = compare_assign(f"{label} K1", k1, p1, margin, top1, bf16)
+    out["K1"] = (err1,) + ((timed(lambda: mx._mxu_assign_cuda(**a1), reps),
+                            timed(lambda: mx._mxu_assign_plain(**a1), 2))
+                           if reps else (None, None))
+
+    a3 = lp._gather_inputs(mobile, static, sy["verts"],
+                           np.ones_like(sy["verts"], bool), kcell,
+                           centers, midpoint=MID, steepness=STEEP,
+                           threshold=THR, s_tile=s_tile_gather,
+                           mxu_bf16=bf16, cutoff_shape=CUTOFF,
+                           peak_evening=peak_evening, full_mask=full_mask)
+    k3 = [x[:, :M] for x in lp._gather_assign_cuda(**a3)]
+    sync()
+    p3 = [x[:, :M] for x in lp._gather_assign_plain(**a3)]
+    err3 = compare_assign(f"{label} K3", k3, p3, margin, top1, bf16)
+    out["K3"] = (err3,) + ((timed(lambda: lp._gather_assign_cuda(**a3), reps),
+                            timed(lambda: lp._gather_assign_plain(**a3), 2))
+                           if reps else (None, None))
+    compare_assign(f"{label} K1 vs K3", k1, k3, margin, top1, bf16)
+    return out
+
+
+def phase_kernels(device):
+    """Every kernel against its plain version: at the bench width with
+    bench.py's 1024 random centres (timed) and with site centres (labels
+    that mean something), then the clip and triclinic cases at n_c = 8."""
+    shear = np.array([[0.0, 0.0, 0.0], [0.2, 0.0, 0.0], [-0.1, 0.15, 0.0]])
+    sy = add_site_centres(bench_system(32, seed=7), device)
+    kw = dict(n_lv_frames=4, s_tile_gather=256, full_mask=True)
+    res = kernel_cases(sy, sy["random_centres"], device,
+                       peak_evening="none", label="bench random centres",
+                       reps=5, **kw)
+    site = kernel_cases(sy, sy["centers"], device, peak_evening="none",
+                        label="bench site centres", reps=0, **kw)
+    res = {k: (max(err, site[k][0]), ms, pms)
+           for k, (err, ms, pms) in res.items()}
+    # the clip case in f32 similarities: clipping flattens the rows, so
+    # most top-2 margins sit inside the bf16 gate
+    for label, sy, peak, bf16 in (
+            ("clip f32 n_c=8", lattice_system(8, 64, 8, 128, seed=3), "clip",
+             False),
+            ("triclinic n_c=8",
+             lattice_system(8, 64, 8, 128, seed=5, shear=shear), "none",
+             True)):
+        add_site_centres(sy, device)
+        kernel_cases(sy, sy["centers"], device, peak_evening=peak,
+                     n_lv_frames=8, s_tile_gather=128, full_mask=False,
+                     label=label, reps=0, bf16=bf16)
+    for name, (err, ms, pms) in sorted(res.items()):
+        print(f"time {name} at the bench width: kernel {ms:.3f} ms, plain "
+              f"{pms:.3f} ms", flush=True)
+    return res
+
+
+def phase_slice(device):
+    """The main path through the user entry points.  Returns the launch
+    counts and the pipeline's frames/s."""
+    from sitator_tpu_torch import (JumpAnalysis, LandmarkAnalysis,
+                                   SpmdLandmarkPipeline)
+    from sitator_tpu_torch.ops import landmark_mxu as mx
+    from sitator_tpu_torch.ops import landmark_pallas as lp
+    from sitator_tpu_torch.ops.jumps import _jump_stats_block_int64
+
+    run = add_site_centres(bench_system(8 * 32, seed=11), device)
+    small = lattice_system(5, 12, 24, 64, seed=9)
+    no_share = add_site_centres(no_sharing_system(seed=13), device)
+    sn_bench = site_network(run)
+    frames = frames_of(run)
+    n_ions = run["mobile"].shape[1]
+    for fn in (mx.mxu_assign_blocks, mx.mxu_landmark_blocks,
+               lp.fused_assign_blocks):
+        fn.launches = 0
+
+    # LandmarkAnalysis (K2) -> JumpAnalysis on 16 frames at the bench width
+    t0 = time.perf_counter()
+    la = LandmarkAnalysis(cutoff_midpoint=MID, cutoff_steepness=STEEP,
+                          cutoff_shape=CUTOFF, verbose=False,
+                          clustering_params={"k_max": 1024}, device=device)
+    st = la.run(sn_bench, frames[:16])
+    ja = JumpAnalysis(verbose=False, device=device)
+    ja.run(st)
+    sync()
+    sn_out = st.site_network
+    check(st.traj.shape == (16, n_ions), f"traj shape {st.traj.shape}")
+    check(np.isfinite(st.confidences).all(), "non-finite confidences")
+    check(np.isfinite(la.landmark_vectors).all(), "non-finite lv")
+    check(np.isclose(sn_out.occupancies.sum() * 16, (st.traj >= 0).sum()),
+          "occupancies disagree with the labels")
+    print(f"LandmarkAnalysis + JumpAnalysis (16 bench frames): "
+          f"{sn_out.n_sites} sites, {100 * np.mean(st.traj < 0):.2f}% "
+          f"unassigned, {ja.n_jumps} jumps, "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    # the same engine against its dense route on a small input
+    kw = dict(cutoff_midpoint=MID, cutoff_steepness=STEEP,
+              cutoff_shape=CUTOFF, verbose=False, device=device)
+    la_k, la_d = LandmarkAnalysis(**kw), LandmarkAnalysis(use_fused=False,
+                                                          **kw)
+    sn_small = site_network(small)
+    st_k = la_k.run(sn_small, frames_of(small))
+    st_d = la_d.run(sn_small, frames_of(small))
+    err = float(np.abs(la_k.landmark_vectors - la_d.landmark_vectors).max())
+    agree = float(np.mean(st_k.traj == st_d.traj))
+    check(err <= 5e-5, f"small LandmarkAnalysis: lv error {err:.3g}")
+    check(st_k.site_network.n_sites == st_d.site_network.n_sites
+          and agree >= 0.995, "small LandmarkAnalysis: kernel and dense "
+          f"routes disagree ({agree:.4f} of labels)")
+    print(f"small LandmarkAnalysis: K2 route vs dense route: "
+          f"{st_k.site_network.n_sites} sites both, labels agree on "
+          f"{100 * agree:.2f}%, lv err {err:.3g}", flush=True)
+
+    # SpmdLandmarkPipeline through K1 at the bench width, timed
+    pipe = SpmdLandmarkPipeline(
+        sn_bench, run["centers"], np.ones(len(run["centers"]), bool),
+        cutoff_midpoint=MID, cutoff_steepness=STEEP, cutoff_shape=CUTOFF,
+        assignment_threshold=THR, device=device)
+    check(pipe.route == "mxu", f"bench pipeline route {pipe.route}")
+    blocks = [frames[i:i + 32] for i in range(0, len(frames), 32)]
+    one_pass(pipe, blocks)                        # warm-up
+    reps = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        out = one_pass(pipe, blocks)
+        reps.append(len(frames) / (time.perf_counter() - t0))
+    fps = float(np.median(reps))
+    labels = np.concatenate([o[0] for o in out])
+    check(np.isfinite(np.concatenate([o[1] for o in out])).all(),
+          "pipeline: non-finite confidences")
+    K = len(run["centers"])
+    want, _, _ = _jump_stats_block_int64(
+        labels, K, np.full(n_ions, -1, np.int64), np.zeros(n_ions, np.int64),
+        "persist")
+    n_ij = sum(o[2]["n_ij"] for o in out)
+    check(np.array_equal(n_ij, want["n_ij"]) and np.array_equal(
+        sum(o[2]["occ_counts"] for o in out), want["occ_counts"]),
+        "pipeline: chained jump statistics differ from the int64 oracle")
+    check(n_ij.sum() > 0, "pipeline: no jumps")
+    print(f"pipeline (K1, 8 x 32 bench frames, carry): {fps:.1f} frames/s, "
+          f"median of 5 [{min(reps):.1f}, {max(reps):.1f}]; "
+          f"{100 * np.mean(labels >= 0):.2f}% assigned; {int(n_ij.sum())} "
+          "jumps == int64 oracle", flush=True)
+
+    # the pipeline on a basis without vertex sharing: K3, held to the dense
+    # route on the same frames
+    sn_ns = site_network(no_share)
+    ctr = no_share["centers"]
+    pk = dict(cutoff_midpoint=MID, cutoff_steepness=STEEP,
+              cutoff_shape=CUTOFF, assignment_threshold=THR, device=device)
+    pipe_g = SpmdLandmarkPipeline(sn_ns, ctr, np.ones(len(ctr), bool), **pk)
+    pipe_d = SpmdLandmarkPipeline(sn_ns, ctr, np.ones(len(ctr), bool),
+                                  use_fused=False, **pk)
+    check(pipe_g.route == "gather", f"no-sharing route {pipe_g.route}")
+    fr = frames_of(no_share)
+    got = one_pass(pipe_g, (fr[:8], fr[8:]))
+    ref = one_pass(pipe_d, (fr[:8], fr[8:]))
+    gl, rl = (np.concatenate([o[0] for o in x]) for x in (got, ref))
+    gc, rc = (np.concatenate([o[1] for o in x]) for x in (got, ref))
+    check(np.isfinite(gc).all(), "K3 pipeline: non-finite confidences")
+    cerr = float(np.abs(gc - rc).max())
+    agree = float(np.mean(gl == rl))
+    check(cerr <= CONF_ATOL[True], f"K3 pipeline: conf error {cerr:.3g}")
+    check(agree >= 0.99, f"K3 pipeline vs dense: labels agree on {agree:.4f}")
+    print(f"pipeline (K3, no vertex sharing): labels agree with the dense "
+          f"route on {100 * agree:.2f}% ({100 * np.mean(gl >= 0):.1f}% "
+          f"assigned), max conf err {cerr:.3g}", flush=True)
+
+    sync()
+    launches = dict(K1=mx.mxu_assign_blocks.launches,
+                    K2=mx.mxu_landmark_blocks.launches,
+                    K3=lp.fused_assign_blocks.launches)
+    print(f"launches on the main path: {launches}", flush=True)
+    for k, n in launches.items():
+        check(n > 0, f"{k} was not launched on the main path")
+    return launches, fps
+
+
+def one_pass(pipe, blocks):
+    """Run consecutive frame blocks through a pipeline, chaining the jump
+    carry.  Returns [(labels, confs, stats)] per block."""
+    carry, out = None, []
+    for blk in blocks:
+        labels, confs, stats = pipe.run_block(blk, carry)
+        carry = (stats["last_sites"], stats["last_res"])
+        out.append((labels, confs, stats))
+    return out
+
+
+def no_sharing_system(seed):
+    """48 sites on a 4 x 4 x 3 grid, each a tetrahedron of its own 4 static
+    atoms (no vertex is shared); 24 ions hopping among them, 16 frames."""
+    rng = np.random.default_rng(seed)
+    a = 5.0
+    g = np.stack(np.meshgrid(np.arange(4), np.arange(4), np.arange(3),
+                             indexing="ij"), -1).reshape(-1, 3)
+    cell = np.diag([4 * a, 4 * a, 3 * a])
+    sites = (g + 0.5) * a
+    tet = np.array([[1, 1, 1], [1, -1, -1], [-1, 1, -1], [-1, -1, 1]]) * 1.2
+    host = (sites[:, None, :] + tet[None]).reshape(-1, 3)
+    verts = np.arange(len(host), dtype=np.int32).reshape(len(sites), 4)
+    return hopping(rng, cell, host, verts, sites, 24, 16, len(sites), 0.05,
+                   sigma=0.3)
+
+
+KERNELS = {
+    "K1": dict(name="K1 unique-atom assign (lv_tile + assign_tail)",
+               source="sitator_tpu_torch/csrc/lv_tile.cu",
+               also=["sitator_tpu_torch/csrc/assign_tail.cu"],
+               replaces="sitator_tpu/ops/landmark_mxu.py:419"),
+    "K2": dict(name="K2 unique-atom landmark vectors (lv_tile)",
+               source="sitator_tpu_torch/csrc/lv_tile.cu",
+               replaces="sitator_tpu/ops/landmark_mxu.py:667"),
+    "K3": dict(name="K3 gather assign (lv_gather + assign_tail)",
+               source="sitator_tpu_torch/csrc/lv_gather.cu",
+               also=["sitator_tpu_torch/csrc/assign_tail.cu"],
+               replaces="sitator_tpu/ops/landmark_pallas.py:82"),
+}
+
+
+def main():
+    if not (ROOT / "sitator_tpu_torch" / "csrc").is_dir() \
+            or not (ROOT / "bench.py").is_file():
+        print("chip_smoke: run from the root of a repository checkout",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this smoke "
+              "test needs a GPU", file=sys.stderr)
+        return 1
+    t0 = time.perf_counter()
+    phase_device()
+    phase_build()
+    res = phase_kernels("cuda")
+    launches, fps = phase_slice("cuda")
+    check(not any(m == "jax" or m.startswith("jax.") for m in sys.modules),
+          "jax was imported")
+    kernels = []
+    for key, meta in KERNELS.items():
+        err, ms, pms = res[key]
+        kernels.append(dict(meta, route="cuda", launches=launches[key],
+                            max_abs_err=err, ms=ms, plain_ms=pms))
+    print(f"pipeline frames/s: {fps:.1f}; total {time.perf_counter() - t0:.1f}"
+          " s", flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,80 @@
+// Shared device helpers of the landmark kernels: the cell/params layout
+// written by sitator_tpu_torch.ops.kernel_common.pack_cell_params, the
+// minimum image, and the log cutoff.  Same math as the plain PyTorch
+// versions in sitator_tpu_torch/ops/kernel_common.py.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// Kernel arguments are copied at launch, so the params live in the launch
+// (no device buffer, no host sync).
+struct CellParams {
+  float c[9];    // triclinic: rows are lattice vectors
+  float ci[9];   // triclinic: inverse
+  float l[3];    // orthorhombic: lengths
+  float il[3];   // orthorhombic: 1 / lengths, rounded to float32
+  float mid, steep, thr;
+  int tri;
+};
+
+// params: 21 floats [cell(9), inv(9), mid, steep, thr] when triclinic,
+// else 6 floats [lx, ly, lz, mid, steep, thr]; host memory.
+static inline CellParams load_cell_params(const float* p, int tri) {
+  CellParams k = {};
+  k.tri = tri;
+  if (tri) {
+    for (int i = 0; i < 9; ++i) {
+      k.c[i] = p[i];
+      k.ci[i] = p[9 + i];
+    }
+    k.mid = p[18];
+    k.steep = p[19];
+    k.thr = p[20];
+  } else {
+    for (int i = 0; i < 3; ++i) {
+      k.l[i] = p[i];
+      k.il[i] = 1.0f / p[i];
+    }
+    k.mid = p[3];
+    k.steep = p[4];
+    k.thr = p[5];
+  }
+  return k;
+}
+
+// rintf rounds half to even, as the reference's round does.
+__device__ __forceinline__ void min_image(float& dx, float& dy, float& dz,
+                                          const CellParams& P) {
+  if (P.tri) {
+    float fx = dx * P.ci[0] + dy * P.ci[3] + dz * P.ci[6];
+    float fy = dx * P.ci[1] + dy * P.ci[4] + dz * P.ci[7];
+    float fz = dx * P.ci[2] + dy * P.ci[5] + dz * P.ci[8];
+    fx -= rintf(fx);
+    fy -= rintf(fy);
+    fz -= rintf(fz);
+    dx = fx * P.c[0] + fy * P.c[3] + fz * P.c[6];
+    dy = fx * P.c[1] + fy * P.c[4] + fz * P.c[7];
+    dz = fx * P.c[2] + fy * P.c[5] + fz * P.c[8];
+  } else {
+    dx -= rintf(dx * P.il[0]) * P.l[0];
+    dy -= rintf(dy * P.il[1]) * P.l[1];
+    dz -= rintf(dz * P.il[2]) * P.l[2];
+  }
+}
+
+// Argument of the logistic: k (d - d0), or the slope-matched d² form
+// k2 d² - k2 d0² with k2 = k / (2 d0).
+__device__ __forceinline__ float cutoff_arg(float d2, const CellParams& P,
+                                           int r2) {
+  if (r2) {
+    float k2 = P.steep / (2.0f * P.mid);
+    return k2 * d2 - k2 * (P.mid * P.mid);
+  }
+  return P.steep * (sqrtf(d2) - P.mid);
+}
+
+// log of the logistic: -softplus(x) = -(max(x, 0) + log1p(exp(-|x|))).
+__device__ __forceinline__ float log_cutoff(float x) {
+  return -(fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x))));
+}

@@ -1,0 +1,9 @@
+from sitator_tpu_torch.landmark.analysis import LandmarkAnalysis
+from sitator_tpu_torch.util.errors import (
+    StaticLatticeError,
+    ZeroLandmarkError,
+    MultipleOccupancyError,
+)
+
+__all__ = ["LandmarkAnalysis", "StaticLatticeError", "ZeroLandmarkError",
+           "MultipleOccupancyError"]

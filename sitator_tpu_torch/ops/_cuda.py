@@ -1,0 +1,199 @@
+"""Build, load and launch the hand-written CUDA kernels in ``csrc/``.
+
+The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, loaded with ``ctypes``.  The build
+lands in ``build/sitator_tpu_torch-<hash>/`` beside the package, keyed by a
+hash of the sources, so a fresh checkout builds everything from its own
+sources and an edited source rebuilds.  Nothing here is imported or built
+until a CUDA tensor reaches a kernel wrapper.
+
+Every launcher checks device, dtype, shape and contiguity, launches on
+PyTorch's current stream, and raises when the C entry returns a CUDA error
+(a refused launch never runs, and a later synchronise would not report it).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # mob, vpu, A, kill, anchors, col_map, out, B, MP, M_out, n_st, UP,
+    # s_tile, out_cols, params, triclinic, r2, preshift, stream
+    "sit_lv_tile": [_P] * 7 + [_I] * 7 + [_P, _I, _I, _I, _P],
+    # mob, vp, mask, out, B, MP, V, SP, params, triclinic, r2, full_mask,
+    # stream
+    "sit_lv_gather": [_P] * 4 + [_I] * 4 + [_P, _I, _I, _I, _P],
+    # lv, inv_norm, centers, part_val, part_idx, labels, confs, rows, cols,
+    # KP, clip, bf16, threshold, stream
+    "sit_assign_tail": [_P] * 7 + [_I] * 5 + [_F, _P],
+}
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    return os.path.join(home, "bin", "nvcc")
+
+
+def build():
+    """Compile ``csrc/*.cu`` unless a library for these exact sources is
+    already built.  Returns ``(path, seconds, compiler_log)``; seconds is 0
+    and the log empty when nothing was compiled."""
+    h = hashlib.sha256()
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(ARCH_FLAGS).encode())
+    out_dir = BUILD_ROOT / f"sitator_tpu_torch-{h.hexdigest()[:16]}"
+    lib = out_dir / "libsitator_kernels.so"
+    if lib.exists():
+        return lib, 0.0, ""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"libsitator_kernels.{os.getpid()}.so"
+    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
+           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib, seconds, proc.stderr
+
+
+@functools.lru_cache(maxsize=None)
+def library():
+    """The loaded kernel library (built on first call)."""
+    path, _, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.sit_error_string.argtypes = [ctypes.c_int]
+    lib.sit_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _call(name, *args):
+    lib = library()
+    err = getattr(lib, name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} "
+                           f"({lib.sit_error_string(err).decode()})")
+
+
+def _check(t, name, dtype, shape=None):
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    return t.data_ptr()
+
+
+def _host_params(params):
+    p = params.detach().to("cpu", torch.float32).contiguous()
+    if p.numel() not in (6, 21):
+        raise ValueError("params must hold 6 (orthorhombic) or 21 "
+                         "(triclinic) floats")
+    return p
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def lv_tile(mob, vpu, A, kill, anchors, col_map, out, params, *,
+            triclinic, r2_cutoff, preshift):
+    """Landmark vectors of every (ion, kd site tile) into ``out (B, M_out,
+    out_cols)``: column ``c`` of the kd-ordered site axis lands in
+    ``out[..., col_map[c]]`` (skipped where ``col_map[c] < 0``), ion rows
+    beyond ``M_out`` are skipped."""
+    B, _, MP = mob.shape
+    n_st, UP, s_tile = A.shape
+    SP = n_st * s_tile
+    _, M_out, out_cols = out.shape
+    if UP % 32 or MP % 64 or M_out > MP:
+        raise ValueError("lv_tile needs UP % 32 == 0, MP % 64 == 0, "
+                         "M_out <= MP")
+    p = _host_params(params)
+    _call("sit_lv_tile",
+          _check(mob, "mob", torch.float32, (B, 3, MP)),
+          _check(vpu, "vpu", torch.float32, (B, n_st, 3, UP)),
+          _check(A, "A", torch.float32),
+          _check(kill, "kill", torch.float32, (SP,)),
+          _check(anchors, "anchors", torch.float32, (n_st, 3)),
+          _check(col_map, "col_map", torch.int32, (SP,)),
+          _check(out, "out", torch.float32, (B, M_out, out_cols)),
+          B, MP, M_out, n_st, UP, s_tile, out_cols, p.data_ptr(),
+          int(triclinic), int(r2_cutoff), int(preshift), _stream())
+
+
+def lv_gather(mob, vp, mask, out, params, *, triclinic, r2_cutoff,
+              full_mask):
+    """Per-vertex-slot landmark vectors ``out (B, MP, SP)`` of every (ion,
+    site) pair; mask row ``V`` kills padding sites."""
+    B, _, MP = mob.shape
+    _, _, V, SP = vp.shape
+    p = _host_params(params)
+    _call("sit_lv_gather",
+          _check(mob, "mob", torch.float32, (B, 3, MP)),
+          _check(vp, "vp", torch.float32, (B, 3, V, SP)),
+          _check(mask, "mask", torch.float32, (V + 1, SP)),
+          _check(out, "out", torch.float32, (B, MP, SP)),
+          B, MP, V, SP, p.data_ptr(), int(triclinic), int(r2_cutoff),
+          int(full_mask), _stream())
+
+
+def assign_tail(lv, centers, threshold, *, peak_clip, mxu_bf16):
+    """Cosine assignment of every row of ``lv (rows, SP)`` (clipped in
+    place at its second-largest value when ``peak_clip``) to the padded
+    centres ``centers (SP, KP)``.  Returns (labels int32, confs float32),
+    both ``(rows,)``."""
+    rows, SP = lv.shape
+    KP = centers.shape[1]
+    if KP % 128:
+        raise ValueError("centers must be padded to a multiple of 128")
+    n_kb = KP // 128
+    dev = lv.device
+    inv_norm = torch.empty(rows, device=dev, dtype=torch.float32)
+    part_val = torch.empty((rows, n_kb), device=dev, dtype=torch.float32)
+    part_idx = torch.empty((rows, n_kb), device=dev, dtype=torch.int32)
+    labels = torch.empty(rows, device=dev, dtype=torch.int32)
+    confs = torch.empty(rows, device=dev, dtype=torch.float32)
+    _call("sit_assign_tail",
+          _check(lv, "lv", torch.float32),
+          inv_norm.data_ptr(),
+          _check(centers, "centers", torch.float32, (SP, KP)),
+          part_val.data_ptr(), part_idx.data_ptr(), labels.data_ptr(),
+          confs.data_ptr(), rows, SP, KP, int(peak_clip), int(mxu_bf16),
+          float(threshold), _stream())
+    return labels, confs

@@ -1,0 +1,169 @@
+"""Shared helpers for the landmark kernels and their plain versions.
+
+Counterpart of ``sitator_tpu.ops.kernel_common``.  The cell/params layout
+is the one the CUDA kernels read (``csrc/landmark_common.cuh``); the
+``min_image_xyz`` / ``merge_top2`` math here is what the plain PyTorch
+versions of the kernels run, element for element.  Kernel dispatch goes by
+``tensor.is_cuda``, so there is no backend probe.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["round_up", "pack_cell_params", "load_cell_params",
+           "min_image_xyz", "merge_top2", "supports_cell", "kernel_cell",
+           "softplus", "tiled_assign_plain"]
+
+
+def round_up(x, m):
+    """Round ``x`` up to the next multiple of ``m``."""
+    return (x + m - 1) // m * m
+
+
+def as_f32(x, device):
+    """``x`` (tensor, NumPy or JAX array) as a float32 tensor on ``device``."""
+    if not torch.is_tensor(x):
+        x = torch.from_numpy(np.asarray(x, np.float32))
+    return x.to(device=device, dtype=torch.float32)
+
+
+def cell_array(cell):
+    """A kernel cell argument ((3,) or (3, 3); tensor or array) as float32
+    NumPy."""
+    if torch.is_tensor(cell):
+        cell = cell.detach().cpu().numpy()
+    return np.asarray(cell, np.float32)
+
+
+def softplus(x):
+    """``log(1 + e^x)`` as ``logaddexp(x, 0)`` — the formula of the
+    reference's softplus, with no switch to the identity at large ``x``."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def supports_cell(cell, tol=1e-8) -> bool:
+    """True when ``cell`` is orthorhombic (diagonal) — the kernels' cheap
+    per-axis minimum-image variant.  Triclinic cells are supported too (via
+    :func:`kernel_cell`); this predicate only selects the cheap path."""
+    cell = np.asarray(cell)
+    return bool(np.all(np.abs(cell - np.diag(np.diag(cell))) < tol))
+
+
+def kernel_cell(cell):
+    """Reduce a (3, 3) cell to the kernels' preferred argument: the ``(3,)``
+    diagonal when orthorhombic, else the full ``(3, 3)`` matrix — a float32
+    CPU tensor either way."""
+    cell = np.asarray(cell, np.float32)
+    if supports_cell(cell):
+        return torch.from_numpy(np.diag(cell).copy())
+    return torch.from_numpy(cell.copy())
+
+
+def pack_cell_params(cell, consts):
+    """Pack the cell and trailing scalar constants (midpoint, steepness,
+    threshold) into one float32 CPU vector: ``[cell(9), cell_inv(9),
+    consts]`` for a (3, 3) triclinic cell, ``[lx, ly, lz, consts]`` for the
+    (3,) orthorhombic diagonal.  Returns ``(params, triclinic)``."""
+    cell = torch.as_tensor(np.asarray(cell, np.float32))
+    consts = torch.as_tensor(np.asarray(consts, np.float32))
+    if cell.ndim == 2:
+        cell_inv = torch.linalg.inv(cell)
+        return torch.cat([cell.reshape(-1), cell_inv.reshape(-1), consts]), True
+    return torch.cat([cell, consts]), False
+
+
+def load_cell_params(params, triclinic):
+    """Unpack :func:`pack_cell_params` → ``(cell, midpoint, steepness,
+    threshold)`` as 0-d float32 tensors on ``params``' device; ``cell`` is
+    the (rows, inverse) pair for triclinic cells, else ``(lx, ly, lz)``."""
+    p = list(params.unbind(0))
+    if triclinic:
+        return (tuple(p[:9]), tuple(p[9:18])), p[18], p[19], p[20]
+    return tuple(p[:3]), p[3], p[4], p[5]
+
+
+def min_image_xyz(dx, dy, dz, cell, triclinic):
+    """Minimum-image displacement components (same math as
+    ``ops.pbc.min_image_disp``): per-axis rounding for orthorhombic cells,
+    the fractional round-trip for triclinic ones."""
+    if triclinic:
+        c, ci = cell
+        fx = dx * ci[0] + dy * ci[3] + dz * ci[6]
+        fy = dx * ci[1] + dy * ci[4] + dz * ci[7]
+        fz = dx * ci[2] + dy * ci[5] + dz * ci[8]
+        fx = fx - torch.round(fx)
+        fy = fy - torch.round(fy)
+        fz = fz - torch.round(fz)
+        dx = fx * c[0] + fy * c[3] + fz * c[6]
+        dy = fx * c[1] + fy * c[4] + fz * c[7]
+        dz = fx * c[2] + fy * c[5] + fz * c[8]
+        return dx, dy, dz
+    lx, ly, lz = cell
+    dx = dx - torch.round(dx * (1.0 / lx)) * lx
+    dy = dy - torch.round(dy * (1.0 / ly)) * ly
+    dz = dz - torch.round(dz * (1.0 / lz)) * lz
+    return dx, dy, dz
+
+
+def merge_top2(top2_acc, lv):
+    """Merge a tile's per-row top-2 of ``lv (..., S_t)`` into the running
+    top-2 ``top2_acc (..., 2)``; returns the merged summary.
+
+    Ties: if the max occurs more than once, the 2nd-largest IS the max
+    (the ``top_k`` semantics of ``ops.landmark.peak_even``).
+    """
+    m1 = lv.amax(dim=-1)
+    is_max = lv >= m1[..., None]
+    n_max = is_max.sum(dim=-1)
+    m2 = torch.where(n_max > 1, m1,
+                     torch.where(is_max, -1.0, lv).amax(dim=-1))
+    r1, r2 = top2_acc[..., 0], top2_acc[..., 1]
+    return torch.stack([torch.maximum(r1, m1),
+                        torch.maximum(torch.minimum(r1, m1),
+                                      torch.maximum(r2, m2))], dim=-1)
+
+
+def _round_bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def tiled_assign_plain(tile_lv, B, MP, n_tiles, s_tile, cpad, threshold, *,
+                       frame_chunk, peak_clip, mxu_bf16):
+    """Plain version of the assignment tail shared by K1 and K3.
+
+    ``tile_lv(lo, hi, t)`` gives frames ``lo:hi``'s landmark vectors on site
+    tile ``t`` as ``(hi - lo, MP, s_tile)``; ``cpad (n_tiles·s_tile, KP)``
+    holds the zero-padded centres as columns.  With ``peak_clip`` a first
+    sweep reduces every row's top-2 and the second clips at it.  Then the
+    running norm² (f32) and ``sims += lv @ centres`` (operands rounded to
+    bf16 when ``mxu_bf16``, f32 accumulation), ``sims · rsqrt(max(norm²,
+    1e-24))``, the first-index arg-max over all ``KP`` columns, and the
+    threshold (label −1 below it).  Returns labels int32 / confs, ``(B,
+    MP)``."""
+    dev = cpad.device
+    c = _round_bf16(cpad) if mxu_bf16 else cpad
+    labels = torch.empty((B, MP), dtype=torch.int32, device=dev)
+    confs = torch.empty((B, MP), device=dev)
+    for lo in range(0, B, frame_chunk):
+        hi = min(lo + frame_chunk, B)
+        if peak_clip:
+            top2 = torch.zeros((hi - lo, MP, 2), device=dev)
+            for t in range(n_tiles):
+                top2 = merge_top2(top2, tile_lv(lo, hi, t))
+            cap = top2[..., 1:2]
+        sims = torch.zeros((hi - lo, MP, c.shape[1]), device=dev)
+        norm2 = torch.zeros((hi - lo, MP), device=dev)
+        for t in range(n_tiles):
+            lv = tile_lv(lo, hi, t)
+            if peak_clip:
+                lv = torch.minimum(lv, cap)
+            norm2 += (lv * lv).sum(-1)
+            sims += ((_round_bf16(lv) if mxu_bf16 else lv)
+                     @ c[t * s_tile:(t + 1) * s_tile])
+        sims = sims * torch.rsqrt(torch.clamp_min(norm2, 1e-24))[..., None]
+        conf = sims.amax(-1)
+        lab = sims.argmax(-1).to(torch.int32)
+        labels[lo:hi] = torch.where(conf >= threshold, lab, -1)
+        confs[lo:hi] = conf
+    return labels, confs
