@@ -16,7 +16,8 @@ Phases; any failure exits non-zero before the result lines:
    9261 landmarks x 8 vertices, 1024 centres) with its random centres
    (timed) and with site centres, plus a ``peak_evening='clip'`` case and a
    triclinic case at a reduced width; the unique-atom (K1) and gather (K3)
-   labels against each other;
+   labels against each other; the skewed unique-atom kernel (K1s) bit for
+   bit against K1 wherever ``peak_evening='none'``;
 4. the slice end to end through the user entry points, with the launch
    counters reset first and read after: ``LandmarkAnalysis`` (K2) then
    ``JumpAnalysis``; ``SpmdLandmarkPipeline`` over 8 blocks x 32 frames with
@@ -26,7 +27,16 @@ Phases; any failure exits non-zero before the result lines:
    unit landmark vectors of an ion on each of them: under ``bench.py``'s
    random centres every similarity is far below the threshold, every label
    is -1 and no jump would be recorded, at the same work per frame;
-5. one JSON line of per-kernel results, then the ``ok`` line, last.
+5. the K1s path: ``mxu_assign_blocks(skew=True)`` against ``skew=False``
+   over 8 bench blocks through the public wrapper, bit for bit (the A/B of
+   ``tools/ab_skew.py``), counters reset first and read after;
+6. ``StreamingLandmarkAnalysis`` at the bench width over 1024 frames:
+   ``fit_centers`` (K2) then ``run`` (K1) in 256-frame blocks with the labels
+   spilled to a memmap, timed; its statistics against the int64 oracle on
+   the spilled labels, its labels bit for bit against
+   ``SpmdLandmarkPipeline`` on the same frames and centres, and the run
+   again without the memmap, counters reset first and read after;
+7. one JSON line of per-kernel results, then the ``ok`` line, last.
 
 Label comparisons are gated on the reference's top-2 margin: labels must be
 equal wherever the best and second-best cosine similarities (f32, from the
@@ -279,9 +289,10 @@ def phase_build():
 
 def kernel_cases(sy, centers, device, *, peak_evening, n_lv_frames,
                  s_tile_gather, full_mask, label, reps, bf16=True):
-    """K2, K1 and K3 against their plain versions on one system with the
-    given centres; K1 against K3.  Returns {kernel: (max_abs_err, ms,
-    plain_ms)} (times only when ``reps``)."""
+    """K2, K1, K1s (``peak_evening='none'`` only) and K3 against their plain
+    versions on one system with the given centres; K1 against K3, and K1s
+    bit for bit against K1.  Returns {kernel: (max_abs_err, ms, plain_ms)}
+    (times only when ``reps``)."""
     import torch
     from sitator_tpu_torch.ops import landmark_mxu as mx
     from sitator_tpu_torch.ops import landmark_pallas as lp
@@ -337,6 +348,39 @@ def kernel_cases(sy, centers, device, *, peak_evening, n_lv_frames,
                             timed(lambda: mx._mxu_assign_plain(**a1), 2))
                            if reps else (None, None))
 
+    if peak_evening == "none":
+        ks = [x[:, :M] for x in mx._mxu_assign_skew_cuda(**a1)]
+        sync()
+        errs = compare_assign(f"{label} K1s", ks, p1, margin, top1, bf16)
+        check(torch.equal(ks[0], k1[0])
+              and torch.equal(ks[1].view(torch.int32),
+                              k1[1].view(torch.int32)),
+              f"{label}: K1s differs from K1 "
+              f"({int((ks[0] != k1[0]).sum())} labels, "
+              f"{int((ks[1] != k1[1]).sum())} confs)")
+        print(f"  {label} K1s vs K1: labels and confs bit-equal on "
+              f"{ks[0].numel()} rows", flush=True)
+        out["K1s"] = (errs,) + ((
+            timed(lambda: mx._mxu_assign_skew_cuda(**a1), reps),
+            timed(lambda: mx._mxu_assign_plain(**a1), 2))
+            if reps else (None, None))
+        del ks
+    else:
+        # K1s has no two-pass (clip) form: the public wrapper must refuse
+        try:
+            mx.mxu_assign_blocks(mobile, static, basis, kcell,
+                                 mx.permute_centers(centers, basis),
+                                 midpoint=MID, steepness=STEEP,
+                                 threshold=THR, cutoff_shape=CUTOFF,
+                                 peak_evening=peak_evening, skew=True)
+        except ValueError as e:
+            check("skew" in str(e), f"{label}: skew with clip raised {e!r}")
+            print(f"  {label}: skew=True with peak_evening='clip' raises "
+                  "ValueError", flush=True)
+        else:
+            raise SmokeError(f"{label}: mxu_assign_blocks(skew=True, "
+                             "peak_evening='clip') did not raise")
+
     a3 = lp._gather_inputs(mobile, static, sy["verts"],
                            np.ones_like(sy["verts"], bool), kcell,
                            centers, midpoint=MID, steepness=STEEP,
@@ -368,6 +412,7 @@ def phase_kernels(device):
                         label="bench site centres", reps=0, **kw)
     res = {k: (max(err, site[k][0]), ms, pms)
            for k, (err, ms, pms) in res.items()}
+
     # the clip case in f32 similarities: clipping flattens the rows, so
     # most top-2 margins sit inside the bf16 gate
     for label, sy, peak, bf16 in (
@@ -381,9 +426,32 @@ def phase_kernels(device):
                      n_lv_frames=8, s_tile_gather=128, full_mask=False,
                      label=label, reps=0, bf16=bf16)
     for name, (err, ms, pms) in sorted(res.items()):
+        also = (f"; K1 {res['K1'][1]:.3f} ms on the same inputs"
+                if name == "K1s" else "")
         print(f"time {name} at the bench width: kernel {ms:.3f} ms, plain "
-              f"{pms:.3f} ms", flush=True)
+              f"{pms:.3f} ms{also}", flush=True)
     return res
+
+
+def reset_launches():
+    """Set every kernel wrapper's launch count to 0."""
+    from sitator_tpu_torch.ops import landmark_mxu as mx
+    from sitator_tpu_torch.ops import landmark_pallas as lp
+    mx.mxu_assign_blocks.launches = 0
+    mx.mxu_assign_blocks.skew_launches = 0
+    mx.mxu_landmark_blocks.launches = 0
+    lp.fused_assign_blocks.launches = 0
+
+
+def read_launches():
+    """The launch counts by kernel, after a synchronise."""
+    from sitator_tpu_torch.ops import landmark_mxu as mx
+    from sitator_tpu_torch.ops import landmark_pallas as lp
+    sync()
+    return dict(K1=mx.mxu_assign_blocks.launches,
+                K2=mx.mxu_landmark_blocks.launches,
+                K3=lp.fused_assign_blocks.launches,
+                K1s=mx.mxu_assign_blocks.skew_launches)
 
 
 def phase_slice(device):
@@ -391,8 +459,6 @@ def phase_slice(device):
     counts and the pipeline's frames/s."""
     from sitator_tpu_torch import (JumpAnalysis, LandmarkAnalysis,
                                    SpmdLandmarkPipeline)
-    from sitator_tpu_torch.ops import landmark_mxu as mx
-    from sitator_tpu_torch.ops import landmark_pallas as lp
     from sitator_tpu_torch.ops.jumps import _jump_stats_block_int64
 
     run = add_site_centres(bench_system(8 * 32, seed=11), device)
@@ -401,9 +467,7 @@ def phase_slice(device):
     sn_bench = site_network(run)
     frames = frames_of(run)
     n_ions = run["mobile"].shape[1]
-    for fn in (mx.mxu_assign_blocks, mx.mxu_landmark_blocks,
-               lp.fused_assign_blocks):
-        fn.launches = 0
+    reset_launches()
 
     # LandmarkAnalysis (K2) -> JumpAnalysis on 16 frames at the bench width
     t0 = time.perf_counter()
@@ -498,13 +562,140 @@ def phase_slice(device):
           f"route on {100 * agree:.2f}% ({100 * np.mean(gl >= 0):.1f}% "
           f"assigned), max conf err {cerr:.3g}", flush=True)
 
-    sync()
-    launches = dict(K1=mx.mxu_assign_blocks.launches,
-                    K2=mx.mxu_landmark_blocks.launches,
-                    K3=lp.fused_assign_blocks.launches)
+    launches = read_launches()
     print(f"launches on the main path: {launches}", flush=True)
-    for k, n in launches.items():
-        check(n > 0, f"{k} was not launched on the main path")
+    for k in ("K1", "K2", "K3"):
+        check(launches[k] > 0, f"{k} was not launched on the main path")
+    return launches, fps
+
+
+def phase_skew(device):
+    """The K1s path: ``mxu_assign_blocks`` with ``skew=True`` and with
+    ``skew=False`` through the public wrapper over 8 bench blocks of 32
+    frames, labels and confs held bit for bit (what ``tools/ab_skew.py``
+    does on the TPU).  Returns the launch counts."""
+    import torch
+    from sitator_tpu_torch.ops import landmark_mxu as mx
+    from sitator_tpu_torch.ops.kernel_common import kernel_cell
+
+    sy = add_site_centres(bench_system(8 * 32, seed=17), device)
+    basis = mx.prepare_engine_basis(
+        sy["verts"], np.ones_like(sy["verts"], bool), sy["site_pos"],
+        sy["cell"], midpoint=MID, steepness=STEEP, cutoff_shape=CUTOFF,
+        static_ref=sy["static_ref"], drift_budget=1.0)
+    basis = mx.basis_from_jax(basis, device)
+    centers = torch.as_tensor(mx.permute_centers(sy["centers"], basis),
+                              device=device)
+    kcell = kernel_cell(sy["cell"])
+    kw = dict(midpoint=MID, steepness=STEEP, threshold=THR,
+              cutoff_shape=CUTOFF)
+    reset_launches()
+    mism = assigned = 0
+    for lo in range(0, 8 * 32, 32):
+        mobile = torch.as_tensor(sy["mobile"][lo:lo + 32], device=device)
+        static = torch.as_tensor(sy["static"][lo:lo + 32], device=device)
+        la, ca = mx.mxu_assign_blocks(mobile, static, basis, kcell, centers,
+                                      skew=False, **kw)
+        ls, cs = mx.mxu_assign_blocks(mobile, static, basis, kcell, centers,
+                                      skew=True, **kw)
+        mism += int((la != ls).sum()) + int(
+            (ca.view(torch.int32) != cs.view(torch.int32)).sum())
+        assigned += int((ls >= 0).sum())
+    launches = read_launches()
+    print(f"K1s path (8 x 32 bench frames through mxu_assign_blocks, skew "
+          f"and not): {mism} label/conf bit mismatches, "
+          f"{100 * assigned / sy['mobile'][:256, :, 0].size:.2f}% assigned; "
+          f"launches {launches}", flush=True)
+    check(mism == 0, f"K1s path: {mism} bit mismatches against K1")
+    for k in ("K1", "K1s"):
+        check(launches[k] > 0, f"{k} was not launched on the K1s path")
+    return launches
+
+
+def phase_streaming(device):
+    """``StreamingLandmarkAnalysis`` at the bench width: fit (K2) and pass 2
+    (K1) over 1024 frames in 256-frame blocks.  Returns the launch counts
+    and pass 2's frames/s."""
+    import tempfile
+    from sitator_tpu_torch import SpmdLandmarkPipeline
+    from sitator_tpu_torch import StreamingLandmarkAnalysis
+    from sitator_tpu_torch.io import ArrayTrajectory
+    from sitator_tpu_torch.ops.jumps import _jump_stats_block_int64
+
+    sy = add_site_centres(bench_system(1024, seed=19), device)
+    sn = site_network(sy)
+    frames = frames_of(sy)
+    n_frames, n_ions = len(frames), sy["mobile"].shape[1]
+    kw = dict(cutoff_midpoint=MID, cutoff_steepness=STEEP,
+              cutoff_shape=CUTOFF, block_frames=256,
+              clustering_params={"k_max": 1024}, verbose=False,
+              device=device)
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches()
+        sla = StreamingLandmarkAnalysis(
+            store_labels=str(Path(tmp) / "labels.npy"), **kw)
+        t0 = time.perf_counter()
+        centers = sla.fit_centers(sn, ArrayTrajectory(frames))
+        sync()
+        t_fit = time.perf_counter() - t0
+        fit_launches = read_launches()
+        check(fit_launches["K2"] > 0, "fit_centers did not launch K2")
+        t0 = time.perf_counter()
+        out = sla.run(sn, frames, centers=centers)
+        sync()
+        t_run = time.perf_counter() - t0
+        launches = read_launches()
+        check(sla.route_ == "mxu", f"streaming route {sla.route_}")
+        check(launches["K1"] > 0, "streaming run did not launch K1")
+        labels = np.array(np.load(Path(tmp) / "labels.npy"))
+        phases = dict(sla.phase_times_)
+    fps = n_frames / t_run
+    K = len(centers)
+    print(f"streaming fit (K2): {K} centres from the subsample in "
+          f"{t_fit:.2f} s; launches {fit_launches}", flush=True)
+    print(f"streaming pass 2 (K1, {n_frames} bench frames in 256-frame "
+          f"blocks, labels spilled): {fps:.1f} frames/s ({t_run:.3f} s); "
+          f"launches after fit + run {launches}", flush=True)
+    print("streaming pass 2 phase_times_ (s): " + json.dumps(
+        {k: round(v, 4) for k, v in phases.items()}), flush=True)
+
+    check(labels.shape == (n_frames, n_ions), f"labels {labels.shape}")
+    check(np.isfinite(out.occupancies).all()
+          and np.isfinite(out.centers).all(), "non-finite streaming result")
+    want, _, _ = _jump_stats_block_int64(
+        labels, K, np.full(n_ions, -1, np.int64), np.zeros(n_ions, np.int64),
+        "persist")
+    check(np.array_equal(out.n_ij, want["n_ij"]),
+          "streaming n_ij differs from the int64 oracle on its labels")
+    check(out.n_ij.sum() > 0, "streaming: no jumps")
+    check(np.array_equal(out.occupancies,
+                         np.bincount(labels[labels >= 0], minlength=K)
+                         / n_frames),
+          "streaming occupancies differ from the label counts")
+
+    pipe = SpmdLandmarkPipeline(
+        sn, centers, np.ones(K, bool), cutoff_midpoint=MID,
+        cutoff_steepness=STEEP, cutoff_shape=CUTOFF,
+        assignment_threshold=THR, static_drift_budget=1.0, device=device)
+    check(pipe.route == "mxu", f"pipeline route {pipe.route}")
+    got = one_pass(pipe, [frames[i:i + 256] for i in range(0, n_frames,
+                                                           256)])
+    lab_pipe = np.concatenate([o[0] for o in got])
+    n_diff = int((lab_pipe != labels).sum())
+    check(n_diff == 0, f"streaming labels differ from the pipeline's on "
+          f"{n_diff} rows")
+
+    again = StreamingLandmarkAnalysis(**kw).run(sn, frames, centers=centers)
+    sync()
+    check(np.array_equal(again.n_ij, out.n_ij)
+          and np.array_equal(again.occupancies, out.occupancies)
+          and np.allclose(again.centers, out.centers, atol=1e-6),
+          "streaming run without store_labels differs")
+    print(f"streaming: {100 * np.mean(labels >= 0):.2f}% assigned, "
+          f"{int(out.n_ij.sum())} jumps == int64 oracle; labels == "
+          f"SpmdLandmarkPipeline on all {labels.size} rows; the run without "
+          f"store_labels gives the same statistics; launches with the "
+          f"checks {read_launches()}", flush=True)
     return launches, fps
 
 
@@ -547,6 +738,9 @@ KERNELS = {
                source="sitator_tpu_torch/csrc/lv_gather.cu",
                also=["sitator_tpu_torch/csrc/assign_tail.cu"],
                replaces="sitator_tpu/ops/landmark_pallas.py:82"),
+    "K1s": dict(name="K1s skewed unique-atom assign (assign_skew)",
+                source="sitator_tpu_torch/csrc/assign_skew.cu",
+                replaces="sitator_tpu/ops/landmark_mxu.py:473"),
 }
 
 
@@ -566,16 +760,22 @@ def main():
     phase_device()
     phase_build()
     res = phase_kernels("cuda")
-    launches, fps = phase_slice("cuda")
+    paths = {}
+    paths["slice"], fps = phase_slice("cuda")
+    paths["K1s"] = phase_skew("cuda")
+    paths["streaming"], stream_fps = phase_streaming("cuda")
     check(not any(m == "jax" or m.startswith("jax.") for m in sys.modules),
           "jax was imported")
     kernels = []
     for key, meta in KERNELS.items():
         err, ms, pms = res[key]
-        kernels.append(dict(meta, route="cuda", launches=launches[key],
+        n = sum(p[key] for p in paths.values())
+        check(n > 0, f"{key} was launched on no path")
+        kernels.append(dict(meta, route="cuda", launches=n,
                             max_abs_err=err, ms=ms, plain_ms=pms))
-    print(f"pipeline frames/s: {fps:.1f}; total {time.perf_counter() - t0:.1f}"
-          " s", flush=True)
+    print(f"pipeline frames/s: {fps:.1f}; streaming pass 2 frames/s: "
+          f"{stream_fps:.1f}; total {time.perf_counter() - t0:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

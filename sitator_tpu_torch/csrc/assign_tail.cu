@@ -21,8 +21,8 @@
 // What bounds it on an H100: the similarity product, 2 * MP * SP * KP flop
 // a frame (14.7 GFLOP at the 10k-atom bench config), here on the f32 FMA
 // pipes with bf16-rounded operands (exact products, f32 sums).  Moving it
-// onto the tensor cores (wgmma with bf16 operands) and keeping the lv tile
-// on chip are the next steps.
+// onto the tensor cores (wgmma with bf16 operands) is later work; K1s
+// (assign_skew.cu) runs the same sums with the lv tile kept on chip.
 #include <cuda_bf16.h>
 #include <math.h>
 

@@ -78,3 +78,65 @@ __device__ __forceinline__ float cutoff_arg(float d2, const CellParams& P,
 __device__ __forceinline__ float log_cutoff(float x) {
   return -(fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x))));
 }
+
+// ---------------------------------------------------------------------------
+// The unique-atom landmark-vector core, shared by lv_tile.cu (K2, K1's first
+// stage) and assign_skew.cu (K1s), so that both compute every lv element with
+// the same operations in the same order and K1s's labels are bit-equal to
+// K1's.  Per (ion, kd site tile t):
+//   1. tile_ion_position: on the preshift route the ion moves to its image
+//      nearest the tile anchor (one minimum image per (ion, tile));
+//   2. unique_atom_log_factor: the log cutoff against one unique atom (one
+//      minimum image per pair off the preshift route);
+//   3. membership_fma: lv_acc += logc[k] * A_t[k, c] as a sequential f32 FMA
+//      over the unique atoms k in slice order;
+//   4. lv_value: exp, then 0 on padded site columns.
+
+__device__ __forceinline__ void tile_ion_position(float& x, float& y,
+                                                  float& z,
+                                                  const float* anchors,
+                                                  int t, const CellParams& P,
+                                                  int preshift) {
+  if (!preshift) return;
+  const float ax = anchors[3 * t], ay = anchors[3 * t + 1],
+              az = anchors[3 * t + 2];
+  float dx = x - ax, dy = y - ay, dz = z - az;
+  min_image(dx, dy, dz, P);
+  x = ax + dx;
+  y = ay + dy;
+  z = az + dz;
+}
+
+__device__ __forceinline__ float unique_atom_log_factor(
+    float x, float y, float z, float ux, float uy, float uz,
+    const CellParams& P, int r2, int preshift) {
+  float dx = x - ux, dy = y - uy, dz = z - uz;
+  if (!preshift) min_image(dx, dy, dz, P);
+  return log_cutoff(cutoff_arg(dx * dx + dy * dy + dz * dz, P, r2));
+}
+
+// acc[i][j] = fmaf(As[k][r0 + i * rs], Bs[k][c0 + j * cs], acc[i][j]) for
+// k = 0 .. BK-1 in order; As is (BK x lda), Bs is (BK x ldb), both shared.
+template <int RM, int RN, int BK>
+__device__ __forceinline__ void membership_fma(float (&acc)[RM][RN],
+                                               const float* As, int lda,
+                                               int r0, int rs,
+                                               const float* Bs, int ldb,
+                                               int c0, int cs) {
+#pragma unroll 8
+  for (int k = 0; k < BK; ++k) {
+    float a[RM], b[RN];
+#pragma unroll
+    for (int i = 0; i < RM; ++i) a[i] = As[k * lda + r0 + i * rs];
+#pragma unroll
+    for (int j = 0; j < RN; ++j) b[j] = Bs[k * ldb + c0 + j * cs];
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
+__device__ __forceinline__ float lv_value(float acc, float kill) {
+  return kill > 0.0f ? 0.0f : expf(acc);
+}

@@ -10,7 +10,8 @@
 // label identity assume f32), then exp and the pad-kill.
 //
 // Design: one block of 256 threads computes a 64-ion x 128-site output tile
-// as a register-blocked product (4 x 8 outputs a thread).  The A operand of
+// as a register-blocked product (4 x 8 outputs a thread), through the lv
+// core of landmark_common.cuh that K1s (assign_skew.cu) runs too.  The A operand of
 // the product, logc, is never stored: each 32-atom slice is computed into
 // shared memory from the ion and atom coordinates, right before it is used.
 // The B operand is the tile-local membership matrix, streamed through
@@ -21,9 +22,9 @@
 // and the transcendental work of the cutoff (MP * UP * n_st pairs), once
 // per 128-site column block.  The output write (MP * SP floats a frame) is
 // the byte bound when the lv leaves the kernel, as it must for K2; for K1 it
-// goes to scratch that assign_tail reads back.  Keeping it on chip, and
-// moving the product onto the tensor cores (A holds small integers, exact in
-// bf16, but logc does not fit bf16), is later work.
+// goes to scratch that assign_tail reads back (K1s keeps it on chip).
+// Moving the product onto the tensor cores (A holds small integers, exact in
+// bf16, but logc does not fit bf16) is later work.
 #include "landmark_common.cuh"
 
 namespace {
@@ -60,17 +61,7 @@ __global__ void __launch_bounds__(THREADS) lv_tile_kernel(
     const float* mb = mob + (size_t)b * 3 * MP;
     const int m = row0 + tid;
     float x = mb[m], y = mb[MP + m], z = mb[2 * MP + m];
-    if (preshift) {
-      // one minimum image per (ion, tile): shift the ion to the image
-      // nearest the tile anchor; the tile's atoms were unwrapped to it
-      const float ax = anchors[3 * t], ay = anchors[3 * t + 1],
-                  az = anchors[3 * t + 2];
-      float dx = x - ax, dy = y - ay, dz = z - az;
-      min_image(dx, dy, dz, P);
-      x = ax + dx;
-      y = ay + dy;
-      z = az + dz;
-    }
+    tile_ion_position(x, y, z, anchors, t, P, preshift);
     sx[tid] = x;
     sy[tid] = y;
     sz[tid] = z;
@@ -103,23 +94,12 @@ __global__ void __launch_bounds__(THREADS) lv_tile_kernel(
     for (int i = 0; i < BK * BM / THREADS; ++i) {
       const int e = tid + i * THREADS;
       const int r = e % BM, k = e / BM;
-      float dx = sx[r] - ux[k], dy = sy[r] - uy[k], dz = sz[r] - uz[k];
-      if (!preshift) min_image(dx, dy, dz, P);
-      As[k][r] = log_cutoff(cutoff_arg(dx * dx + dy * dy + dz * dz, P, r2));
+      As[k][r] = unique_atom_log_factor(sx[r], sy[r], sz[r], ux[k], uy[k],
+                                        uz[k], P, r2, preshift);
     }
     __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < BK; ++k) {
-      float a[4], bb[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) bb[j] = Bs[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
-    }
+    membership_fma<4, 8, BK>(acc, &As[0][0], BM, ty, 16, &Bs[0][0], BN, tx,
+                             16);
   }
 
   const float* kl = kill + (size_t)t * s_tile;
@@ -135,7 +115,7 @@ __global__ void __launch_bounds__(THREADS) lv_tile_kernel(
       if (c >= s_tile) continue;
       const int oc = cm[c];
       if (oc < 0) continue;
-      orow[oc] = kl[c] > 0.0f ? 0.0f : expf(acc[i][j]);
+      orow[oc] = lv_value(acc[i][j], kl[c]);
     }
   }
 }

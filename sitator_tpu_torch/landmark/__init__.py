@@ -1,9 +1,11 @@
 from sitator_tpu_torch.landmark.analysis import LandmarkAnalysis
+from sitator_tpu_torch.landmark.streaming import StreamingLandmarkAnalysis
 from sitator_tpu_torch.util.errors import (
     StaticLatticeError,
     ZeroLandmarkError,
     MultipleOccupancyError,
 )
 
-__all__ = ["LandmarkAnalysis", "StaticLatticeError", "ZeroLandmarkError",
+__all__ = ["LandmarkAnalysis", "StreamingLandmarkAnalysis",
+           "StaticLatticeError", "ZeroLandmarkError",
            "MultipleOccupancyError"]

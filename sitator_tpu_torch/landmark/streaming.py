@@ -1,0 +1,768 @@
+"""``StreamingLandmarkAnalysis`` — the out-of-core pipeline (counterpart of
+``sitator_tpu.landmark.streaming``).
+
+A 10^6-frame x 10^4-atom trajectory is ~120 GB of float32 positions, far
+beyond device memory.  This engine streams it:
+
+- **pass 1** (:meth:`StreamingLandmarkAnalysis.fit_centers`): landmark
+  vectors on an evenly strided frame subsample (the unique-atom kernel K2
+  when the basis shares vertices, else the dense contraction) → dot-product
+  clustering on the device → fixed cluster centres;
+- **pass 2** (:meth:`StreamingLandmarkAnalysis.run`): :class:`ChunkedFeeder`
+  reads frame blocks on a host thread while the device assigns each block
+  (K1 when the basis shares vertices, else the gather kernel K3, or the
+  dense route) and folds it into per-site accumulators that live on the
+  device: occupancy counts, confidence sums, toroidal (circular-mean) centre
+  sums, the multiple-occupancy counter, and the jump scan whose
+  ``(last site, residence)`` carry chains exactly across blocks.  Labels can
+  spill to a memmapped ``.npy``.
+
+Result: an annotated :class:`SiteNetwork` (centres, occupancies, n_ij, p_ij,
+jump_lag, residence_times) without the trajectory or the label matrix ever
+being resident in host memory at once.
+
+Differences from the reference, none of which changes a result:
+
+- the integer tallies are int64 and the float sums float64 on the device, so
+  the reference's epoch spill into exact host totals and its exact-mode
+  routing of hazardous epochs through a host int64 jump scan are not needed:
+  ``spill_every`` is kept as an attribute that changes nothing, and
+  ``exact_jump_epochs_`` is always 0;
+- pass 2 runs the reference's synchronous per-block path
+  (``pipeline_depth=0``); the run-ahead dispatcher is not ported yet, so
+  ``pipeline_depth > 0`` and ``async_label_copy=True`` raise, as does a
+  multi-device ``mesh``;
+- ``merge_network`` waits for the port of the MCL merging modules.
+"""
+from __future__ import annotations
+
+import logging
+import os
+import time
+
+import numpy as np
+import torch
+
+from sitator_tpu_torch.core import SiteNetwork
+from sitator_tpu_torch.io import ArrayTrajectory, ChunkedFeeder
+from sitator_tpu_torch.ops import landmark as lmops
+from sitator_tpu_torch.ops.cluster import dotprod_fit
+from sitator_tpu_torch.ops.jumps import _jump_stats
+from sitator_tpu_torch.util.errors import (MultipleOccupancyError,
+                                           StaticLatticeError)
+from sitator_tpu_torch.util.progress import get_progress_bar
+
+logger = logging.getLogger(__name__)
+
+__all__ = ["StreamingLandmarkAnalysis", "pack12_width"]
+
+
+class _Phase:
+    """Accumulate the host wall time of one named engine phase into a dict
+    (``engine.phase_times_``); always on (~100 ns a use).  Phases are
+    disjoint, so their sum against the run's wall time splits it into host
+    dwell categories: feeder, upload, dispatch_assign, dispatch_fold,
+    drift_fetch, labels_fetch, labels_memmap_write, epoch_spill (the copy of
+    the device accumulators to the host), checkpoint, setup, finalize.
+    CUDA calls return before the device finishes, so device time shows up in
+    the phases that wait for it: drift_fetch, labels_fetch, epoch_spill."""
+
+    __slots__ = ("pt", "name", "t0")
+
+    def __init__(self, pt, name):
+        self.pt = pt
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        self.pt[self.name] = (self.pt.get(self.name, 0.0)
+                              + time.perf_counter() - self.t0)
+
+
+def _timed_iter(it, pt, name):
+    it = iter(it)
+    while True:
+        with _Phase(pt, name):
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+        yield item
+
+
+def _pack12(labels):
+    """Device-side 12-bit label pack for the egress copy.
+
+    ``labels (B, N)`` int32 in [-1, 4094] are biased by +1 (unknown −1
+    becomes 0) and packed 4-per-3 into int16 words: groups of 4 biased
+    12-bit values (a, b, c, d) become ``a | b<<12``, ``b>>4 | c<<8``,
+    ``c>>8 | d<<4`` (uint16 arithmetic, bit-equal to the reference's words).
+    N is zero-padded to a multiple of 4.  Inverse: :func:`_unpack12`."""
+    n_frames, n = labels.shape
+    v = (labels.to(torch.int32) + 1)
+    pad = (-n) % 4
+    if pad:
+        v = torch.nn.functional.pad(v, (0, pad))
+    a, b, c, d = v.reshape(n_frames, -1, 4).unbind(-1)
+    w = torch.stack([a | (b << 12), (b >> 4) | (c << 8), (c >> 8) | (d << 4)],
+                    dim=-1) & 0xFFFF
+    w = torch.where(w >= 1 << 15, w - (1 << 16), w)   # uint16 bits as int16
+    return w.to(torch.int16).reshape(n_frames, -1)
+
+
+def pack12_width(n_mobile):
+    """Egress columns used by the 12-bit pack for ``n_mobile`` labels."""
+    return 3 * ((n_mobile + 3) // 4)
+
+
+def _unpack12(arr, n):
+    """Host-side inverse of :func:`_pack12`: the fetched ``(B, 3·⌈n/4⌉)``
+    int16 slab → ``(B, n)`` int16 labels with −1 restored for unknown."""
+    w = np.ascontiguousarray(arr).view(np.uint16)
+    w = w.reshape(arr.shape[0], -1, 3)
+    w0, w1, w2 = w[..., 0], w[..., 1], w[..., 2]
+    a = w0 & np.uint16(0xFFF)
+    b = (w0 >> 12) | ((w1 & np.uint16(0xFF)) << 4)
+    c = (w1 >> 8) | ((w2 & np.uint16(0xF)) << 8)
+    d = w2 >> 4
+    out = np.stack([a, b, c, d], axis=-1).reshape(arr.shape[0], -1)
+    return out[:, :n].astype(np.int16) - np.int16(1)
+
+
+def _assign_block(mobile, static, route, *, centers, midpoint, steepness,
+                  threshold, cutoff_shape, cell, cell_inv, kcell,
+                  static_ref, basis=None, verts=None, vmask=None, A=None,
+                  active=None, full_mask=False, want_drift=True,
+                  egress_int16=False, egress_pack12=False):
+    """Assign one streamed block: (labels, confs, drift, labels_egress).
+
+    ``route``: 'mxu' (unique-atom kernel K1; ``centers`` column-permuted to
+    the kd order of ``basis``), 'gather' (gather kernel K3; ``verts``,
+    ``vmask``) or 'dense' (log-space contraction with the membership matrix
+    ``A``).  ``want_drift=False`` (guard off) returns None for the drift.
+    The egress copy of the labels is what leaves the device: int16 (any
+    practical site count fits) or the 12-bit pack on top of it; the labels
+    themselves stay int32 for the accumulators."""
+    if route == "mxu":
+        from sitator_tpu_torch.ops.landmark_mxu import mxu_assign_blocks
+        labels, confs = mxu_assign_blocks(
+            mobile, static, basis, kcell, centers, midpoint=midpoint,
+            steepness=steepness, threshold=threshold,
+            cutoff_shape=cutoff_shape)
+    elif route == "gather":
+        from sitator_tpu_torch.ops.landmark_pallas import fused_assign_blocks
+        labels, confs = fused_assign_blocks(
+            mobile, static, verts, vmask, kcell, centers, midpoint=midpoint,
+            steepness=steepness, threshold=threshold,
+            cutoff_shape=cutoff_shape, full_mask=full_mask)
+    else:
+        lv = lmops.landmark_vectors(mobile, static, A, cell, cell_inv,
+                                    midpoint, steepness,
+                                    cutoff_shape=cutoff_shape)
+        lv_n, _ = lmops.normalize_landmark_vectors(lv)
+        labels, confs = lmops.assign_to_centers(lv_n, centers, active,
+                                                threshold)
+    drift = (lmops.static_drift_per_frame(static, static_ref, cell, cell_inv)
+             if want_drift else None)
+    if egress_pack12:
+        labels_eg = _pack12(labels)
+    else:
+        labels_eg = labels.to(torch.int16) if egress_int16 else labels
+    return labels, confs, drift, labels_eg
+
+
+def _accum_block(labels, confs, mobile, cell_inv, valid, carry, acc, *,
+                 n_sites, max_mobile=None):
+    """Fold one block's assignments into the device accumulators (in
+    place); returns the new jump carry.
+
+    ``valid (B,)`` masks the frames that count: invalid frames become
+    all-unknown (label −1), which by the jump scan's unknown-frame policy
+    neither emits jumps nor advances residences and keeps the carry — so
+    block padding and partial folds are exact.  ``carry = (last, res)``
+    chains across calls.  Per-site sums go through ``index_add_`` (atomic
+    adds on the card); slot ``n_sites`` collects the unassigned."""
+    labels = torch.where(valid[:, None], labels, -1)
+    S = n_sites
+    known = labels >= 0
+    flat = torch.where(known, labels, S).reshape(-1).long()
+    w = torch.where(known, confs, 0.0).reshape(-1)
+    frac = (mobile.reshape(-1, 3) @ cell_inv) * (2.0 * np.pi)
+    acc["occ"].index_add_(0, flat, torch.ones_like(flat))
+    acc["conf"].index_add_(0, flat, w.double())
+    acc["cos"].index_add_(0, flat, (w[:, None] * torch.cos(frac)).double())
+    acc["sin"].index_add_(0, flat, (w[:, None] * torch.sin(frac)).double())
+    stats = _jump_stats(labels, n_sites, init_last=carry[0],
+                        init_res=carry[1])
+    for k in ("n_ij", "lag_sum", "res_sum", "res_cnt"):
+        acc[k] += stats[k]
+    if max_mobile is not None:
+        # (frame, site) cells holding more than max_mobile assigned ions
+        B = labels.shape[0]
+        cells = flat.view(B, -1) + (S + 1) * torch.arange(
+            B, device=flat.device)[:, None]
+        per_fs = torch.zeros(B * (S + 1), dtype=torch.int64,
+                             device=flat.device)
+        per_fs.index_add_(0, cells.reshape(-1), torch.ones_like(flat))
+        acc["mo_viol"] += (per_fs.view(B, S + 1)[:, :S] > max_mobile).sum()
+    return stats["last_sites"], stats["last_res"]
+
+
+class StreamingLandmarkAnalysis:
+    """Parameters mirror :class:`LandmarkAnalysis` plus streaming controls:
+
+    block_frames : frames per streamed device block.
+    fit_frames : max frames subsampled for the clustering pass.
+    fit_max_samples : cap on total (frame, ion) samples in the fit — the
+        binding limit for many-ion systems (the landmark-vector matrix is
+        ``samples x n_landmarks`` floats).
+    store_labels : optional path — labels spill to a memmapped ``.npy`` of
+        shape (n_frames, n_mobile).
+    checkpoint_path, checkpoint_every : every N blocks the accumulators,
+        the jump carry, the frame cursor and the lattice permutation are
+        written to an ``.npz`` (the reference's keys); an interrupted run
+        resumes from it bit-exactly, and a completed run deletes it.
+    max_mobile_per_site, multiple_occupancy_action : 'warn' | 'raise'
+        (:class:`MultipleOccupancyError`) | 'ignore' when more ions than that
+        share a site in a frame (counted on the device).
+    static_movement_threshold : max per-frame static-atom drift (Å) before
+        :class:`StaticLatticeError` (None disables the monitor).
+    dynamic_lattice_mapping : follow lattice-site exchanges of static atoms
+        (the slot→atom permutation is rebuilt at each exchange and the block
+        re-assigned from that frame, as in :class:`LandmarkAnalysis`); the
+        permutation rides the checkpoint.
+    use_fused : 'auto' (the kernels on CUDA) | True | False (dense route).
+    egress_pack12 : pack spilled labels 4-per-3 into int16 words on the
+        device (needs fewer than 4096 sites) before the device→host copy.
+    device : torch device the engine runs on (default 'cuda').
+
+    Not in this port yet (they raise :class:`NotImplementedError`):
+    ``mesh`` (multi-device frame sharding), ``pipeline_depth > 0`` and
+    ``async_label_copy=True`` (the run-ahead dispatcher).  The reference's
+    default ``pipeline_depth`` is 2; its results are bit-identical at any
+    depth, so the port's synchronous default gives the same results.
+    ``retire_group`` only acts with run-ahead and is kept as an attribute.
+    With int64/float64 accumulators on the device there is no epoch spill:
+    ``spill_every`` changes no result, and ``exact_jump_epochs_`` is 0.
+    """
+
+    def __init__(self, cutoff_midpoint=3.0, cutoff_steepness=4.0,
+                 cutoff_shape="logistic",
+                 minimum_site_occupancy=0.01, assignment_threshold=None,
+                 clustering_params=None, block_frames=1024, fit_frames=8192,
+                 fit_max_samples=65536,
+                 store_labels=None, mesh=None, checkpoint_path=None,
+                 checkpoint_every=64, max_mobile_per_site=1,
+                 multiple_occupancy_action="warn",
+                 static_movement_threshold=1.0,
+                 dynamic_lattice_mapping=False, use_fused="auto",
+                 async_label_copy=False, pipeline_depth=0,
+                 retire_group=1, egress_pack12=True, verbose=True,
+                 device="cuda"):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh: multi-device frame sharding is not ported yet "
+                "(ROADMAP queue 1, item 12.3)")
+        if int(pipeline_depth) > 0:
+            raise NotImplementedError(
+                "pipeline_depth > 0: the run-ahead dispatcher is not ported "
+                "yet (ROADMAP queue 1, item 9.5); pipeline_depth=0 gives the "
+                "same results")
+        if async_label_copy:
+            raise NotImplementedError(
+                "async_label_copy: part of the run-ahead dispatcher, not "
+                "ported yet (ROADMAP queue 1, item 9.5)")
+        self.cutoff_midpoint = float(cutoff_midpoint)
+        self.cutoff_steepness = float(cutoff_steepness)
+        self.cutoff_shape = cutoff_shape
+        self.minimum_site_occupancy = float(minimum_site_occupancy)
+        self.clustering_params = dict(clustering_params or {})
+        self.assignment_threshold = (
+            self.clustering_params.get("assignment_threshold", 0.35)
+            if assignment_threshold is None else float(assignment_threshold))
+        self.block_frames = int(block_frames)
+        self.fit_frames = int(fit_frames)
+        self.fit_max_samples = int(fit_max_samples)
+        self.store_labels = store_labels
+        self.max_mobile_per_site = (
+            None if max_mobile_per_site is None else int(max_mobile_per_site))
+        if multiple_occupancy_action not in ("warn", "raise", "ignore"):
+            raise ValueError("multiple_occupancy_action must be "
+                             "'warn' | 'raise' | 'ignore'")
+        self.multiple_occupancy_action = multiple_occupancy_action
+        self.static_movement_threshold = (
+            None if static_movement_threshold is None
+            else float(static_movement_threshold))
+        self.dynamic_lattice_mapping = bool(dynamic_lattice_mapping)
+        if self.dynamic_lattice_mapping and \
+                self.static_movement_threshold is None:
+            raise ValueError("dynamic_lattice_mapping needs a "
+                             "static_movement_threshold")
+        self.use_fused = use_fused  # 'auto' | True | False
+        self.retire_group = max(1, int(retire_group))
+        self.egress_int16 = "auto"  # 'auto' (site count < 2^15) | bool
+        self.egress_pack12 = bool(egress_pack12)
+        self.spill_every = None     # no epoch spill: changes no result
+        self.checkpoint_path = checkpoint_path
+        self.checkpoint_every = int(checkpoint_every)
+        self.verbose = verbose
+        self.device = torch.device(device)
+        self.n_sites_ = None
+
+    def _use_fused(self):
+        if self.use_fused == "auto":
+            return self.device.type == "cuda"
+        return bool(self.use_fused)
+
+    def _engine_basis(self, sn, verts, vmask, static_idx):
+        """The unique-atom basis on the device, or None when the basis
+        shares too few vertices (the gate shared with the other engines,
+        its preshift budget tied to the drift guard)."""
+        from sitator_tpu_torch.ops.landmark_mxu import (basis_from_jax,
+                                                        prepare_engine_basis)
+        basis = prepare_engine_basis(
+            verts, vmask, sn.centers, sn.structure.cell,
+            midpoint=self.cutoff_midpoint, steepness=self.cutoff_steepness,
+            cutoff_shape=self.cutoff_shape,
+            static_ref=sn.structure.positions[static_idx],
+            drift_budget=self.static_movement_threshold)
+        return None if basis is None else (basis,
+                                           basis_from_jax(basis, self.device))
+
+    # -- pass 1 --------------------------------------------------------
+    def fit_centers(self, sn: SiteNetwork, reader):
+        """Cluster centres ``(K, n_landmarks)`` from landmark vectors on an
+        evenly strided subsample of ``reader`` (NumPy)."""
+        dev = self.device
+        n_frames = len(reader)
+        mobile_idx = np.flatnonzero(sn.mobile_mask)
+        # the sample budget binds for many-ion systems
+        n_fit = min(self.fit_frames,
+                    max(1, self.fit_max_samples // max(1, len(mobile_idx))))
+        stride = max(1, -(-n_frames // n_fit))  # ceil: a hard sample cap
+        static_idx = np.flatnonzero(sn.static_mask)
+        verts, vmask = sn.padded_vertices()
+        cell_np = sn.structure.cell
+        cell = torch.as_tensor(cell_np, dtype=torch.float32, device=dev)
+        cell_inv = torch.as_tensor(np.linalg.inv(cell_np),
+                                   dtype=torch.float32, device=dev)
+
+        # the fit follows lattice-site exchanges too, or the centres would
+        # be fit on corrupted landmark vectors for exactly the trajectories
+        # dynamic_lattice_mapping targets
+        perm = np.arange(len(static_idx))
+        if self.dynamic_lattice_mapping:
+            from sitator_tpu_torch.landmark.analysis import LandmarkAnalysis
+            from sitator_tpu_torch.ops.pbc import PBCCalculator
+            calc = PBCCalculator(cell_np)
+            ref = np.asarray(sn.structure.positions[static_idx], np.float64)
+            thr = self.static_movement_threshold
+
+        # the fit needs landmark VECTORS, which the lv-emitting unique-atom
+        # kernel (K2) gives under the same gate as pass 2
+        fit_basis = (self._engine_basis(sn, verts, vmask, static_idx)
+                     if self._use_fused() else None)
+        if fit_basis is not None:
+            from sitator_tpu_torch.ops.kernel_common import kernel_cell
+            from sitator_tpu_torch.ops.landmark_mxu import mxu_landmark_blocks
+            kcell = kernel_cell(cell_np)
+        else:
+            A = lmops.vertex_membership_matrix(verts, vmask,
+                                               len(static_idx)).to(dev)
+
+        lvs = []
+        B = 256
+        sel = np.arange(0, n_frames, stride)
+        for lo in range(0, len(sel), B):
+            frames = np.stack([reader[int(i):int(i) + 1][0]
+                               for i in sel[lo:lo + B]])
+            static_np = frames[:, static_idx]
+            if self.dynamic_lattice_mapping:
+                static_np = static_np.copy()
+                for b in range(len(static_np)):
+                    d = calc.paired_distances(static_np[b][perm], ref)
+                    if (d > thr).any():
+                        new_perm, worst = \
+                            LandmarkAnalysis._find_lattice_mapping(
+                                static_np[b], perm, ref, cell_np, thr)
+                        if new_perm is None:
+                            raise StaticLatticeError(
+                                "no consistent lattice mapping at "
+                                f"subsampled frame {int(sel[lo + b])}: "
+                                f"residual {worst:.3f} Å > threshold "
+                                f"{thr} Å", frame=int(sel[lo + b]),
+                                max_drift=worst)
+                        perm = new_perm
+                    static_np[b] = static_np[b][perm]
+            mobile = torch.as_tensor(frames[:, mobile_idx],
+                                     dtype=torch.float32, device=dev)
+            static = torch.as_tensor(static_np, dtype=torch.float32,
+                                     device=dev)
+            if fit_basis is not None:
+                lv = mxu_landmark_blocks(
+                    mobile, static, fit_basis[1], kcell,
+                    midpoint=self.cutoff_midpoint,
+                    steepness=self.cutoff_steepness,
+                    cutoff_shape=self.cutoff_shape)
+            else:
+                lv = lmops.landmark_vectors(
+                    mobile, static, A, cell, cell_inv, self.cutoff_midpoint,
+                    self.cutoff_steepness, cutoff_shape=self.cutoff_shape)
+            lv_n, _ = lmops.normalize_landmark_vectors(lv)
+            lvs.append(lv_n.reshape(-1, lv_n.shape[-1]))
+        X = torch.cat(lvs)
+        del lvs
+        p = {"clustering_threshold": 0.45, "k_max": 512, "n_refine_iters": 10,
+             **self.clustering_params}
+        min_samples = max(1, int(np.ceil(
+            self.minimum_site_occupancy * len(sel))))
+        res = dotprod_fit(X, k_max=p["k_max"],
+                          cluster_threshold=p["clustering_threshold"],
+                          min_samples=min_samples,
+                          n_iters=p["n_refine_iters"])
+        centers = res["centers"][res["active"]].cpu().numpy()
+        if self.verbose:
+            logger.info("streaming fit: %d sites from %d subsampled frames",
+                        len(centers), len(sel))
+        return centers
+
+    # -- pass 2 --------------------------------------------------------
+    def run(self, sn: SiteNetwork, trajectory, centers=None):
+        """``trajectory``: a TrajectoryReader or (F, A, 3) array.  Returns
+        an annotated SiteNetwork (the streaming result object)."""
+        reader = (trajectory if hasattr(trajectory, "__getitem__")
+                  and not isinstance(trajectory, np.ndarray)
+                  else ArrayTrajectory(np.asarray(trajectory)))
+        n_frames = len(reader)
+        if centers is None:
+            centers = self.fit_centers(sn, reader)
+        centers = np.asarray(centers, np.float32)
+        K = len(centers)
+        self.n_sites_ = K
+        dev = self.device
+        pt = self.phase_times_ = {}
+
+        def ph(name):
+            return _Phase(pt, name)
+
+        _setup = _Phase(pt, "setup")   # basis prep, checkpoint probe, memmap
+        _setup.__enter__()
+        self.exact_jump_epochs_ = 0
+
+        mobile_idx = np.flatnonzero(sn.mobile_mask)
+        static_idx = np.flatnonzero(sn.static_mask)
+        n_mobile = len(mobile_idx)
+        verts, vmask = sn.padded_vertices()
+        cell_np = sn.structure.cell
+        cell = torch.as_tensor(cell_np, dtype=torch.float32, device=dev)
+        cell_inv = torch.as_tensor(np.linalg.inv(cell_np),
+                                   dtype=torch.float32, device=dev)
+        from sitator_tpu_torch.ops.kernel_common import kernel_cell
+        # kernel plan: K1 when the basis shares vertices, else K3; the dense
+        # route when the kernels are off
+        route = "dense"
+        plan = dict(centers=torch.as_tensor(centers, device=dev))
+        if self._use_fused():
+            route = "gather"
+            plan.update(verts=torch.as_tensor(verts, device=dev),
+                        vmask=torch.as_tensor(vmask, device=dev),
+                        full_mask=bool(np.asarray(vmask).all()))
+            basis = self._engine_basis(sn, verts, vmask, static_idx)
+            if basis is not None:
+                from sitator_tpu_torch.ops.landmark_mxu import permute_centers
+                route = "mxu"
+                plan = dict(basis=basis[1], centers=torch.as_tensor(
+                    permute_centers(centers, basis[0]), device=dev))
+        else:
+            # the dense membership matrix exists only on the dense route
+            plan.update(A=lmops.vertex_membership_matrix(
+                verts, vmask, len(static_idx)).to(dev),
+                active=torch.ones(K, dtype=torch.bool, device=dev))
+        self.route_ = route
+
+        start_lo = 0
+        carry_np = (np.full((n_mobile,), -1, np.int64),
+                    np.zeros((n_mobile,), np.int64))
+        static_ref_np = np.asarray(sn.structure.positions[static_idx],
+                                   np.float64)
+        static_ref = torch.as_tensor(static_ref_np, dtype=torch.float32,
+                                     device=dev)
+        perm = np.arange(len(static_idx))
+        n_remaps = 0
+        host_acc = {}
+
+        # resume from a mid-run checkpoint if one exists
+        ckpt = self.checkpoint_path
+        if ckpt is not None and os.path.exists(ckpt):
+            with np.load(ckpt) as d:
+                if int(d["n_frames"]) != n_frames or int(d["K"]) != K:
+                    raise ValueError("checkpoint does not match this run")
+                start_lo = int(d["next_lo"])
+                carry_np = (d["carry_last"].astype(np.int64),
+                            d["carry_res"].astype(np.int64))
+                if "perm" in d.files:
+                    perm = d["perm"].copy()
+                host_acc = {k[5:]: d[k].copy() for k in d.files
+                            if k.startswith("hacc/")}
+            if self.verbose:
+                logger.info("resuming streaming run at frame %d", start_lo)
+
+        acc = {
+            "occ": torch.zeros(K + 1, dtype=torch.int64),
+            "conf": torch.zeros(K + 1, dtype=torch.float64),
+            "cos": torch.zeros((K + 1, 3), dtype=torch.float64),
+            "sin": torch.zeros((K + 1, 3), dtype=torch.float64),
+            "n_ij": torch.zeros((K, K), dtype=torch.int64),
+            "lag_sum": torch.zeros((K, K), dtype=torch.int64),
+            "res_sum": torch.zeros(K, dtype=torch.int64),
+            "res_cnt": torch.zeros(K, dtype=torch.int64),
+        }
+        if self.max_mobile_per_site is not None:
+            acc["mo_viol"] = torch.zeros((), dtype=torch.int64)
+        for k, v in host_acc.items():
+            if k in acc:
+                acc[k] += torch.as_tensor(np.asarray(v)).to(acc[k].dtype)
+        acc = {k: v.to(dev) for k, v in acc.items()}
+        carry = tuple(torch.as_tensor(c, device=dev) for c in carry_np)
+
+        labels_out = None
+        if self.store_labels is not None:
+            mode = "r+" if (ckpt is not None and start_lo > 0
+                            and os.path.exists(self.store_labels)) else "w+"
+            labels_out = np.lib.format.open_memmap(
+                self.store_labels, mode=mode, dtype=np.int32,
+                shape=(n_frames, n_mobile))
+
+        B = self.block_frames
+        thr_drift = self.static_movement_threshold
+        # int16 egress: any practical site count fits, and site indices
+        # >= 2^15 must never wrap; the 12-bit pack on top needs K < 4096
+        egress_int16 = bool(self.egress_int16) and K < (1 << 15)
+        egress_pack12 = self.egress_pack12 and egress_int16 and K < 4096
+        assign_kw = dict(
+            midpoint=self.cutoff_midpoint, steepness=self.cutoff_steepness,
+            threshold=self.assignment_threshold,
+            cutoff_shape=self.cutoff_shape, cell=cell, cell_inv=cell_inv,
+            kcell=kernel_cell(cell_np), static_ref=static_ref,
+            want_drift=thr_drift is not None, egress_int16=egress_int16,
+            egress_pack12=egress_pack12, **plan)
+
+        def fetch_labels(box):
+            """Host copy of one assignment's egress labels, fetched at most
+            once per assignment and decoded."""
+            if box["np"] is None:
+                with ph("labels_fetch"):
+                    arr = box["dev"].cpu().numpy()
+                box["np"] = _unpack12(arr, n_mobile) if egress_pack12 \
+                    else arr
+            return box["np"]
+
+        def write_labels(lo, a, b, box):
+            """Spill frames [a, b) of a block's labels to the memmap."""
+            if labels_out is None:
+                return
+            lab = fetch_labels(box)
+            with ph("labels_memmap_write"):
+                labels_out[lo + a:lo + b] = lab[a:b]
+
+        def fold(valid_np, labels, confs, mobile):
+            nonlocal carry
+            with ph("dispatch_fold"):
+                carry = _accum_block(
+                    labels, confs, mobile, cell_inv,
+                    torch.as_tensor(valid_np, device=dev), carry, acc,
+                    n_sites=K, max_mobile=self.max_mobile_per_site)
+
+        def upload_static(block):
+            with ph("upload"):
+                static_np = block[:, static_idx]
+                if self.dynamic_lattice_mapping:
+                    static_np = static_np[:, perm]
+                return torch.as_tensor(static_np, dtype=torch.float32,
+                                       device=dev)
+
+        def assign(mobile, static):
+            with ph("dispatch_assign"):
+                return _assign_block(mobile, static, route, **assign_kw)
+
+        def process_block(lo, block, nb, mobile):
+            """The synchronous per-block path: per-frame drift gating,
+            lattice remapping, partial folds."""
+            nonlocal perm, n_remaps
+            processed = 0
+            last_remap = (-1, 0)
+            need_assign = True
+            while processed < nb:
+                if need_assign:
+                    # (re)assign the whole block — on entry and after a
+                    # slot→atom permutation change; labels are fetched
+                    # lazily after the first accumulator dispatch
+                    labels, confs, drift, labels_eg = assign(
+                        mobile, upload_static(block))
+                    box = {"np": None, "dev": labels_eg}
+                    if thr_drift is not None:
+                        with ph("drift_fetch"):
+                            drift_f = drift[:nb].cpu().numpy()
+                    need_assign = False
+                stop = nb
+                if thr_drift is not None:
+                    off = np.flatnonzero(drift_f[processed:] > thr_drift)
+                    if len(off):
+                        if not self.dynamic_lattice_mapping:
+                            raise StaticLatticeError(
+                                f"a static-lattice atom drifted "
+                                f"{float(drift_f[processed + off[0]]):.3f} Å "
+                                f"(> threshold {thr_drift} Å) at frame "
+                                f"{lo + processed + int(off[0])}; see "
+                                "dynamic_lattice_mapping for "
+                                "site-exchanging lattices",
+                                frame=lo + processed + int(off[0]))
+                        stop = processed + int(off[0])
+                if stop > processed:
+                    valid = np.zeros(B, bool)
+                    valid[processed:stop] = True
+                    fold(valid, labels, confs, mobile)
+                    write_labels(lo, processed, stop, box)
+                if stop < nb:
+                    # a few remap attempts are allowed at one frame; any
+                    # progress resets the count
+                    if lo + stop == last_remap[0]:
+                        if last_remap[1] >= 3:
+                            raise StaticLatticeError(
+                                "lattice remapping did not converge at "
+                                f"frame {lo + stop}", frame=lo + stop)
+                        last_remap = (lo + stop, last_remap[1] + 1)
+                    else:
+                        last_remap = (lo + stop, 1)
+                    from sitator_tpu_torch.landmark.analysis import \
+                        LandmarkAnalysis
+                    new_perm, worst = LandmarkAnalysis._find_lattice_mapping(
+                        block[stop, static_idx], perm, static_ref_np,
+                        cell_np, thr_drift)
+                    if new_perm is None:
+                        raise StaticLatticeError(
+                            f"no consistent lattice mapping at frame "
+                            f"{lo + stop}: residual {worst:.3f} Å > "
+                            f"threshold {thr_drift} Å", frame=lo + stop,
+                            max_drift=worst)
+                    if np.array_equal(new_perm, perm):
+                        # the f32 device drift grazed the threshold but the
+                        # f64 check finds no offender: accept the frame;
+                        # the assignment stays valid (perm unchanged)
+                        valid = np.zeros(B, bool)
+                        valid[stop] = True
+                        fold(valid, labels, confs, mobile)
+                        write_labels(lo, stop, stop + 1, box)
+                        processed = stop + 1
+                        continue
+                    if self.verbose:
+                        logger.info(
+                            "frame %d: lattice site exchange — remapped %d "
+                            "slots (max residual %.3f Å)", lo + stop,
+                            int((new_perm != perm).sum()), worst)
+                    perm = new_perm
+                    n_remaps += 1
+                    need_assign = True
+                processed = stop
+
+        def host_totals():
+            with ph("epoch_spill"):
+                return {k: v.cpu().numpy() for k, v in acc.items()}
+
+        blocks_done = 0
+        feeder = get_progress_bar(
+            ChunkedFeeder(reader, B, start=start_lo), enabled=self.verbose,
+            total=-(-(n_frames - start_lo) // B), desc="streaming",
+            unit="block")
+        _setup.__exit__()
+        for lo, block in _timed_iter(feeder, pt, "feeder"):
+            nb = len(block)
+            if nb < B:  # pad to the block shape (frames masked out)
+                from sitator_tpu_torch.parallel.mesh import pad_frames
+                block, _ = pad_frames(block, B)
+            with ph("upload"):
+                mobile = torch.as_tensor(block[:, mobile_idx],
+                                         dtype=torch.float32, device=dev)
+            process_block(lo, block, nb, mobile)
+            blocks_done += 1
+            if ckpt is not None and blocks_done % self.checkpoint_every == 0:
+                totals = host_totals()
+                with ph("checkpoint"):
+                    self._save_checkpoint(ckpt, n_frames, K, lo + nb, carry,
+                                          totals, perm)
+
+        totals = host_totals()
+        if n_remaps and self.verbose:
+            logger.info("dynamic lattice mapping: %d slot→atom remaps",
+                        n_remaps)
+        self.lattice_mapping_ = perm if self.dynamic_lattice_mapping else None
+        if ckpt is not None and os.path.exists(ckpt):
+            os.remove(ckpt)  # run completed; checkpoint no longer needed
+        self._check_multiple_occupancy(totals, n_frames)
+        with ph("finalize"):
+            out = self._finalize(sn, centers, totals, n_frames, labels_out)
+        return out
+
+    def _check_multiple_occupancy(self, host_acc, n_frames):
+        n_viol = int(host_acc.get("mo_viol", 0))
+        if n_viol == 0 or self.multiple_occupancy_action == "ignore":
+            return
+        msg = (f"{n_viol} (frame, site) occupancies exceed "
+               f"max_mobile_per_site={self.max_mobile_per_site} over "
+               f"{n_frames} frames — sites may be under-resolved")
+        if self.multiple_occupancy_action == "raise":
+            raise MultipleOccupancyError(msg, count=n_viol)
+        logger.warning(msg)
+
+    @staticmethod
+    def _save_checkpoint(path, n_frames, K, next_lo, carry, host_acc,
+                         perm=None):
+        """Snapshot the run: int64/float64 totals, the jump carry and the
+        lattice slot→atom permutation, under the reference's keys.  Written
+        atomically."""
+        tmp = path + ".tmp"
+        extra = {} if perm is None else {"perm": np.asarray(perm)}
+        carry = [c.cpu().numpy() if torch.is_tensor(c) else np.asarray(c)
+                 for c in carry]
+        with open(tmp, "wb") as f:
+            np.savez(f, n_frames=n_frames, K=K, next_lo=next_lo,
+                     carry_last=carry[0], carry_res=carry[1], **extra,
+                     **{f"hacc/{k}": np.asarray(v)
+                        for k, v in host_acc.items()})
+        os.replace(tmp, path)  # atomic: a crash never corrupts the ckpt
+
+    def _finalize(self, sn, centers, acc, n_frames, labels_out):
+        K = len(centers)
+        occ = acc["occ"][:K].astype(np.float64)
+        # toroidal mean -> fractional coords -> cartesian
+        theta = np.arctan2(acc["sin"][:K], acc["cos"][:K])
+        frac = (theta / (2 * np.pi)) % 1.0
+        site_centers = frac @ sn.structure.cell
+
+        out = SiteNetwork(sn.structure, sn.static_mask, sn.mobile_mask)
+        out.centers = site_centers
+        out.add_site_attribute("occupancies", occ / n_frames)
+        n_ij = acc["n_ij"].astype(np.int64)
+        out.add_edge_attribute("n_ij", n_ij)
+        row = n_ij.sum(1, keepdims=True)
+        with np.errstate(invalid="ignore", divide="ignore"):
+            out.add_edge_attribute(
+                "p_ij", np.where(row > 0, n_ij / np.maximum(row, 1), 0.0))
+            out.add_edge_attribute(
+                "jump_lag", np.where(n_ij > 0,
+                                     acc["lag_sum"] / np.maximum(n_ij, 1),
+                                     np.nan))
+            out.add_site_attribute(
+                "residence_times",
+                np.where(acc["res_cnt"] > 0,
+                         acc["res_sum"] / np.maximum(acc["res_cnt"], 1),
+                         np.nan))
+        out.add_site_attribute("total_corrected_residences",
+                               acc["occ"][:K].astype(np.int64))
+        self.labels_ = labels_out
+        if self.verbose:
+            logger.info("streaming run: %d frames, %d sites, %d jumps",
+                        n_frames, K, int(n_ij.sum()))
+        return out

@@ -1,6 +1,7 @@
 """Build, load and launch the hand-written CUDA kernels in ``csrc/``.
 
-The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into one
+The sources are compiled at first use with ``nvcc`` for ``sm_90a`` (one
+``nvcc`` process per source, all started together) and linked into one
 shared library with a plain C interface, loaded with ``ctypes``.  The build
 lands in ``build/sitator_tpu_torch-<hash>/`` beside the package, keyed by a
 hash of the sources, so a fresh checkout builds everything from its own
@@ -41,6 +42,9 @@ _SIGNATURES = {
     # lv, inv_norm, centers, part_val, part_idx, labels, confs, rows, cols,
     # KP, clip, bf16, threshold, stream
     "sit_assign_tail": [_P] * 7 + [_I] * 5 + [_F, _P],
+    # mob, vpu, A, kill, anchors, centers, labels, confs, B, MP, n_st, UP,
+    # s_tile, KP, ldc, nj, params, triclinic, r2, preshift, bf16, stream
+    "sit_assign_skew": [_P] * 8 + [_I] * 8 + [_P, _I, _I, _I, _I, _P],
 }
 
 
@@ -71,17 +75,35 @@ def build():
     if lib.exists():
         return lib, 0.0, ""
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libsitator_kernels.{os.getpid()}.so"
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    tag = os.getpid()
+    tmp = out_dir / f"libsitator_kernels.{tag}.so"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler",
+               "-fPIC", "-Xptxas", "-v", "-c", "-o", str(obj), str(src)]
+        jobs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    logs, failed = [], []
+    for src, _, proc in jobs:
+        _, err = proc.communicate()
+        logs.append(err)
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{err}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    proc = subprocess.run([_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                           *[str(obj) for _, obj, _ in jobs]],
+                          capture_output=True, text=True)
+    for _, obj, _ in jobs:
+        obj.unlink()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                           f"{proc.stderr}")
+    seconds = time.perf_counter() - t0
     os.replace(tmp, lib)
-    return lib, seconds, proc.stderr
+    return lib, seconds, "".join(logs)
 
 
 @functools.lru_cache(maxsize=None)
@@ -196,4 +218,39 @@ def assign_tail(lv, centers, threshold, *, peak_clip, mxu_bf16):
           part_val.data_ptr(), part_idx.data_ptr(), labels.data_ptr(),
           confs.data_ptr(), rows, SP, KP, int(peak_clip), int(mxu_bf16),
           float(threshold), _stream())
+    return labels, confs
+
+
+def assign_skew(mob, vpu, A, kill, anchors, centers, params, *, n_valid,
+                nj, triclinic, r2_cutoff, preshift, mxu_bf16):
+    """K1s: landmark vectors, norm and cosine assignment of every (frame,
+    ion) row in one launch, the lv kept on chip.  ``centers (SP, ldc)`` are
+    the zero-padded centre columns (already rounded to bf16 when
+    ``mxu_bf16``), taken in chunks of ``128 * nj`` columns; only the first
+    ``n_valid`` columns compete in the arg-max.  Returns (labels int32,
+    confs float32), both ``(B * MP,)``."""
+    B, _, MP = mob.shape
+    n_st, UP, s_tile = A.shape
+    SP = n_st * s_tile
+    ldc = centers.shape[1]
+    if nj not in (1, 2, 4, 8) or ldc % (128 * nj) or not 0 < n_valid <= ldc:
+        raise ValueError("assign_skew needs nj in (1, 2, 4, 8), centre "
+                         "columns a multiple of 128 * nj, 0 < n_valid <= "
+                         "columns")
+    if s_tile % 128 or UP % 32 or MP % 16:
+        raise ValueError("assign_skew needs s_tile % 128 == 0, UP % 32 == 0, "
+                         "MP % 16 == 0")
+    p = _host_params(params)
+    labels = torch.empty(B * MP, device=mob.device, dtype=torch.int32)
+    confs = torch.empty(B * MP, device=mob.device, dtype=torch.float32)
+    _call("sit_assign_skew",
+          _check(mob, "mob", torch.float32, (B, 3, MP)),
+          _check(vpu, "vpu", torch.float32, (B, n_st, 3, UP)),
+          _check(A, "A", torch.float32),
+          _check(kill, "kill", torch.float32, (SP,)),
+          _check(anchors, "anchors", torch.float32, (n_st, 3)),
+          _check(centers, "centers", torch.float32, (SP, ldc)),
+          labels.data_ptr(), confs.data_ptr(), B, MP, n_st, UP, s_tile,
+          n_valid, ldc, nj, p.data_ptr(), int(triclinic), int(r2_cutoff),
+          int(preshift), int(mxu_bf16), _stream())
     return labels, confs

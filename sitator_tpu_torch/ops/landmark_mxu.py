@@ -21,7 +21,9 @@ and its plain PyTorch version on CPU tensors:
 
 - :func:`mxu_assign_blocks` (K1, replaces
   ``sitator_tpu/ops/landmark_mxu.py::_kernel``) — lv tiles, then cosine
-  assignment to the centres;
+  assignment to the centres; with ``skew=True`` K1s (replaces
+  ``::_kernel_skew``), the same function in one kernel whose warps overlap
+  one tile's lv with the previous tile's similarity fold, bit-equal to K1;
 - :func:`mxu_landmark_blocks` (K2, replaces ``::_lv_kernel``) — the lv
   matrix itself, in the caller's site order.
 """
@@ -410,7 +412,9 @@ def _mxu_lv_cuda(mob, vpu, A, kill, params, anchors, *, M, inv_order,
 
 def _mxu_assign_plain(mob, vpu, A, kill, cpad, params, anchors, *,
                       triclinic, r2_cutoff, peak_clip, preshift, mxu_bf16):
-    """Plain version of K1: labels/confs ``(B, MP)``, tile by tile."""
+    """Plain version of K1, and of K1s (which computes the same function,
+    only with its tiles overlapped): labels/confs ``(B, MP)``, tile by
+    tile."""
     B, _, MP = mob.shape
     n_st, UP, s_tile = A.shape
     cell, mid, steep, thr = load_cell_params(params.to(mob.device),
@@ -446,6 +450,35 @@ def _mxu_assign_cuda(mob, vpu, A, kill, cpad, params, anchors, *,
         lv.view(B * MP, SP), cpad, float(params[-1]), peak_clip=peak_clip,
         mxu_bf16=mxu_bf16)
     return labels.view(B, MP), confs.view(B, MP)
+
+
+def _mxu_assign_skew_cuda(mob, vpu, A, kill, cpad, params, anchors, *,
+                          triclinic, r2_cutoff, peak_clip, preshift,
+                          mxu_bf16):
+    """K1s on the card: one ``assign_skew`` launch computes the lv tiles,
+    the norm and the assignment with the lv kept on chip.  The centres are
+    taken in chunks of up to 1024 columns (a power of two times 128), so
+    they are padded to whole chunks here, and rounded to bf16 once when the
+    similarity operands are bf16 (the kernel streams them with async
+    copies, which cannot convert)."""
+    if peak_clip:
+        raise ValueError(_SKEW_CLIP)
+    from sitator_tpu_torch.ops import _cuda
+    B, _, MP = mob.shape
+    KP = cpad.shape[1]
+    nj = min(8, 1 << (KP // 128 - 1).bit_length())
+    ldc = _round_up(KP, 128 * nj)
+    centers = torch.nn.functional.pad(cpad, (0, ldc - KP))
+    if mxu_bf16:
+        centers = centers.to(torch.bfloat16).float()
+    labels, confs = _cuda.assign_skew(
+        mob, vpu, A, kill, anchors, centers.contiguous(), params,
+        n_valid=KP, nj=nj, triclinic=triclinic, r2_cutoff=r2_cutoff,
+        preshift=preshift, mxu_bf16=mxu_bf16)
+    return labels.view(B, MP), confs.view(B, MP)
+
+
+_SKEW_CLIP = "skew=True is not implemented for peak_evening='clip'"
 
 
 def _kernel_inputs(mobile, static, basis, cell, consts):
@@ -488,12 +521,16 @@ def _lv_inputs(mobile, static, basis, cell, *, midpoint, steepness,
 
 def _assign_inputs(mobile, static, basis, cell, centers_perm, *, midpoint,
                    steepness, threshold, mxu_bf16=True,
-                   cutoff_shape="logistic", peak_evening="none"):
-    """Keyword arguments of :func:`_mxu_assign_cuda` /
-    :func:`_mxu_assign_plain`, with the centres transposed and zero-padded
-    to ``(SP, KP)``."""
+                   cutoff_shape="logistic", peak_evening="none", skew=False):
+    """Keyword arguments of :func:`_mxu_assign_cuda`,
+    :func:`_mxu_assign_skew_cuda` and :func:`_mxu_assign_plain`, with the
+    centres transposed and zero-padded to ``(SP, KP)``.  ``skew=True`` with
+    ``peak_evening='clip'`` raises: K1s has no two-pass (clip) form, and
+    quietly running K1 instead would corrupt a K1-vs-K1s comparison."""
     if peak_evening not in ("none", "clip"):
         raise ValueError(f"unknown peak_evening mode {peak_evening!r}")
+    if skew and peak_evening == "clip":
+        raise ValueError(_SKEW_CLIP)
     args = _kernel_inputs(mobile, static, basis, cell,
                           [midpoint, steepness, threshold])
     dev = mobile.device
@@ -527,25 +564,33 @@ mxu_landmark_blocks.launches = 0
 
 def mxu_assign_blocks(mobile, static, basis, cell, centers_perm, *,
                       midpoint, steepness, threshold, mxu_bf16=True,
-                      cutoff_shape="logistic", peak_evening="none"):
+                      cutoff_shape="logistic", peak_evening="none",
+                      skew=False):
     """Fused landmark + normalise + assign through the unique-atom kernel
-    (K1).  ``basis`` from :func:`prepare_mxu_basis`; ``centers_perm (K, S)``
-    unit centres with columns in kd order (:func:`permute_centers`).
-    Returns (labels (B, M) int32 with −1 below threshold, confs (B, M)).
-    On CUDA tensors this launches the kernel; on CPU tensors it runs the
-    plain version."""
+    (K1, or K1s with ``skew=True``: bit-equal labels and confs, with
+    ``peak_evening='none'`` only).  ``basis`` from
+    :func:`prepare_mxu_basis`; ``centers_perm (K, S)`` unit centres with
+    columns in kd order (:func:`permute_centers`).  Returns (labels (B, M)
+    int32 with −1 below threshold, confs (B, M)).  On CUDA tensors this
+    launches the kernel (counted in ``.launches`` for K1 and
+    ``.skew_launches`` for K1s); on CPU tensors it runs the plain
+    version."""
     args = _assign_inputs(mobile, static, basis, cell, centers_perm,
                           midpoint=midpoint, steepness=steepness,
                           threshold=threshold, mxu_bf16=mxu_bf16,
                           cutoff_shape=cutoff_shape,
-                          peak_evening=peak_evening)
+                          peak_evening=peak_evening, skew=skew)
     M = mobile.shape[1]
-    if mobile.is_cuda:
+    if not mobile.is_cuda:
+        labels, confs = _mxu_assign_plain(**args)
+    elif skew:
+        labels, confs = _mxu_assign_skew_cuda(**args)
+        mxu_assign_blocks.skew_launches += 1
+    else:
         labels, confs = _mxu_assign_cuda(**args)
         mxu_assign_blocks.launches += 1
-    else:
-        labels, confs = _mxu_assign_plain(**args)
     return labels[:, :M], confs[:, :M]
 
 
 mxu_assign_blocks.launches = 0
+mxu_assign_blocks.skew_launches = 0

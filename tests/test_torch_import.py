@@ -1,6 +1,8 @@
 """The port imports torch and never JAX: a fresh interpreter with JAX
 blocked imports ``sitator_tpu_torch`` and runs the tiny slice end to end on
-the CPU, and no source file of the package imports JAX."""
+the CPU (``LandmarkAnalysis`` → ``JumpAnalysis``, ``SpmdLandmarkPipeline``,
+``StreamingLandmarkAnalysis`` fit and run), and no source file of the
+package imports JAX."""
 import pathlib
 import re
 import subprocess
@@ -60,6 +62,15 @@ SLICE = textwrap.dedent("""
         pipe.run_block(frames[12:], carry=(stats["last_sites"],
                                            stats["last_res"]))
         assert labels.shape == (12, n_ions) and np.isfinite(confs).all()
+    for use_fused in (True, False):
+        sla = port.StreamingLandmarkAnalysis(
+            cutoff_midpoint=4.0, cutoff_steepness=3.0, block_frames=10,
+            fit_frames=12, use_fused=use_fused, verbose=False, device="cpu")
+        centers = sla.fit_centers(sn, frames)
+        out = sla.run(sn, frames, centers=centers)
+        assert sla.route_ == ("mxu" if use_fused else "dense")
+        assert out.n_sites == len(centers) > 0
+        assert out.occupancies.sum() > 0 and out.n_ij.sum() > 0
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "triton"))
     assert loaded == ["jax"] and sys.modules["jax"] is None, loaded
@@ -87,5 +98,5 @@ def test_kernel_sources_ship_with_the_package():
     csrc = ROOT / "sitator_tpu_torch" / "csrc"
     names = sorted(p.name for p in csrc.iterdir()
                    if p.suffix in (".cu", ".cuh"))
-    assert names == ["assign_tail.cu", "landmark_common.cuh",
-                     "lv_gather.cu", "lv_tile.cu"]
+    assert names == ["assign_skew.cu", "assign_tail.cu",
+                     "landmark_common.cuh", "lv_gather.cu", "lv_tile.cu"]
