@@ -10,25 +10,34 @@ Phases; any failure exits non-zero before the result lines:
 1. device: the card's name and power limit (``nvidia-smi``), the CUDA and
    ``nvcc`` versions;
 2. build: compiles ``sitator_tpu_torch/csrc/*.cu`` for ``sm_90a`` into
-   ``build/`` (skipped when a library for these sources is there);
-3. every kernel against its plain PyTorch version on the same inputs on the
-   card, at the bench width of ``bench.py`` (9261 static + 739 mobile atoms,
+   ``build/`` (skipped when a library for these sources is there), prints
+   each kernel's registers and spills from ``ptxas``, and counts the
+   tensor-core (``HGMMA``) instructions in the library's SASS (fails on 0);
+3. the tail's partition: the tensor-core and the FMA similarity kernels
+   with their per-block arg-max and the merge, bit for bit against their
+   plain twin on exact (dyadic) inputs with ties across block borders;
+   then every kernel against its plain PyTorch version on the same inputs
+   on the card, at the bench width of ``bench.py`` (9261 static + 739 mobile atoms,
    9261 landmarks x 8 vertices, 1024 centres) with its random centres
-   (timed) and with site centres, plus a ``peak_evening='clip'`` case and a
+   (timed, with each stage of K1 timed alone, the bound of each kernel
+   reckoned from these inputs, and the bf16 ``torch.matmul`` of the
+   similarity product timed as the library yardstick) and with site
+   centres, plus a ``peak_evening='clip'`` case in f32 (the FMA tail) and a
    triclinic case at a reduced width; the unique-atom (K1) and gather (K3)
-   labels against each other; the skewed unique-atom kernel (K1s) bit for
-   bit against K1 wherever ``peak_evening='none'``;
+   labels against each other, and the skewed unique-atom kernel (K1s)
+   against K1 wherever ``peak_evening='none'``;
 4. the slice end to end through the user entry points, with the launch
    counters reset first and read after: ``LandmarkAnalysis`` (K2) then
    ``JumpAnalysis``; ``SpmdLandmarkPipeline`` over 8 blocks x 32 frames with
-   the carry (K1), timed; the pipeline on a small basis without vertex
+   the carry (K1), timed, and one pass under ``torch.profiler`` (device
+   time by op); the pipeline on a small basis without vertex
    sharing (K3), and the dense route on the same input as its reference.
    The ions hop among 1024 sites, and the pipeline's 1024 centres are the
    unit landmark vectors of an ion on each of them: under ``bench.py``'s
    random centres every similarity is far below the threshold, every label
    is -1 and no jump would be recorded, at the same work per frame;
 5. the K1s path: ``mxu_assign_blocks(skew=True)`` against ``skew=False``
-   over 8 bench blocks through the public wrapper, bit for bit (the A/B of
+   over 8 bench blocks through the public wrapper (the A/B of
    ``tools/ab_skew.py``), counters reset first and read after;
 6. ``StreamingLandmarkAnalysis`` at the bench width over 1024 frames:
    ``fit_centers`` (K2) then ``run`` (K1) in 256-frame blocks with the labels
@@ -42,7 +51,9 @@ Label comparisons are gated on the reference's top-2 margin: labels must be
 equal wherever the best and second-best cosine similarities (f32, from the
 kernel-checked landmark vectors) differ by more than 8e-3 with bf16 operands
 (about 2 bf16 ulps near 1) or 1e-5 in f32, and the best one is not within
-the confidence tolerance of the threshold.
+the confidence tolerance of the threshold.  K1 sums the similarity on the
+tensor cores, K1s and the plain versions on the FMA pipes: f32 sums of the
+same bf16 products in other orders, so no two of them are bit-equal.
 """
 from __future__ import annotations
 
@@ -60,6 +71,12 @@ LV_RTOL, LV_ATOL = 1e-4, 1e-6        # f32 sums in another order, then exp
 CONF_ATOL = {True: 1e-2, False: 1e-5}  # bf16 / f32 similarity operands
 MARGIN = {True: 8e-3, False: 1e-5}
 MID, STEEP, THR, CUTOFF = 4.0, 3.0, 0.35, "logistic_r2"   # bench.py
+# NVIDIA H100 SXM data-sheet peaks (dense), for the bounds
+PEAK_BF16, PEAK_F32, HBM_BPS = 989e12, 67e12, 3.35e12
+# f32 operations counted for one (ion, atom) pair: the difference and the
+# squared distance, the logistic argument, and the log-sigmoid (or the
+# linear-space product) with each transcendental counted as one
+PAIR_OPS = 16
 
 
 class SmokeError(RuntimeError):
@@ -277,22 +294,183 @@ def phase_device():
 
 
 def phase_build():
+    """Build (or find) the kernel library; print each kernel's registers
+    and spills from ptxas and the count of tensor-core instructions
+    (HGMMA) in its SASS, which must not be 0."""
+    import re
     from sitator_tpu_torch.ops import _cuda
     path, seconds, log = _cuda.build()
     _cuda.library()
     print(f"build: {path.relative_to(ROOT)} in {seconds:.1f} s "
           f"({'compiled' if seconds else 'already built'})", flush=True)
+    fn = "?"
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip(), flush=True)
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"\d+([a-z_]+_kernel)", m.group(1))
+            fn = k.group(1) if k else m.group(1)
+            t = re.search(r"_kernelILi(\d+)E", m.group(1))
+            if t:
+                fn = f"{fn}<{t.group(1)}>"
+        elif "registers" in line or "spill" in line:
+            print(f"  ptxas {fn}: {line.split(':', 1)[-1].strip()}",
+                  flush=True)
+    cuobjdump = Path(_cuda._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(path)],
+                          capture_output=True, text=True, check=True).stdout
+    n_hgmma = sum("HGMMA" in line for line in sass.splitlines())
+    print(f"SASS: {n_hgmma} HGMMA instructions in {path.name}", flush=True)
+    check(n_hgmma > 0, "no HGMMA (tensor-core) instruction in the library")
+    return n_hgmma
+
+
+def bound(nbytes, tc_flop=0.0, f32_flop=0.0):
+    """(bound_ms, bound_by): the least time for this work on an H100 SXM,
+    the larger of the bytes over the memory rate and the operations over
+    the peak rate of their type (tensor-core bf16, f32 off the tensor
+    cores; the larger of the two, since the pipes run side by side)."""
+    t = {"bytes": nbytes / HBM_BPS,
+         "operations": max(tc_flop / PEAK_BF16, f32_flop / PEAK_F32)}
+    by = max(t, key=t.get)
+    return t[by] * 1e3, by
+
+
+def unique_atom_work(a, M, K=None):
+    """(bytes, tensor-core flop, f32 flop) of K2 (``K`` None: the lv out)
+    or K1 / K1s (the assignment to ``K`` centres) on these kernel inputs,
+    counting the ``M`` real ions, the real unique atoms of each tile and
+    the nonzeros of the membership: each input read once, each output
+    written once."""
+    A = a["A"]
+    B = a["mob"].shape[0]
+    n_st, _, s_tile = A.shape
+    nz = A != 0
+    rows, S = B * M, int((a["kill"] == 0).sum())
+    f32 = rows * (PAIR_OPS * int(nz.any(2).sum()) + 2 * int(nz.sum())
+                  + 2 * S)
+    nbytes = 4 * (a["mob"].numel() + a["vpu"].numel() + a["kill"].numel()
+                  + 2 * a["members"][0].numel())
+    if K is None:
+        return nbytes + 4 * rows * S, 0.0, f32
+    nbytes += 4 * S * K + 8 * rows
+    return nbytes, 2.0 * rows * S * K, f32 + 2 * rows * S
+
+
+def gather_work(a, M, S, V, K):
+    """(bytes, tensor-core flop, f32 flop) of K3 on these kernel inputs."""
+    rows = a["mob"].shape[0] * M
+    nbytes = 4 * (a["mob"].numel() + a["vp"].numel() + a["mask"].numel()
+                  + S * K) + 8 * rows
+    return nbytes, 2.0 * rows * S * K, rows * S * (PAIR_OPS * V + 2)
+
+
+def k1_stages(a, M, reps):
+    """Each stage of K1 timed alone on these inputs (CUDA events, ms): the
+    lv tiles, row prep (norm and the bf16 copy), the centres' bf16 copy,
+    the tensor-core product with its per-block arg-max, the merge; and the
+    bf16 ``torch.matmul`` of the same product (the library yardstick)."""
+    import torch
+    from sitator_tpu_torch.ops import _cuda
+    B, _, MP = a["mob"].shape
+    n_st, _, s_tile = a["A"].shape
+    SP = n_st * s_tile
+    lv = torch.empty((B, MP, SP), device="cuda")
+    rows = lv.view(B * MP, SP)
+    col_map = torch.arange(SP, dtype=torch.int32, device="cuda")
+
+    def lv_tile():
+        _cuda.lv_tile(a["mob"], a["vpu"], *a["members"], a["kill"],
+                      a["anchors"], col_map, lv, a["params"],
+                      triclinic=a["triclinic"], r2_cutoff=a["r2_cutoff"],
+                      preshift=a["preshift"])
+
+    lv_tile()
+    inv, lvb = _cuda.row_prep(rows, peak_clip=False, bf16_copy=True)
+    cb = _cuda.centers_bf16(a["cpad"])
+    pv, pi = _cuda.sims_argmax(rows, lvb, inv, a["cpad"], cb)
+    ms = dict(
+        lv_tile=timed(lv_tile, reps),
+        row_prep=timed(lambda: _cuda.row_prep(rows, peak_clip=False,
+                                              bf16_copy=True), reps),
+        centers_bf16=timed(lambda: _cuda.centers_bf16(a["cpad"]), reps),
+        sims_wgmma=timed(lambda: _cuda.sims_argmax(rows, lvb, inv,
+                                                   a["cpad"], cb), reps),
+        argmax_merge=timed(lambda: _cuda.argmax_merge(pv, pi, THR), reps))
+    library = timed(lambda: torch.matmul(lvb, cb.t()), reps)
+    R, KP = B * MP, a["cpad"].shape[1]
+    bounds = dict(                      # each stage as a function of its own
+        lv_tile=bound(*unique_atom_work(a, M)),     # inputs and outputs
+        row_prep=bound(6 * R * SP),     # f32 read, bf16 write
+        centers_bf16=bound(6 * SP * KP),
+        sims_wgmma=bound(2 * (R + KP) * SP, 2.0 * R * SP * KP),
+        argmax_merge=bound(16 * R * -(-KP // 256)))
+    print("K1 stages at the bench width (ms per 32-frame block, CUDA "
+          "events; the stage's bound in brackets): " + ", ".join(
+              f"{k} {v:.3f} [{bounds[k][0]:.3f} {bounds[k][1]}]"
+              for k, v in ms.items())
+          + f"; bf16 torch.matmul of the same product {library:.3f}",
+          flush=True)
+    return ms, library
+
+
+def k3_library(a, reps):
+    """The bf16 ``torch.matmul`` of K3's similarity product on its own lv
+    (ms, CUDA events)."""
+    import torch
+    from sitator_tpu_torch.ops import _cuda
+    B, _, MP = a["mob"].shape
+    SP = a["vp"].shape[3]
+    lv = torch.empty((B * MP, SP), device="cuda")
+    _cuda.lv_gather(a["mob"], a["vp"], a["mask"], lv.view(B, MP, SP),
+                    a["params"], triclinic=a["triclinic"],
+                    r2_cutoff=a["r2_cutoff"], full_mask=a["full_mask"])
+    _, lvb = _cuda.row_prep(lv, peak_clip=False, bf16_copy=True)
+    cb = _cuda.centers_bf16(a["cpad"])
+    return timed(lambda: torch.matmul(lvb, cb.t()), reps)
+
+
+def tail_partition_cases():
+    """The tensor-core tail (and the f32 FMA tail) against their plain twin
+    ``blocked_assign_plain`` bit for bit, on dyadic inputs (multiples of
+    1/16: exact in bf16, every sum exact in f32 in any order) with ties
+    placed inside blocks, across 256-column borders and with the odd last
+    block of 128 columns."""
+    import torch
+    from sitator_tpu_torch.ops import _cuda
+    from sitator_tpu_torch.ops.kernel_common import blocked_assign_plain
+    g = torch.Generator().manual_seed(0)
+    for rows, SP, KP in ((128, 64, 256), (256, 192, 384), (384, 640, 1024),
+                         (128, 9344, 128)):
+        lv = (torch.randint(0, 17, (rows, SP), generator=g) / 16).cuda()
+        C = torch.randint(0, 17, (SP, KP), generator=g) / 16
+        if KP > 256:
+            C[:, 256] = C[:, 255]
+        C[:, KP - 1] = C[:, 3]
+        C[:, 100] = C[:, 99]
+        C = C.cuda()
+        thr = 0.75
+        for bf16 in (True, False):
+            rows_lv = lv.clone()
+            inv, lvb = _cuda.row_prep(rows_lv, peak_clip=False,
+                                      bf16_copy=bf16)
+            got = _cuda.argmax_merge(*_cuda.sims_argmax(rows_lv, lvb, inv,
+                                                        C), thr)
+            want = blocked_assign_plain(lv, inv, C, thr, mxu_bf16=bf16)
+            check(torch.equal(got[0], want[0]) and torch.equal(
+                got[1].view(torch.int32), want[1].view(torch.int32)),
+                f"tail partition rows={rows} SP={SP} KP={KP} bf16={bf16}: "
+                f"{int((got[0] != want[0]).sum())} labels differ")
+    print("tail partition: the tensor-core and FMA tails bit-equal to "
+          "their blocked twin in 4 shapes (ties across block borders, "
+          "an odd last block)", flush=True)
 
 
 def kernel_cases(sy, centers, device, *, peak_evening, n_lv_frames,
                  s_tile_gather, full_mask, label, reps, bf16=True):
     """K2, K1, K1s (``peak_evening='none'`` only) and K3 against their plain
     versions on one system with the given centres; K1 against K3, and K1s
-    bit for bit against K1.  Returns {kernel: (max_abs_err, ms, plain_ms)}
-    (times only when ``reps``)."""
+    against K1.  Returns {kernel: {err, ms, plain_ms, bound_ms, bound_by,
+    library_ms}} (all but err only when ``reps``)."""
     import torch
     from sitator_tpu_torch.ops import landmark_mxu as mx
     from sitator_tpu_torch.ops import landmark_pallas as lp
@@ -307,12 +485,19 @@ def kernel_cases(sy, centers, device, *, peak_evening, n_lv_frames,
     basis = mx.basis_from_jax(basis, device)
     mobile = torch.as_tensor(sy["mobile"], device=device)
     static = torch.as_tensor(sy["static"], device=device)
-    print(f"{label}: B={mobile.shape[0]} M={mobile.shape[1]} "
-          f"N={static.shape[1]} S={len(sy['verts'])} "
-          f"K={len(centers)} s_tile={basis['s_tile']} "
-          f"n_st={basis['n_st']} UP={basis['UP']} "
-          f"preshift={basis['preshift']} peak={peak_evening}", flush=True)
+    M, (S, V), K = mobile.shape[1], sy["verts"].shape, len(centers)
+    print(f"{label}: B={mobile.shape[0]} M={M} N={static.shape[1]} S={S} "
+          f"K={K} s_tile={basis['s_tile']} n_st={basis['n_st']} "
+          f"UP={basis['UP']} preshift={basis['preshift']} "
+          f"peak={peak_evening} bf16={bf16}", flush=True)
     out = {}
+
+    def timings(key, kernel, plain, work, library_ms):
+        if reps:
+            b_ms, b_by = bound(*work)
+            out[key].update(ms=timed(kernel, reps), plain_ms=timed(plain, 2),
+                            bound_ms=b_ms, bound_by=b_by,
+                            library_ms=library_ms)
 
     a2 = mx._lv_inputs(mobile[:n_lv_frames], static[:n_lv_frames], basis,
                        kcell, midpoint=MID, steepness=STEEP,
@@ -320,11 +505,10 @@ def kernel_cases(sy, centers, device, *, peak_evening, n_lv_frames,
     lv_k = mx._mxu_lv_cuda(**a2)
     sync()
     lv_p = mx._mxu_lv_plain(**a2)
-    err2 = compare_lv(f"{label} K2", lv_k, lv_p)
-    out["K2"] = (err2,) + ((timed(lambda: mx._mxu_lv_cuda(**a2), reps),
-                            timed(lambda: mx._mxu_lv_plain(**a2), 2))
-                           if reps else (None, None))
+    out["K2"] = dict(err=compare_lv(f"{label} K2", lv_k, lv_p))
     del lv_p
+    timings("K2", lambda: mx._mxu_lv_cuda(**a2),
+            lambda: mx._mxu_lv_plain(**a2), unique_atom_work(a2, M), None)
 
     # reference margins from the kernel-checked landmark vectors
     lv_all = torch.cat([mx._mxu_lv_cuda(**mx._lv_inputs(
@@ -339,31 +523,26 @@ def kernel_cases(sy, centers, device, *, peak_evening, n_lv_frames,
                            midpoint=MID, steepness=STEEP, threshold=THR,
                            mxu_bf16=bf16, cutoff_shape=CUTOFF,
                            peak_evening=peak_evening)
-    M = mobile.shape[1]
     k1 = [x[:, :M] for x in mx._mxu_assign_cuda(**a1)]
     sync()
     p1 = [x[:, :M] for x in mx._mxu_assign_plain(**a1)]
-    err1 = compare_assign(f"{label} K1", k1, p1, margin, top1, bf16)
-    out["K1"] = (err1,) + ((timed(lambda: mx._mxu_assign_cuda(**a1), reps),
-                            timed(lambda: mx._mxu_assign_plain(**a1), 2))
-                           if reps else (None, None))
+    out["K1"] = dict(err=compare_assign(f"{label} K1", k1, p1, margin, top1,
+                                        bf16))
+    if reps:
+        out["stages"], library = k1_stages(a1, M, reps)
+    timings("K1", lambda: mx._mxu_assign_cuda(**a1),
+            lambda: mx._mxu_assign_plain(**a1),
+            unique_atom_work(a1, M, K), library if reps else None)
 
     if peak_evening == "none":
         ks = [x[:, :M] for x in mx._mxu_assign_skew_cuda(**a1)]
         sync()
-        errs = compare_assign(f"{label} K1s", ks, p1, margin, top1, bf16)
-        check(torch.equal(ks[0], k1[0])
-              and torch.equal(ks[1].view(torch.int32),
-                              k1[1].view(torch.int32)),
-              f"{label}: K1s differs from K1 "
-              f"({int((ks[0] != k1[0]).sum())} labels, "
-              f"{int((ks[1] != k1[1]).sum())} confs)")
-        print(f"  {label} K1s vs K1: labels and confs bit-equal on "
-              f"{ks[0].numel()} rows", flush=True)
-        out["K1s"] = (errs,) + ((
-            timed(lambda: mx._mxu_assign_skew_cuda(**a1), reps),
-            timed(lambda: mx._mxu_assign_plain(**a1), 2))
-            if reps else (None, None))
+        out["K1s"] = dict(err=compare_assign(f"{label} K1s", ks, p1, margin,
+                                             top1, bf16))
+        compare_assign(f"{label} K1s vs K1", ks, k1, margin, top1, bf16)
+        timings("K1s", lambda: mx._mxu_assign_skew_cuda(**a1),
+                lambda: mx._mxu_assign_plain(**a1),
+                unique_atom_work(a1, M, K), library if reps else None)
         del ks
     else:
         # K1s has no two-pass (clip) form: the public wrapper must refuse
@@ -390,10 +569,12 @@ def kernel_cases(sy, centers, device, *, peak_evening, n_lv_frames,
     k3 = [x[:, :M] for x in lp._gather_assign_cuda(**a3)]
     sync()
     p3 = [x[:, :M] for x in lp._gather_assign_plain(**a3)]
-    err3 = compare_assign(f"{label} K3", k3, p3, margin, top1, bf16)
-    out["K3"] = (err3,) + ((timed(lambda: lp._gather_assign_cuda(**a3), reps),
-                            timed(lambda: lp._gather_assign_plain(**a3), 2))
-                           if reps else (None, None))
+    out["K3"] = dict(err=compare_assign(f"{label} K3", k3, p3, margin, top1,
+                                        bf16))
+    timings("K3", lambda: lp._gather_assign_cuda(**a3),
+            lambda: lp._gather_assign_plain(**a3),
+            gather_work(a3, M, S, V, K),
+            k3_library(a3, reps) if reps else None)
     compare_assign(f"{label} K1 vs K3", k1, k3, margin, top1, bf16)
     return out
 
@@ -401,8 +582,11 @@ def kernel_cases(sy, centers, device, *, peak_evening, n_lv_frames,
 def phase_kernels(device):
     """Every kernel against its plain version: at the bench width with
     bench.py's 1024 random centres (timed) and with site centres (labels
-    that mean something), then the clip and triclinic cases at n_c = 8."""
+    that mean something), then the clip case (f32 operands, the FMA tail)
+    and the triclinic case at n_c = 8.  Returns the timed case's results
+    with the largest error of the bench cases."""
     shear = np.array([[0.0, 0.0, 0.0], [0.2, 0.0, 0.0], [-0.1, 0.15, 0.0]])
+    tail_partition_cases()
     sy = add_site_centres(bench_system(32, seed=7), device)
     kw = dict(n_lv_frames=4, s_tile_gather=256, full_mask=True)
     res = kernel_cases(sy, sy["random_centres"], device,
@@ -410,8 +594,8 @@ def phase_kernels(device):
                        reps=5, **kw)
     site = kernel_cases(sy, sy["centers"], device, peak_evening="none",
                         label="bench site centres", reps=0, **kw)
-    res = {k: (max(err, site[k][0]), ms, pms)
-           for k, (err, ms, pms) in res.items()}
+    for k in KERNELS:
+        res[k]["err"] = max(res[k]["err"], site[k]["err"])
 
     # the clip case in f32 similarities: clipping flattens the rows, so
     # most top-2 margins sit inside the bf16 gate
@@ -425,11 +609,13 @@ def phase_kernels(device):
         kernel_cases(sy, sy["centers"], device, peak_evening=peak,
                      n_lv_frames=8, s_tile_gather=128, full_mask=False,
                      label=label, reps=0, bf16=bf16)
-    for name, (err, ms, pms) in sorted(res.items()):
-        also = (f"; K1 {res['K1'][1]:.3f} ms on the same inputs"
-                if name == "K1s" else "")
-        print(f"time {name} at the bench width: kernel {ms:.3f} ms, plain "
-              f"{pms:.3f} ms{also}", flush=True)
+    for name in KERNELS:
+        r = res[name]
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.3f} ms")
+        print(f"time {name} at the bench width: kernel {r['ms']:.3f} ms, "
+              f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), library {lib}", flush=True)
     return res
 
 
@@ -537,6 +723,7 @@ def phase_slice(device):
           f"median of 5 [{min(reps):.1f}, {max(reps):.1f}]; "
           f"{100 * np.mean(labels >= 0):.2f}% assigned; {int(n_ij.sum())} "
           "jumps == int64 oracle", flush=True)
+    profile_pass(pipe, blocks)
 
     # the pipeline on a basis without vertex sharing: K3, held to the dense
     # route on the same frames
@@ -572,8 +759,9 @@ def phase_slice(device):
 def phase_skew(device):
     """The K1s path: ``mxu_assign_blocks`` with ``skew=True`` and with
     ``skew=False`` through the public wrapper over 8 bench blocks of 32
-    frames, labels and confs held bit for bit (what ``tools/ab_skew.py``
-    does on the TPU).  Returns the launch counts."""
+    frames (what ``tools/ab_skew.py`` does on the TPU), labels held equal
+    outside the margin gate and confidences within tolerance.  Returns the
+    launch counts."""
     import torch
     from sitator_tpu_torch.ops import landmark_mxu as mx
     from sitator_tpu_torch.ops.kernel_common import kernel_cell
@@ -589,24 +777,29 @@ def phase_skew(device):
     kcell = kernel_cell(sy["cell"])
     kw = dict(midpoint=MID, steepness=STEEP, threshold=THR,
               cutoff_shape=CUTOFF)
+    blocks = [(torch.as_tensor(sy["mobile"][lo:lo + 32], device=device),
+               torch.as_tensor(sy["static"][lo:lo + 32], device=device))
+              for lo in range(0, 8 * 32, 32)]
+    margins = [top2_margin(mx._mxu_lv_cuda(**mx._lv_inputs(
+        mobile, static, basis, kcell, midpoint=MID, steepness=STEEP,
+        cutoff_shape=CUTOFF)), sy["centers"], "none")
+        for mobile, static in blocks]
     reset_launches()
-    mism = assigned = 0
-    for lo in range(0, 8 * 32, 32):
-        mobile = torch.as_tensor(sy["mobile"][lo:lo + 32], device=device)
-        static = torch.as_tensor(sy["static"][lo:lo + 32], device=device)
-        la, ca = mx.mxu_assign_blocks(mobile, static, basis, kcell, centers,
-                                      skew=False, **kw)
-        ls, cs = mx.mxu_assign_blocks(mobile, static, basis, kcell, centers,
-                                      skew=True, **kw)
-        mism += int((la != ls).sum()) + int(
-            (ca.view(torch.int32) != cs.view(torch.int32)).sum())
-        assigned += int((ls >= 0).sum())
+    runs = [(mx.mxu_assign_blocks(mobile, static, basis, kcell, centers,
+                                  skew=False, **kw),
+             mx.mxu_assign_blocks(mobile, static, basis, kcell, centers,
+                                  skew=True, **kw))
+            for mobile, static in blocks]
     launches = read_launches()
-    print(f"K1s path (8 x 32 bench frames through mxu_assign_blocks, skew "
-          f"and not): {mism} label/conf bit mismatches, "
-          f"{100 * assigned / sy['mobile'][:256, :, 0].size:.2f}% assigned; "
-          f"launches {launches}", flush=True)
-    check(mism == 0, f"K1s path: {mism} bit mismatches against K1")
+    cat = [[torch.cat([r[i][j] for r in runs]) for j in (0, 1)]
+           for i in (0, 1)]
+    margin, top1 = (np.concatenate([m[i] for m in margins]) for i in (0, 1))
+    err = compare_assign("K1s path (8 x 32 bench frames through "
+                         "mxu_assign_blocks, skew vs not)", cat[1], cat[0],
+                         margin, top1, True)
+    print(f"K1s path: {100 * float((cat[1][0] >= 0).float().mean()):.2f}% "
+          f"assigned; max conf difference {err:.3g}; launches {launches}",
+          flush=True)
     for k in ("K1", "K1s"):
         check(launches[k] > 0, f"{k} was not launched on the K1s path")
     return launches
@@ -710,6 +903,33 @@ def one_pass(pipe, blocks):
     return out
 
 
+def profile_pass(pipe, blocks):
+    """One pass of ``blocks`` through ``pipe`` under ``torch.profiler``:
+    the wall time, the device's kernels and copies by name (the 8 largest)
+    and their sum against the wall, all per block.  The profiler's own
+    overhead is in the wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one_pass(pipe, blocks)
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+    ops = sorted(((e.key, e.self_device_time_total / 1e3)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0), key=lambda x: -x[1])
+    n = len(blocks)
+    dev = sum(t for _, t in ops)
+    print(f"profile (one pass of {n} blocks under torch.profiler), per "
+          f"block: wall {wall / n:.2f} ms, device kernels and copies "
+          f"{dev / n:.2f} ms ({100 * dev / wall:.1f}% of the wall); by "
+          "name: " + "; ".join(f"{k[:60]} {t / n:.3f}"
+                               for k, t in ops[:8]), flush=True)
+
+
 def no_sharing_system(seed):
     """48 sites on a 4 x 4 x 3 grid, each a tetrahedron of its own 4 static
     atoms (no vertex is shared); 24 ions hopping among them, 16 frames."""
@@ -727,16 +947,20 @@ def no_sharing_system(seed):
 
 
 KERNELS = {
-    "K1": dict(name="K1 unique-atom assign (lv_tile + assign_tail)",
+    "K1": dict(name="K1 unique-atom assign (lv_tile + assign_tail with "
+                    "sims_wgmma)",
                source="sitator_tpu_torch/csrc/lv_tile.cu",
-               also=["sitator_tpu_torch/csrc/assign_tail.cu"],
+               also=["sitator_tpu_torch/csrc/assign_tail.cu",
+                     "sitator_tpu_torch/csrc/sims_wgmma.cu"],
                replaces="sitator_tpu/ops/landmark_mxu.py:419"),
     "K2": dict(name="K2 unique-atom landmark vectors (lv_tile)",
                source="sitator_tpu_torch/csrc/lv_tile.cu",
                replaces="sitator_tpu/ops/landmark_mxu.py:667"),
-    "K3": dict(name="K3 gather assign (lv_gather + assign_tail)",
+    "K3": dict(name="K3 gather assign (lv_gather + assign_tail with "
+                    "sims_wgmma)",
                source="sitator_tpu_torch/csrc/lv_gather.cu",
-               also=["sitator_tpu_torch/csrc/assign_tail.cu"],
+               also=["sitator_tpu_torch/csrc/assign_tail.cu",
+                     "sitator_tpu_torch/csrc/sims_wgmma.cu"],
                replaces="sitator_tpu/ops/landmark_pallas.py:82"),
     "K1s": dict(name="K1s skewed unique-atom assign (assign_skew)",
                 source="sitator_tpu_torch/csrc/assign_skew.cu",
@@ -766,13 +990,18 @@ def main():
     paths["streaming"], stream_fps = phase_streaming("cuda")
     check(not any(m == "jax" or m.startswith("jax.") for m in sys.modules),
           "jax was imported")
+    check(not any(m == "sitator_tpu" or m.startswith("sitator_tpu.")
+                  for m in sys.modules), "sitator_tpu was imported")
     kernels = []
     for key, meta in KERNELS.items():
-        err, ms, pms = res[key]
+        r = res[key]
         n = sum(p[key] for p in paths.values())
         check(n > 0, f"{key} was launched on no path")
         kernels.append(dict(meta, route="cuda", launches=n,
-                            max_abs_err=err, ms=ms, plain_ms=pms))
+                            max_abs_err=r["err"], ms=r["ms"],
+                            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                            bound_by=r["bound_by"],
+                            library_ms=r["library_ms"]))
     print(f"pipeline frames/s: {fps:.1f}; streaming pass 2 frames/s: "
           f"{stream_fps:.1f}; total {time.perf_counter() - t0:.1f} s",
           flush=True)

@@ -5,8 +5,9 @@ Landmark vectors → normalisation → cosine assignment to fitted site centres
 and out of core (``StreamingLandmarkAnalysis``), with the four TPU kernels of
 the JAX package rewritten by hand in CUDA C++ for Hopper (``csrc/``, built
 with nvcc at first use).  The JAX package ``sitator_tpu`` is the unchanged
-reference: both packages share its NumPy data model, so their engines take
-and return the same objects.
+reference.  The port keeps its own copy of the NumPy data model and imports
+nothing of ``sitator_tpu``; its engines are duck-typed and take either
+package's objects.
 
 Engines take an explicit ``device`` (default ``"cuda"``); on CPU tensors
 every kernel wrapper runs its plain PyTorch version.

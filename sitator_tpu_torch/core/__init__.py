@@ -1,10 +1,10 @@
-"""The data model, shared with :mod:`sitator_tpu`.
+"""The data model: ``Structure``, ``SiteNetwork``, ``SiteTrajectory``.
 
-``Structure``, ``SiteNetwork`` and ``SiteTrajectory`` are NumPy-only and
-import without JAX, so the port re-exports them instead of copying them:
-the engines of both packages take and return the same objects."""
-from sitator_tpu.core.structure import Structure
-from sitator_tpu.core.sitenet import SiteNetwork
-from sitator_tpu.core.sitetraj import SiteTrajectory
+Copies of :mod:`sitator_tpu.core` (NumPy only), so the port imports nothing
+of the JAX package.  The engines are duck-typed: they take either package's
+objects and return the port's."""
+from sitator_tpu_torch.core.structure import Structure
+from sitator_tpu_torch.core.sitenet import SiteNetwork
+from sitator_tpu_torch.core.sitetraj import SiteTrajectory
 
 __all__ = ["Structure", "SiteNetwork", "SiteTrajectory"]

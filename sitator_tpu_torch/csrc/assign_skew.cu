@@ -27,16 +27,17 @@
 // More than 1024 centres are taken in chunks of 1024 columns; each chunk
 // recomputes the lv tiles, and the running arg-max is carried across chunks.
 //
-// Bit-identity with K1 (the reference's contract for the skew variant):
-//   - every lv element is the same sequential fmaf over unique atoms in
-//     lv_tile's slice order, through the same __device__ core;
-//   - every similarity is a sequential fmaf over sites 0 .. SP-1, as in
-//     sims_argmax_kernel;
-//   - norm² is summed lane-strided (lane l takes columns = l mod 32, in
-//     order) and xor-shuffled, as row_prep_kernel does: the producer thread
-//     of lane l holds exactly those columns of its rows;
-//   - the arg-max keeps the largest value and, among equal values, the lowest
-//     index, whatever the reduction order.
+// Agreement with K1: every lv element is the same sequential fmaf over the
+// tile's unique atoms in ascending order as lv_tile's (the shared core of
+// landmark_common.cuh; lv_tile skips the zero terms, which leaves the sum
+// bit-identical), so the lv are bit-equal.  The similarity here is a
+// sequential fmaf over sites 0 .. SP-1 on the FMA pipes, while K1 sums on
+// the tensor cores (sims_wgmma.cu) in another order, so labels agree with
+// K1's wherever the top-2 margin exceeds the bf16 gate and confidences to
+// f32 rounding of that order; the arg-max keeps the largest value and,
+// among equal values, the lowest index.  norm² is summed lane-strided
+// (lane l takes columns = l mod 32, in order) and xor-shuffled, as
+// row_prep_kernel does.
 //
 // What bounds it on an H100: the similarity product on the f32 FMA pipes,
 // 2 * MP * SP * KP flop a frame (14.7 GFLOP at the 10k-atom bench config),
@@ -45,8 +46,8 @@
 // writes B * MP * SP floats of scratch, 0.92 GB per 32-frame bench block).
 // Later work: a thread-block cluster that splits KP and shares the lv tile
 // through distributed shared memory (fewer centre bytes per row), bf16
-// centres in shared memory, and the product on the tensor cores (wgmma) —
-// which would change the summation order and so give up bit-identity with K1.
+// centres in shared memory, and the product on the tensor cores (wgmma), as
+// K1's tail now does.
 #include <cuda_bf16.h>
 #include <limits.h>
 #include <math.h>

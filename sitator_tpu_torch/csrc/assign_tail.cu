@@ -5,24 +5,30 @@
 // and sitator_tpu/ops/landmark_pallas.py::_kernel: with peak_evening='clip'
 // every row is capped at its second-largest value (kernel_common.merge_top2's
 // rule: a repeated maximum is its own second value); then norm² from the f32
-// lv, sims = lv @ centres with bf16-rounded operands and f32 accumulation
-// (f32 operands when bf16 = 0), sims * rsqrt(max(norm², 1e-24)), the
-// arg-max over all KP padded centre columns with the lowest index winning a
-// tie, and the threshold (label -1 below it).
+// lv, sims = lv @ centres, sims * rsqrt(max(norm², 1e-24)), the arg-max over
+// all KP padded centre columns with the lowest index winning a tie, and the
+// threshold (label -1 below it).
 //
 // Design: the TPU kernel keeps a (MP x KP) f32 similarity accumulator in
 // VMEM (3 MB at the bench shape); an SM has 227 KB of shared memory.  So the
-// accumulator is never formed.  sims_argmax_kernel tiles the product over
-// (64 rows x 128 centres) blocks, each reducing its own row-wise max and
-// arg-max in the epilogue; argmax_merge_kernel merges the KP / 128 partial
-// results of every row in centre order.  row_prep_kernel (one warp a row)
-// does the clip in place and the norm first.
+// accumulator is never formed: the product is tiled over blocks of rows x
+// centres, each reducing its own row-wise max and arg-max in the epilogue,
+// and argmax_merge_kernel merges the partial results of every row in centre
+// order.  Three launches, each its own C entry so that every stage can be
+// timed alone:
+//   - row_prep_kernel (one warp a row): the clip in place, inv_norm, and for
+//     bf16 operands a bf16 copy of the clipped row;
+//   - the product: with bf16 operands (the reference's mxu_bf16=True) on the
+//     tensor cores, sims_wgmma.cu (128 x 256 blocks); with f32 operands
+//     (mxu_bf16=False; wgmma has no full-f32 mode and TF32 is not the
+//     reference's f32) sims_argmax_kernel below on the f32 FMA pipes (64 x
+//     128 blocks).  The caller's dtype picks the kernel;
+//   - argmax_merge_kernel.
 //
 // What bounds it on an H100: the similarity product, 2 * MP * SP * KP flop
-// a frame (14.7 GFLOP at the 10k-atom bench config), here on the f32 FMA
-// pipes with bf16-rounded operands (exact products, f32 sums).  Moving it
-// onto the tensor cores (wgmma with bf16 operands) is later work; K1s
-// (assign_skew.cu) runs the same sums with the lv tile kept on chip.
+// a frame (14.7 GFLOP at the 10k-atom bench config): 989 TFLOP/s in bf16 on
+// the tensor cores, 67 TFLOP/s in f32 on the FMA pipes.  row_prep reads the
+// f32 lv (once, twice with the clip) and writes the bf16 copy.
 #include <cuda_bf16.h>
 #include <math.h>
 
@@ -36,12 +42,14 @@ constexpr int BK = 32;    // sites per shared-memory slice
 constexpr int THREADS = 256;
 
 __global__ void row_prep_kernel(float* __restrict__ lv,
+                                __nv_bfloat16* __restrict__ lvb,
                                 float* __restrict__ inv_norm, int rows,
                                 int cols, int clip) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;  // whole warps exit together
   float* r = lv + (size_t)row * cols;
+  __nv_bfloat16* rb = lvb ? lvb + (size_t)row * cols : nullptr;
   float cap = 0.0f;
   if (clip) {
     // running top-2 of the row as a multiset (lv >= 0, so starting from
@@ -73,6 +81,7 @@ __global__ void row_prep_kernel(float* __restrict__ lv,
       x = fminf(x, cap);
       r[c] = x;
     }
+    if (rb) rb[c] = __float2bfloat16_rn(x);
     n2 = fmaf(x, x, n2);
   }
 #pragma unroll
@@ -81,16 +90,12 @@ __global__ void row_prep_kernel(float* __restrict__ lv,
   if (lane == 0) inv_norm[row] = rsqrtf(fmaxf(n2, 1e-24f));
 }
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
 __global__ void __launch_bounds__(THREADS) sims_argmax_kernel(
     const float* __restrict__ lv,        // (rows, cols)
     const float* __restrict__ inv_norm,  // (rows)
     const float* __restrict__ C,         // (cols, KP)
     float* __restrict__ part_val,        // (rows, KP / BN)
-    int* __restrict__ part_idx, int rows, int cols, int KP, int bf16) {
+    int* __restrict__ part_idx, int rows, int cols, int KP) {
   const int kb = blockIdx.x;
   const int n_kb = gridDim.x;
   const int row0 = blockIdx.y * BM;
@@ -117,7 +122,7 @@ __global__ void __launch_bounds__(THREADS) sims_argmax_kernel(
       float v = 0.0f;
       if (row0 + r < rows && k0 + k < cols)
         v = lv[(size_t)(row0 + r) * cols + k0 + k];
-      As[k][r] = bf16 ? round_bf16(v) : v;
+      As[k][r] = v;
     }
 #pragma unroll
     for (int i = 0; i < BK * BN / THREADS; ++i) {
@@ -125,7 +130,7 @@ __global__ void __launch_bounds__(THREADS) sims_argmax_kernel(
       const int k = e / BN, c = e % BN;
       float v = 0.0f;
       if (k0 + k < cols) v = C[(size_t)(k0 + k) * KP + col0 + c];
-      Bs[k][c] = bf16 ? round_bf16(v) : v;
+      Bs[k][c] = v;
     }
     __syncthreads();
 #pragma unroll 8
@@ -196,21 +201,27 @@ __global__ void argmax_merge_kernel(const float* __restrict__ part_val,
 
 }  // namespace
 
-extern "C" int sit_assign_tail(float* lv, float* inv_norm, const float* C,
-                               float* part_val, int* part_idx, int* labels,
-                               float* confs, int rows, int cols, int KP,
-                               int clip, int bf16, float thr, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  row_prep_kernel<<<(rows + 7) / 8, 256, 0, s>>>(lv, inv_norm, rows, cols,
-                                                 clip);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int n_kb = KP / BN;
-  sims_argmax_kernel<<<dim3(n_kb, (rows + BM - 1) / BM), THREADS, 0, s>>>(
-      lv, inv_norm, C, part_val, part_idx, rows, cols, KP, bf16);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  argmax_merge_kernel<<<(rows + 255) / 256, 256, 0, s>>>(
+extern "C" int sit_row_prep(float* lv, void* lvb, float* inv_norm, int rows,
+                            int cols, int clip, void* stream) {
+  row_prep_kernel<<<(rows + 7) / 8, 256, 0, (cudaStream_t)stream>>>(
+      lv, static_cast<__nv_bfloat16*>(lvb), inv_norm, rows, cols, clip);
+  return (int)cudaGetLastError();
+}
+
+// part_val / part_idx are (rows, KP / 128).
+extern "C" int sit_sims_fma(const float* lv, const float* inv_norm,
+                            const float* C, float* part_val, int* part_idx,
+                            int rows, int cols, int KP, void* stream) {
+  sims_argmax_kernel<<<dim3(KP / BN, (rows + BM - 1) / BM), THREADS, 0,
+                       (cudaStream_t)stream>>>(lv, inv_norm, C, part_val,
+                                               part_idx, rows, cols, KP);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sit_argmax_merge(const float* part_val, const int* part_idx,
+                                int* labels, float* confs, int rows, int n_kb,
+                                float thr, void* stream) {
+  argmax_merge_kernel<<<(rows + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
       part_val, part_idx, rows, n_kb, thr, labels, confs);
   return (int)cudaGetLastError();
 }

@@ -82,14 +82,17 @@ __device__ __forceinline__ float log_cutoff(float x) {
 // ---------------------------------------------------------------------------
 // The unique-atom landmark-vector core, shared by lv_tile.cu (K2, K1's first
 // stage) and assign_skew.cu (K1s), so that both compute every lv element with
-// the same operations in the same order and K1s's labels are bit-equal to
-// K1's.  Per (ion, kd site tile t):
+// the same operations in the same order.  Per (ion, kd site tile t):
 //   1. tile_ion_position: on the preshift route the ion moves to its image
 //      nearest the tile anchor (one minimum image per (ion, tile));
 //   2. unique_atom_log_factor: the log cutoff against one unique atom (one
 //      minimum image per pair off the preshift route);
-//   3. membership_fma: lv_acc += logc[k] * A_t[k, c] as a sequential f32 FMA
-//      over the unique atoms k in slice order;
+//   3. the membership sum lv_acc = sum_k logc[k] * A_t[k, c] as a sequential
+//      f32 FMA in ascending k: over every unique atom (membership_fma, K1s)
+//      or over the column's nonzeros only (membership_sparse, lv_tile).  The
+//      two are bit-identical: the accumulator starts at +0 and logc is
+//      finite and <= 0, so fmaf(logc, 0, acc) == acc for every skipped k
+//      (a -0 product added to +0 gives +0);
 //   4. lv_value: exp, then 0 on padded site columns.
 
 __device__ __forceinline__ void tile_ion_position(float& x, float& y,
@@ -134,6 +137,26 @@ __device__ __forceinline__ void membership_fma(float (&acc)[RM][RN],
     for (int i = 0; i < RM; ++i)
 #pragma unroll
       for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
+// acc[i] = fmaf(logc[(r0 + i) * ld + k_j], mult_j, acc[i]) over the
+// column's nonzero membership rows k_j in ascending order; idx / mult hold
+// the list with a stride of ``stride`` between entries, padded with -1 after
+// its last entry (at most vmax entries).
+template <int RM>
+__device__ __forceinline__ void membership_sparse(float (&acc)[RM],
+                                                  const float* logc, int ld,
+                                                  int r0, const int* idx,
+                                                  const float* mult,
+                                                  int stride, int vmax) {
+  for (int j = 0; j < vmax; ++j) {
+    const int k = idx[j * stride];
+    if (k < 0) break;
+    const float a = mult[j * stride];
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+      acc[i] = fmaf(logc[(r0 + i) * ld + k], a, acc[i]);
   }
 }
 

@@ -1,10 +1,11 @@
-"""Trajectory readers, shared with :mod:`sitator_tpu`.
+"""Trajectory readers: ``TrajectoryReader``, ``ArrayTrajectory`` and
+``ChunkedFeeder`` (the background block prefetcher).
 
-``TrajectoryReader``, ``ArrayTrajectory`` and ``ChunkedFeeder`` (the
-background block prefetcher) are NumPy-only and import without JAX, so the
-port re-exports them instead of copying them, as :mod:`sitator_tpu_torch.core`
-does the data model."""
-from sitator_tpu.io.formats import (ArrayTrajectory, ChunkedFeeder,
-                                    TrajectoryReader)
+Copies of the NumPy-only classes of :mod:`sitator_tpu.io.formats`, so the
+port imports nothing of the JAX package.  The streaming engine takes any
+object with ``len()`` and ``reader[lo:hi] -> (n, A, 3)``, either package's
+readers included."""
+from sitator_tpu_torch.io.formats import (ArrayTrajectory, ChunkedFeeder,
+                                          TrajectoryReader)
 
 __all__ = ["TrajectoryReader", "ArrayTrajectory", "ChunkedFeeder"]

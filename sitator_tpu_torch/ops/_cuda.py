@@ -33,15 +33,21 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # mob, vpu, A, kill, anchors, col_map, out, B, MP, M_out, n_st, UP,
-    # s_tile, out_cols, params, triclinic, r2, preshift, stream
-    "sit_lv_tile": [_P] * 7 + [_I] * 7 + [_P, _I, _I, _I, _P],
+    # mob, vpu, midx, mmul, kill, anchors, col_map, out, B, MP, M_out,
+    # n_st, UP, s_tile, vmax, out_cols, params, triclinic, r2, preshift,
+    # stream
+    "sit_lv_tile": [_P] * 8 + [_I] * 8 + [_P, _I, _I, _I, _P],
     # mob, vp, mask, out, B, MP, V, SP, params, triclinic, r2, full_mask,
     # stream
     "sit_lv_gather": [_P] * 4 + [_I] * 4 + [_P, _I, _I, _I, _P],
-    # lv, inv_norm, centers, part_val, part_idx, labels, confs, rows, cols,
-    # KP, clip, bf16, threshold, stream
-    "sit_assign_tail": [_P] * 7 + [_I] * 5 + [_F, _P],
+    # lv, lvb (or NULL), inv_norm, rows, cols, clip, stream
+    "sit_row_prep": [_P] * 3 + [_I] * 3 + [_P],
+    # lv, inv_norm, centers, part_val, part_idx, rows, cols, KP, stream
+    "sit_sims_fma": [_P] * 5 + [_I] * 3 + [_P],
+    # lvb, centers_bf16, inv_norm, part_val, part_idx, rows, SP, KP, stream
+    "sit_sims_wgmma": [_P] * 5 + [_I] * 3 + [_P],
+    # part_val, part_idx, labels, confs, rows, n_kb, threshold, stream
+    "sit_argmax_merge": [_P] * 4 + [_I] * 2 + [_F, _P],
     # mob, vpu, A, kill, anchors, centers, labels, confs, B, MP, n_st, UP,
     # s_tile, KP, ldc, nj, params, triclinic, r2, preshift, bf16, stream
     "sit_assign_skew": [_P] * 8 + [_I] * 8 + [_P, _I, _I, _I, _I, _P],
@@ -153,29 +159,31 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
-def lv_tile(mob, vpu, A, kill, anchors, col_map, out, params, *,
+def lv_tile(mob, vpu, midx, mmul, kill, anchors, col_map, out, params, *,
             triclinic, r2_cutoff, preshift):
     """Landmark vectors of every (ion, kd site tile) into ``out (B, M_out,
     out_cols)``: column ``c`` of the kd-ordered site axis lands in
     ``out[..., col_map[c]]`` (skipped where ``col_map[c] < 0``), ion rows
-    beyond ``M_out`` are skipped."""
+    beyond ``M_out`` are skipped.  ``midx`` / ``mmul (n_st, s_tile, vmax)``
+    are the membership lists of ``landmark_mxu.membership_lists``."""
     B, _, MP = mob.shape
-    n_st, UP, s_tile = A.shape
+    n_st, s_tile, vmax = midx.shape
+    UP = vpu.shape[-1]
     SP = n_st * s_tile
     _, M_out, out_cols = out.shape
-    if UP % 32 or MP % 64 or M_out > MP:
-        raise ValueError("lv_tile needs UP % 32 == 0, MP % 64 == 0, "
-                         "M_out <= MP")
+    if MP % 32 or M_out > MP:
+        raise ValueError("lv_tile needs MP % 32 == 0, M_out <= MP")
     p = _host_params(params)
     _call("sit_lv_tile",
           _check(mob, "mob", torch.float32, (B, 3, MP)),
           _check(vpu, "vpu", torch.float32, (B, n_st, 3, UP)),
-          _check(A, "A", torch.float32),
+          _check(midx, "midx", torch.int32),
+          _check(mmul, "mmul", torch.float32, (n_st, s_tile, vmax)),
           _check(kill, "kill", torch.float32, (SP,)),
           _check(anchors, "anchors", torch.float32, (n_st, 3)),
           _check(col_map, "col_map", torch.int32, (SP,)),
           _check(out, "out", torch.float32, (B, M_out, out_cols)),
-          B, MP, M_out, n_st, UP, s_tile, out_cols, p.data_ptr(),
+          B, MP, M_out, n_st, UP, s_tile, vmax, out_cols, p.data_ptr(),
           int(triclinic), int(r2_cutoff), int(preshift), _stream())
 
 
@@ -195,30 +203,82 @@ def lv_gather(mob, vp, mask, out, params, *, triclinic, r2_cutoff,
           int(full_mask), _stream())
 
 
-def assign_tail(lv, centers, threshold, *, peak_clip, mxu_bf16):
-    """Cosine assignment of every row of ``lv (rows, SP)`` (clipped in
-    place at its second-largest value when ``peak_clip``) to the padded
-    centres ``centers (SP, KP)``.  Returns (labels int32, confs float32),
-    both ``(rows,)``."""
+def row_prep(lv, *, peak_clip, bf16_copy):
+    """Tail stage 1 on ``lv (rows, SP)``: clip every row in place at its
+    second-largest value when ``peak_clip``; returns ``inv_norm (rows,)``
+    and, when ``bf16_copy``, the bf16 copy of the (clipped) rows, else
+    None."""
+    rows, SP = lv.shape
+    inv_norm = torch.empty(rows, device=lv.device, dtype=torch.float32)
+    lvb = (torch.empty((rows, SP), device=lv.device, dtype=torch.bfloat16)
+           if bf16_copy else None)
+    _call("sit_row_prep", _check(lv, "lv", torch.float32),
+          None if lvb is None else lvb.data_ptr(), inv_norm.data_ptr(),
+          rows, SP, int(peak_clip), _stream())
+    return inv_norm, lvb
+
+
+def centers_bf16(centers):
+    """The tensor-core operand of the centres ``(SP, KP)``: rounded to bf16
+    once, K-major ``(KP, SP)``."""
+    return centers.t().to(torch.bfloat16).contiguous()
+
+
+def sims_argmax(lv, lvb, inv_norm, centers, centers_b=None):
+    """Tail stage 2: per row, the max and first arg-max of ``sims ·
+    inv_norm`` over each block of centre columns.  With ``lvb`` (bf16
+    operands) the product runs on the tensor cores over 256-column blocks
+    against ``centers_b`` (:func:`centers_bf16`, made here when None); else
+    on the f32 FMA pipes over 128-column blocks against the f32 ``centers
+    (SP, KP)``.  Returns ``(part_val, part_idx)``, ``(rows, n_kb)``."""
     rows, SP = lv.shape
     KP = centers.shape[1]
     if KP % 128:
         raise ValueError("centers must be padded to a multiple of 128")
-    n_kb = KP // 128
+    _check(centers, "centers", torch.float32, (SP, KP))
     dev = lv.device
-    inv_norm = torch.empty(rows, device=dev, dtype=torch.float32)
+    n_kb = -(-KP // 256) if lvb is not None else KP // 128
     part_val = torch.empty((rows, n_kb), device=dev, dtype=torch.float32)
     part_idx = torch.empty((rows, n_kb), device=dev, dtype=torch.int32)
-    labels = torch.empty(rows, device=dev, dtype=torch.int32)
-    confs = torch.empty(rows, device=dev, dtype=torch.float32)
-    _call("sit_assign_tail",
-          _check(lv, "lv", torch.float32),
-          inv_norm.data_ptr(),
-          _check(centers, "centers", torch.float32, (SP, KP)),
-          part_val.data_ptr(), part_idx.data_ptr(), labels.data_ptr(),
-          confs.data_ptr(), rows, SP, KP, int(peak_clip), int(mxu_bf16),
-          float(threshold), _stream())
+    if lvb is None:
+        _call("sit_sims_fma", _check(lv, "lv", torch.float32, (rows, SP)),
+              _check(inv_norm, "inv_norm", torch.float32, (rows,)),
+              centers.data_ptr(), part_val.data_ptr(), part_idx.data_ptr(),
+              rows, SP, KP, _stream())
+        return part_val, part_idx
+    if rows % 128 or SP % 64:
+        raise ValueError("the tensor-core tail needs rows % 128 == 0 and "
+                         f"SP % 64 == 0 (rows={rows}, SP={SP})")
+    if centers_b is None:
+        centers_b = centers_bf16(centers)
+    _call("sit_sims_wgmma", _check(lvb, "lvb", torch.bfloat16, (rows, SP)),
+          _check(centers_b, "centers_b", torch.bfloat16, (KP, SP)),
+          _check(inv_norm, "inv_norm", torch.float32, (rows,)),
+          part_val.data_ptr(), part_idx.data_ptr(), rows, SP, KP, _stream())
+    return part_val, part_idx
+
+
+def argmax_merge(part_val, part_idx, threshold):
+    """Tail stage 3: merge the per-block partials of every row in column
+    order; returns (labels int32 with -1 below ``threshold``, confs)."""
+    rows, n_kb = part_val.shape
+    labels = torch.empty(rows, device=part_val.device, dtype=torch.int32)
+    confs = torch.empty(rows, device=part_val.device, dtype=torch.float32)
+    _call("sit_argmax_merge", part_val.data_ptr(), part_idx.data_ptr(),
+          labels.data_ptr(), confs.data_ptr(), rows, n_kb, float(threshold),
+          _stream())
     return labels, confs
+
+
+def assign_tail(lv, centers, threshold, *, peak_clip, mxu_bf16):
+    """Cosine assignment of every row of ``lv (rows, SP)`` (clipped in
+    place at its second-largest value when ``peak_clip``) to the padded
+    centres ``centers (SP, KP)``: :func:`row_prep`, :func:`sims_argmax`
+    (on the tensor cores when ``mxu_bf16``), :func:`argmax_merge`.  Returns
+    (labels int32, confs float32), both ``(rows,)``."""
+    inv_norm, lvb = row_prep(lv, peak_clip=peak_clip, bf16_copy=mxu_bf16)
+    part_val, part_idx = sims_argmax(lv, lvb, inv_norm, centers)
+    return argmax_merge(part_val, part_idx, threshold)
 
 
 def assign_skew(mob, vpu, A, kill, anchors, centers, params, *, n_valid,

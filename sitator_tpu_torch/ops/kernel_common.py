@@ -13,7 +13,7 @@ import torch
 
 __all__ = ["round_up", "pack_cell_params", "load_cell_params",
            "min_image_xyz", "merge_top2", "supports_cell", "kernel_cell",
-           "softplus", "tiled_assign_plain"]
+           "softplus", "tiled_assign_plain", "blocked_assign_plain"]
 
 
 def round_up(x, m):
@@ -167,3 +167,36 @@ def tiled_assign_plain(tile_lv, B, MP, n_tiles, s_tile, cpad, threshold, *,
         labels[lo:hi] = torch.where(conf >= threshold, lab, -1)
         confs[lo:hi] = conf
     return labels, confs
+
+
+def blocked_assign_plain(lv, inv_norm, centers, threshold, *, mxu_bf16):
+    """Plain twin of the CUDA tail's partition (``csrc/assign_tail.cu``,
+    ``csrc/sims_wgmma.cu``) on ``lv (rows, SP)`` and ``centers (SP, KP)``:
+    per block of rows x centre columns (128 x 256 with bf16 operands, the
+    last block holding only the ``KP mod 256`` real columns; 64 x 128 in
+    f32) the max of ``sims · inv_norm`` and its first arg-max, then the
+    merge of each row's blocks in column order (strict ``>``: the lowest
+    index wins a tie) and the threshold.  Returns (labels int32, confs)."""
+    rows, _ = lv.shape
+    KP = centers.shape[1]
+    bm, bn = (128, 256) if mxu_bf16 else (64, 128)
+    a = _round_bf16(lv) if mxu_bf16 else lv
+    c = _round_bf16(centers) if mxu_bf16 else centers
+    n_kb = -(-KP // bn)
+    part_val = torch.empty((rows, n_kb), device=lv.device)
+    part_idx = torch.empty((rows, n_kb), dtype=torch.int64, device=lv.device)
+    for r0 in range(0, rows, bm):
+        r1 = min(rows, r0 + bm)
+        for kb in range(n_kb):
+            c0, c1 = kb * bn, min(KP, (kb + 1) * bn)
+            s = (a[r0:r1] @ c[:, c0:c1]) * inv_norm[r0:r1, None]
+            part_val[r0:r1, kb], part_idx[r0:r1, kb] = s.max(1)
+            part_idx[r0:r1, kb] += c0
+    best = part_val[:, 0].clone()
+    idx = part_idx[:, 0].clone()
+    for kb in range(1, n_kb):
+        take = part_val[:, kb] > best
+        best = torch.where(take, part_val[:, kb], best)
+        idx = torch.where(take, part_idx[:, kb], idx)
+    labels = torch.where(best >= threshold, idx, -1).to(torch.int32)
+    return labels, best

@@ -23,7 +23,9 @@ and its plain PyTorch version on CPU tensors:
   ``sitator_tpu/ops/landmark_mxu.py::_kernel``) — lv tiles, then cosine
   assignment to the centres; with ``skew=True`` K1s (replaces
   ``::_kernel_skew``), the same function in one kernel whose warps overlap
-  one tile's lv with the previous tile's similarity fold, bit-equal to K1;
+  one tile's lv with the previous tile's similarity fold (its similarity
+  sums run in another order than K1's tensor-core tail, so its labels
+  equal K1's outside the bf16 top-2 margin gate);
 - :func:`mxu_landmark_blocks` (K2, replaces ``::_lv_kernel``) — the lv
   matrix itself, in the caller's site order.
 """
@@ -46,7 +48,7 @@ logger = logging.getLogger(__name__)
 
 __all__ = ["prepare_mxu_basis", "prepare_engine_basis", "choose_s_tile",
            "mxu_assign_blocks", "mxu_supported", "permute_centers",
-           "mxu_landmark_blocks", "basis_from_jax"]
+           "mxu_landmark_blocks", "basis_from_jax", "membership_lists"]
 
 
 def _kd_order(frac, s_tile):
@@ -302,6 +304,36 @@ def basis_from_jax(basis, device):
 # device part
 # --------------------------------------------------------------------------
 
+def membership_lists(A):
+    """The sparse form of the membership matrices ``A (n_st, UP, s_tile)``
+    that the ``lv_tile`` kernel sums over: for every site column, the
+    tile-local unique-atom rows with a nonzero multiplicity in ascending
+    order, padded with -1, and those multiplicities (0 on padding).  Returns
+    ``(idx int32, mult float32)``, both ``(n_st, s_tile, vmax)`` on ``A``'s
+    device; ``vmax`` is the largest nonzero count of any column (at least
+    1).  Derived from ``A`` alone, so a basis from either package works."""
+    n_st, UP, s_tile = A.shape
+    nz = A != 0
+    vmax = max(1, int(nz.sum(1).max())) if A.numel() else 1
+    k = torch.arange(UP, device=A.device, dtype=torch.int32)[None, :, None]
+    key = torch.where(nz, k, UP).sort(dim=1).values[:, :vmax]
+    valid = key < UP
+    idx = torch.where(valid, key, -1)
+    mult = torch.where(valid, A.gather(1, key.clamp_max(UP - 1).long()), 0.0)
+    return (idx.transpose(1, 2).contiguous(),
+            mult.float().transpose(1, 2).contiguous())
+
+
+def _members(basis, A):
+    """:func:`membership_lists` of the basis on ``A``'s device, made once
+    per basis and device and kept in the basis dict (key ``members``)."""
+    cached = basis.get("members")
+    if cached is None or cached[0].device != A.device:
+        cached = membership_lists(A)
+        basis["members"] = cached
+    return cached
+
+
 def _basis_tensors(basis, device):
     """(uidx, A, kill, ref_u, anchors) on ``device``; zeros stand in for the
     preshift geometry on the per-pair route."""
@@ -372,9 +404,10 @@ def _frame_chunk(B, per_frame_elems, budget=1 << 24):
 
 
 def _mxu_lv_plain(mob, vpu, A, kill, params, anchors, *, M, inv_order,
-                  triclinic, r2_cutoff, preshift):
+                  triclinic, r2_cutoff, preshift, members=None):
     """Plain version of K2: ``(B, M, S)`` landmark vectors in the caller's
-    site order, tile by tile."""
+    site order, tile by tile (the membership product over the dense ``A``;
+    ``members`` is the kernel's input and unused here)."""
     B, _, MP = mob.shape
     n_st, UP, s_tile = A.shape
     S = inv_order.numel()
@@ -392,9 +425,10 @@ def _mxu_lv_plain(mob, vpu, A, kill, params, anchors, *, M, inv_order,
 
 
 def _mxu_lv_cuda(mob, vpu, A, kill, params, anchors, *, M, inv_order,
-                 triclinic, r2_cutoff, preshift):
+                 triclinic, r2_cutoff, preshift, members):
     """K2 on the card: one ``lv_tile`` launch writes every tile straight
-    into the caller's site order (no kd-ordered copy)."""
+    into the caller's site order (no kd-ordered copy), summing over the
+    membership lists ``members`` (:func:`membership_lists`)."""
     from sitator_tpu_torch.ops import _cuda
     B = mob.shape[0]
     n_st, _, s_tile = A.shape
@@ -404,17 +438,18 @@ def _mxu_lv_cuda(mob, vpu, A, kill, params, anchors, *, M, inv_order,
     col_map[inv_order.long()] = torch.arange(S, dtype=torch.int32,
                                              device=mob.device)
     out = torch.empty((B, M, S), device=mob.device)
-    _cuda.lv_tile(mob, vpu, A, kill, anchors, col_map, out, params,
+    _cuda.lv_tile(mob, vpu, *members, kill, anchors, col_map, out, params,
                   triclinic=triclinic, r2_cutoff=r2_cutoff,
                   preshift=preshift)
     return out
 
 
 def _mxu_assign_plain(mob, vpu, A, kill, cpad, params, anchors, *,
-                      triclinic, r2_cutoff, peak_clip, preshift, mxu_bf16):
+                      triclinic, r2_cutoff, peak_clip, preshift, mxu_bf16,
+                      members=None):
     """Plain version of K1, and of K1s (which computes the same function,
     only with its tiles overlapped): labels/confs ``(B, MP)``, tile by
-    tile."""
+    tile (``members`` is unused, as in :func:`_mxu_lv_plain`)."""
     B, _, MP = mob.shape
     n_st, UP, s_tile = A.shape
     cell, mid, steep, thr = load_cell_params(params.to(mob.device),
@@ -432,18 +467,20 @@ def _mxu_assign_plain(mob, vpu, A, kill, cpad, params, anchors, *,
 
 
 def _mxu_assign_cuda(mob, vpu, A, kill, cpad, params, anchors, *,
-                     triclinic, r2_cutoff, peak_clip, preshift, mxu_bf16):
+                     triclinic, r2_cutoff, peak_clip, preshift, mxu_bf16,
+                     members):
     """K1 on the card: ``lv_tile`` writes the block's lv tiles in kd order to
-    scratch, then ``assign_tail`` clips (optionally), normalises, multiplies
-    by the centres and takes the arg-max.  Keeping lv on chip, as the TPU
-    kernel does in VMEM, is later work."""
+    scratch (summing over the membership lists), then ``assign_tail`` clips
+    (optionally), normalises, multiplies by the centres (on the tensor cores
+    with bf16 operands) and takes the arg-max.  Keeping lv on chip, as the
+    TPU kernel does in VMEM, is later work."""
     from sitator_tpu_torch.ops import _cuda
     B, _, MP = mob.shape
     n_st, _, s_tile = A.shape
     SP = n_st * s_tile
     lv = torch.empty((B, MP, SP), device=mob.device)
     col_map = torch.arange(SP, dtype=torch.int32, device=mob.device)
-    _cuda.lv_tile(mob, vpu, A, kill, anchors, col_map, lv, params,
+    _cuda.lv_tile(mob, vpu, *members, kill, anchors, col_map, lv, params,
                   triclinic=triclinic, r2_cutoff=r2_cutoff,
                   preshift=preshift)
     labels, confs = _cuda.assign_tail(
@@ -454,7 +491,7 @@ def _mxu_assign_cuda(mob, vpu, A, kill, cpad, params, anchors, *,
 
 def _mxu_assign_skew_cuda(mob, vpu, A, kill, cpad, params, anchors, *,
                           triclinic, r2_cutoff, peak_clip, preshift,
-                          mxu_bf16):
+                          mxu_bf16, members=None):
     """K1s on the card: one ``assign_skew`` launch computes the lv tiles,
     the norm and the assignment with the lv kept on chip.  The centres are
     taken in chunks of up to 1024 columns (a power of two times 128), so
@@ -501,8 +538,10 @@ def _kernel_inputs(mobile, static, basis, cell, consts):
                              torch.from_numpy(cell).to(dev), n_st, UP, MP,
                              preshift)
     params, triclinic = pack_cell_params(cell, consts)
+    members = _members(basis, A) if dev.type == "cuda" else None
     return dict(mob=mob, vpu=vpu, A=A, kill=kill, params=params,
-                anchors=anchors, triclinic=triclinic, preshift=preshift)
+                anchors=anchors, triclinic=triclinic, preshift=preshift,
+                members=members)
 
 
 def _lv_inputs(mobile, static, basis, cell, *, midpoint, steepness,
@@ -567,8 +606,8 @@ def mxu_assign_blocks(mobile, static, basis, cell, centers_perm, *,
                       cutoff_shape="logistic", peak_evening="none",
                       skew=False):
     """Fused landmark + normalise + assign through the unique-atom kernel
-    (K1, or K1s with ``skew=True``: bit-equal labels and confs, with
-    ``peak_evening='none'`` only).  ``basis`` from
+    (K1, or K1s with ``skew=True``: the same function with
+    ``peak_evening='none'`` only, its sums in another order).  ``basis`` from
     :func:`prepare_mxu_basis`; ``centers_perm (K, S)`` unit centres with
     columns in kd order (:func:`permute_centers`).  Returns (labels (B, M)
     int32 with −1 below threshold, confs (B, M)).  On CUDA tensors this
