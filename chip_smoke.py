@@ -12,20 +12,25 @@ Phases; any failure exits non-zero before the result lines:
 2. build: compiles ``sitator_tpu_torch/csrc/*.cu`` for ``sm_90a`` into
    ``build/`` (skipped when a library for these sources is there), prints
    each kernel's registers and spills from ``ptxas``, and counts the
-   tensor-core (``HGMMA``) instructions in the library's SASS (fails on 0);
+   tensor-core (``HGMMA``) instructions of each kernel in the library's
+   SASS (fails when ``sims_wgmma`` or the cluster K1s has none);
 3. the tail's partition: the tensor-core and the FMA similarity kernels
    with their per-block arg-max and the merge, bit for bit against their
    plain twin on exact (dyadic) inputs with ties across block borders;
    then every kernel against its plain PyTorch version on the same inputs
-   on the card, at the bench width of ``bench.py`` (9261 static + 739 mobile atoms,
-   9261 landmarks x 8 vertices, 1024 centres) with its random centres
-   (timed, with each stage of K1 timed alone, the bound of each kernel
-   reckoned from these inputs, and the bf16 ``torch.matmul`` of the
-   similarity product timed as the library yardstick) and with site
-   centres, plus a ``peak_evening='clip'`` case in f32 (the FMA tail) and a
-   triclinic case at a reduced width; the unique-atom (K1) and gather (K3)
-   labels against each other, and the skewed unique-atom kernel (K1s)
-   against K1 wherever ``peak_evening='none'``;
+   on the card, at the bench width of ``bench.py`` (9261 static + 739
+   mobile atoms, 9261 landmarks x 8 vertices, 1024 centres) with its
+   random centres (timed, each stage of K1 and of K3 timed alone, the
+   bound of each kernel and stage reckoned from these inputs, and the bf16
+   ``torch.matmul`` of the similarity product timed as the library
+   yardstick) and with site centres; then at reduced widths a
+   ``peak_evening='clip'`` case in f32 (the FMA tail), an f32 case without
+   the clip (the FMA K1s), a triclinic case and cases with 384 and 2176
+   centres (K1s clusters of 1, 2, 4 and 8 CTAs, the last in two passes).
+   In each case K1 is held to K3 and K1s to K1 (labels outside the gate;
+   whether they are bit-equal is printed), and K3's bf16 route (the
+   gather stage writes the norm and the bf16 copy) bit for bit to its f32
+   route + ``row_prep``;
 4. the slice end to end through the user entry points, with the launch
    counters reset first and read after: ``LandmarkAnalysis`` (K2) then
    ``JumpAnalysis``; ``SpmdLandmarkPipeline`` over 8 blocks x 32 frames with
@@ -45,15 +50,22 @@ Phases; any failure exits non-zero before the result lines:
    the spilled labels, its labels bit for bit against
    ``SpmdLandmarkPipeline`` on the same frames and centres, and the run
    again without the memmap, counters reset first and read after;
-7. one JSON line of per-kernel results, then the ``ok`` line, last.
+7. K3's own path at the bench width: the bench's sites, each with a
+   tetrahedron of its own 4 static atoms (no vertex shared, 37,044 static
+   atoms): ``SpmdLandmarkPipeline`` (route 'gather', 8 x 32 frames with the
+   carry, timed, profiled) held to the dense route and the int64 oracle,
+   then ``StreamingLandmarkAnalysis`` fit and pass 2 (route 'gather', 1024
+   frames in 256-frame blocks, timed) held to the oracle and to the
+   pipeline;
+8. one JSON line of per-kernel results, then the ``ok`` line, last.
 
 Label comparisons are gated on the reference's top-2 margin: labels must be
 equal wherever the best and second-best cosine similarities (f32, from the
 kernel-checked landmark vectors) differ by more than 8e-3 with bf16 operands
 (about 2 bf16 ulps near 1) or 1e-5 in f32, and the best one is not within
-the confidence tolerance of the threshold.  K1 sums the similarity on the
-tensor cores, K1s and the plain versions on the FMA pipes: f32 sums of the
-same bf16 products in other orders, so no two of them are bit-equal.
+the confidence tolerance of the threshold.  K1, K3 and K1s sum the bf16
+similarity on the tensor cores, the plain versions on the CPU's or the
+card's f32 matmul: f32 sums of the same bf16 products in other orders.
 """
 from __future__ import annotations
 
@@ -309,18 +321,32 @@ def phase_build():
         if m:
             k = re.search(r"\d+([a-z_]+_kernel)", m.group(1))
             fn = k.group(1) if k else m.group(1)
-            t = re.search(r"_kernelILi(\d+)E", m.group(1))
+            t = re.findall(r"L[ib](\d+)E", m.group(1))
             if t:
-                fn = f"{fn}<{t.group(1)}>"
+                fn = f"{fn}<{','.join(t)}>"
         elif "registers" in line or "spill" in line:
             print(f"  ptxas {fn}: {line.split(':', 1)[-1].strip()}",
                   flush=True)
     cuobjdump = Path(_cuda._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(path)],
                           capture_output=True, text=True, check=True).stdout
-    n_hgmma = sum("HGMMA" in line for line in sass.splitlines())
-    print(f"SASS: {n_hgmma} HGMMA instructions in {path.name}", flush=True)
-    check(n_hgmma > 0, "no HGMMA (tensor-core) instruction in the library")
+    by_fn, fn = {}, "?"
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            k = re.search(r"\d+([a-z_]+_kernel)", m.group(1))
+            fn = k.group(1) if k else m.group(1)
+            t = re.findall(r"L[ib](\d+)E", m.group(1))
+            if t:
+                fn = f"{fn}<{','.join(t)}>"
+        elif "HGMMA" in line:
+            by_fn[fn] = by_fn.get(fn, 0) + 1
+    n_hgmma = sum(by_fn.values())
+    print(f"SASS: {n_hgmma} HGMMA instructions in {path.name}: " + ", ".join(
+        f"{k} {v}" for k, v in sorted(by_fn.items())), flush=True)
+    for kernel in ("sims_wgmma_kernel", "assign_skew_wgmma_kernel"):
+        check(any(k.startswith(kernel) for k in by_fn),
+              f"no HGMMA (tensor-core) instruction in {kernel}")
     return n_hgmma
 
 
@@ -387,14 +413,14 @@ def k1_stages(a, M, reps):
     lv_tile()
     inv, lvb = _cuda.row_prep(rows, peak_clip=False, bf16_copy=True)
     cb = _cuda.centers_bf16(a["cpad"])
-    pv, pi = _cuda.sims_argmax(rows, lvb, inv, a["cpad"], cb)
+    pv, pi = _cuda.sims_argmax(lvb, inv, a["cpad"], cb)
     ms = dict(
         lv_tile=timed(lv_tile, reps),
         row_prep=timed(lambda: _cuda.row_prep(rows, peak_clip=False,
                                               bf16_copy=True), reps),
         centers_bf16=timed(lambda: _cuda.centers_bf16(a["cpad"]), reps),
-        sims_wgmma=timed(lambda: _cuda.sims_argmax(rows, lvb, inv,
-                                                   a["cpad"], cb), reps),
+        sims_wgmma=timed(lambda: _cuda.sims_argmax(lvb, inv, a["cpad"], cb),
+                         reps),
         argmax_merge=timed(lambda: _cuda.argmax_merge(pv, pi, THR), reps))
     library = timed(lambda: torch.matmul(lvb, cb.t()), reps)
     R, KP = B * MP, a["cpad"].shape[1]
@@ -413,20 +439,78 @@ def k1_stages(a, M, reps):
     return ms, library
 
 
-def k3_library(a, reps):
-    """The bf16 ``torch.matmul`` of K3's similarity product on its own lv
-    (ms, CUDA events)."""
+def gather_rows(a, bf16):
+    """K3's gather stage alone on these kernel inputs: ``(lvb, inv_norm)``
+    with the bf16 output, else the f32 rows."""
+    from sitator_tpu_torch.ops import _cuda
+    return _cuda.lv_gather(a["mob"], a["vp"], a["mask"], a["params"],
+                           triclinic=a["triclinic"], r2_cutoff=a["r2_cutoff"],
+                           full_mask=a["full_mask"], bf16=bf16)
+
+
+def k3_routes(a, label):
+    """K3's bf16 route (the gather stage forms the norm and the bf16 copy)
+    bit for bit against its f32 route + ``row_prep``: inv_norm, the bf16
+    copy, and the labels and confidences of the tail on each."""
+    import torch
+    from sitator_tpu_torch.ops import _cuda
+    lvb, inv = gather_rows(a, True)
+    lv = gather_rows(a, False)
+    inv2, lvb2 = _cuda.row_prep(lv, peak_clip=False, bf16_copy=True)
+    thr = float(a["params"][-1])
+    got = _cuda.argmax_merge(*_cuda.sims_argmax(lvb, inv, a["cpad"]), thr)
+    want = _cuda.assign_tail(lv, a["cpad"], thr, peak_clip=False,
+                             mxu_bf16=True)
+    sync()
+    same = dict(inv_norm=torch.equal(inv.view(torch.int32),
+                                     inv2.view(torch.int32)),
+                bf16_copy=torch.equal(lvb.view(torch.int16),
+                                      lvb2.view(torch.int16)),
+                labels=torch.equal(got[0], want[0]),
+                confs=torch.equal(got[1].view(torch.int32),
+                                  want[1].view(torch.int32)))
+    check(all(same.values()), f"{label}: K3's bf16 route differs from its "
+          f"f32 route + row_prep: {same}")
+    print(f"  {label} K3 bf16 route == f32 route + row_prep bit for bit "
+          f"(inv_norm, bf16 copy, labels, confs over {lv.shape[0]} rows)",
+          flush=True)
+
+
+def k3_stages(a, M, S, V, reps):
+    """Each stage of K3's default (bf16) route timed alone (CUDA events,
+    ms): the gather stage (lv, norm, bf16 copy), the centres' bf16 copy,
+    the tensor-core product with its per-block arg-max, the merge; and the
+    bf16 ``torch.matmul`` of the same product (the library yardstick)."""
     import torch
     from sitator_tpu_torch.ops import _cuda
     B, _, MP = a["mob"].shape
     SP = a["vp"].shape[3]
-    lv = torch.empty((B * MP, SP), device="cuda")
-    _cuda.lv_gather(a["mob"], a["vp"], a["mask"], lv.view(B, MP, SP),
-                    a["params"], triclinic=a["triclinic"],
-                    r2_cutoff=a["r2_cutoff"], full_mask=a["full_mask"])
-    _, lvb = _cuda.row_prep(lv, peak_clip=False, bf16_copy=True)
+    lvb, inv = gather_rows(a, True)
     cb = _cuda.centers_bf16(a["cpad"])
-    return timed(lambda: torch.matmul(lvb, cb.t()), reps)
+    pv, pi = _cuda.sims_argmax(lvb, inv, a["cpad"], cb)
+    ms = dict(
+        lv_gather=timed(lambda: gather_rows(a, True), reps),
+        centers_bf16=timed(lambda: _cuda.centers_bf16(a["cpad"]), reps),
+        sims_wgmma=timed(lambda: _cuda.sims_argmax(lvb, inv, a["cpad"], cb),
+                         reps),
+        argmax_merge=timed(lambda: _cuda.argmax_merge(pv, pi, THR), reps))
+    library = timed(lambda: torch.matmul(lvb, cb.t()), reps)
+    R, KP = B * MP, a["cpad"].shape[1]
+    rows = B * M
+    bounds = dict(
+        lv_gather=bound(4 * (a["mob"].numel() + a["vp"].numel()
+                             + a["mask"].numel()) + 2 * rows * S + 4 * rows,
+                        0.0, rows * S * (PAIR_OPS * V + 2)),
+        centers_bf16=bound(6 * SP * KP),
+        sims_wgmma=bound(2 * (R + KP) * SP, 2.0 * R * SP * KP),
+        argmax_merge=bound(16 * R * -(-KP // 256)))
+    print("K3 stages at the bench width (ms per 32-frame block, CUDA "
+          "events; the stage's bound in brackets): " + ", ".join(
+              f"{k} {v:.3f} [{bounds[k][0]:.3f} {bounds[k][1]}]"
+              for k, v in ms.items())
+          + f"; bf16 torch.matmul of the same product {library:.3f}",
+          flush=True)
+    return dict(ms=ms, bounds=bounds), library
 
 
 def tail_partition_cases():
@@ -453,8 +537,8 @@ def tail_partition_cases():
             rows_lv = lv.clone()
             inv, lvb = _cuda.row_prep(rows_lv, peak_clip=False,
                                       bf16_copy=bf16)
-            got = _cuda.argmax_merge(*_cuda.sims_argmax(rows_lv, lvb, inv,
-                                                        C), thr)
+            got = _cuda.argmax_merge(*_cuda.sims_argmax(
+                lvb if bf16 else rows_lv, inv, C), thr)
             want = blocked_assign_plain(lv, inv, C, thr, mxu_bf16=bf16)
             check(torch.equal(got[0], want[0]) and torch.equal(
                 got[1].view(torch.int32), want[1].view(torch.int32)),
@@ -540,6 +624,24 @@ def kernel_cases(sy, centers, device, *, peak_evening, n_lv_frames,
         out["K1s"] = dict(err=compare_assign(f"{label} K1s", ks, p1, margin,
                                              top1, bf16))
         compare_assign(f"{label} K1s vs K1", ks, k1, margin, top1, bf16)
+        same = torch.equal(ks[0], k1[0]) and torch.equal(
+            ks[1].view(torch.int32), k1[1].view(torch.int32))
+        out["K1s"]["bit_equal_k1"] = same
+        if bf16:
+            from sitator_tpu_torch.ops import _cuda
+            KP = a1["cpad"].shape[1]
+            nc = _cuda.skew_cluster_size(KP)
+            occ = _cuda.skew_occupancy(nc, basis["UP"], basis["s_tile"],
+                                       a1["members"][0].shape[2])
+            out["K1s"]["cluster"] = dict(occ, size=nc,
+                                         passes=-(-KP // (256 * nc)))
+            route = (f"tensor-core cluster of {nc} CTAs "
+                     f"({-(-KP // (256 * nc))} pass(es), {occ['stages']} "
+                     f"stages, {occ['smem']} B of shared memory a CTA, "
+                     f"{occ['clusters']} clusters active at once)")
+        else:
+            route = "f32 FMA kernel"
+        print(f"  {label} K1s ({route}) bit-equal to K1: {same}", flush=True)
         timings("K1s", lambda: mx._mxu_assign_skew_cuda(**a1),
                 lambda: mx._mxu_assign_plain(**a1),
                 unique_atom_work(a1, M, K), library if reps else None)
@@ -571,10 +673,13 @@ def kernel_cases(sy, centers, device, *, peak_evening, n_lv_frames,
     p3 = [x[:, :M] for x in lp._gather_assign_plain(**a3)]
     out["K3"] = dict(err=compare_assign(f"{label} K3", k3, p3, margin, top1,
                                         bf16))
+    if bf16 and peak_evening == "none":
+        k3_routes(a3, label)
+    if reps:
+        out["k3_stages"], library = k3_stages(a3, M, S, V, reps)
     timings("K3", lambda: lp._gather_assign_cuda(**a3),
             lambda: lp._gather_assign_plain(**a3),
-            gather_work(a3, M, S, V, K),
-            k3_library(a3, reps) if reps else None)
+            gather_work(a3, M, S, V, K), library if reps else None)
     compare_assign(f"{label} K1 vs K3", k1, k3, margin, top1, bf16)
     return out
 
@@ -596,15 +701,25 @@ def phase_kernels(device):
                         label="bench site centres", reps=0, **kw)
     for k in KERNELS:
         res[k]["err"] = max(res[k]["err"], site[k]["err"])
+    res["K1s"]["bit_equal_k1"] = (res["K1s"]["bit_equal_k1"]
+                                  and site["K1s"]["bit_equal_k1"])
 
     # the clip case in f32 similarities: clipping flattens the rows, so
-    # most top-2 margins sit inside the bf16 gate
+    # most top-2 margins sit inside the bf16 gate; f32 without the clip (the
+    # FMA K1s); K1s clusters of 1 (triclinic, 128 centres), 2 (384) and 8
+    # CTAs in two passes (2176)
     for label, sy, peak, bf16 in (
             ("clip f32 n_c=8", lattice_system(8, 64, 8, 128, seed=3), "clip",
              False),
+            ("f32 K=384 n_c=8", lattice_system(8, 64, 8, 384, seed=4),
+             "none", False),
             ("triclinic n_c=8",
              lattice_system(8, 64, 8, 128, seed=5, shear=shear), "none",
-             True)):
+             True),
+            ("K=384 n_c=8", lattice_system(8, 64, 8, 384, seed=6), "none",
+             True),
+            ("K=2176 n_c=14", lattice_system(14, 128, 4, 2176, seed=8),
+             "none", True)):
         add_site_centres(sy, device)
         kernel_cases(sy, sy["centers"], device, peak_evening=peak,
                      n_lv_frames=8, s_tile_gather=128, full_mask=False,
@@ -805,6 +920,136 @@ def phase_skew(device):
     return launches
 
 
+def phase_gather(device):
+    """K3 on its own main path at the bench width: the bench's sites with
+    no vertex shared (:func:`no_sharing_bench_system`).
+    ``SpmdLandmarkPipeline`` (route 'gather') over 8 x 32 frames with the
+    carry, timed, its labels held to the dense route outside the margin
+    gate and its statistics to the int64 oracle; then
+    ``StreamingLandmarkAnalysis`` fit (the dense route on an 8-frame
+    subsample) and pass 2 (route 'gather') over 1024 frames in 256-frame
+    blocks, timed, held to the oracle and bit for bit to the pipeline.
+    Returns the launch counts and both frames/s."""
+    import tempfile
+    import torch
+    from sitator_tpu_torch import (SpmdLandmarkPipeline,
+                                   StreamingLandmarkAnalysis)
+    from sitator_tpu_torch.io import ArrayTrajectory
+    from sitator_tpu_torch.ops import landmark_pallas as lp
+    from sitator_tpu_torch.ops.jumps import _jump_stats_block_int64
+    from sitator_tpu_torch.ops.kernel_common import kernel_cell
+
+    t0 = time.perf_counter()
+    sy = add_site_centres(no_sharing_bench_system(1024, seed=23), device)
+    sn = site_network(sy)
+    frames = frames_of(sy)
+    n_frames, n_ions = len(frames), sy["mobile"].shape[1]
+    K = len(sy["centers"])
+    print(f"no-sharing bench system: {len(sy['verts'])} sites x 4 own "
+          f"vertices, {len(sy['static_ref'])} static atoms, {n_ions} ions, "
+          f"{K} centres, {n_frames} frames ({time.perf_counter() - t0:.1f} "
+          "s to make)", flush=True)
+    pk = dict(cutoff_midpoint=MID, cutoff_steepness=STEEP,
+              cutoff_shape=CUTOFF, assignment_threshold=THR, device=device)
+    reset_launches()
+    pipe = SpmdLandmarkPipeline(sn, sy["centers"], np.ones(K, bool), **pk)
+    check(pipe.route == "gather", f"no-sharing bench route {pipe.route}")
+    run = frames[:256]
+    blocks = [run[i:i + 32] for i in range(0, len(run), 32)]
+    one_pass(pipe, blocks)                        # warm-up
+    reps = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = one_pass(pipe, blocks)
+        reps.append(len(run) / (time.perf_counter() - t0))
+    fps = float(np.median(reps))
+    labels = np.concatenate([o[0] for o in out])
+    confs = np.concatenate([o[1] for o in out])
+    want, _, _ = _jump_stats_block_int64(
+        labels, K, np.full(n_ions, -1, np.int64), np.zeros(n_ions, np.int64),
+        "persist")
+    n_ij = sum(o[2]["n_ij"] for o in out)
+    check(np.array_equal(n_ij, want["n_ij"]) and np.array_equal(
+        sum(o[2]["occ_counts"] for o in out), want["occ_counts"]),
+        "K3 pipeline: chained jump statistics differ from the int64 oracle")
+    check(n_ij.sum() > 0, "K3 pipeline: no jumps")
+    profile_pass(pipe, blocks)
+
+    # the dense route on the same frames, in blocks of 8 (its (frames x
+    # ions x atoms x 3) intermediates), and the margins from K3's f32 lv
+    pipe_d = SpmdLandmarkPipeline(sn, sy["centers"], np.ones(K, bool),
+                                  use_fused=False, **pk)
+    ref = one_pass(pipe_d, [run[i:i + 8] for i in range(0, len(run), 8)])
+    kcell = kernel_cell(sy["cell"])
+    margins = []
+    for lo in range(0, len(run), 32):
+        a = lp._gather_inputs(
+            torch.as_tensor(sy["mobile"][lo:lo + 32], device=device),
+            torch.as_tensor(sy["static"][lo:lo + 32], device=device),
+            sy["verts"], np.ones_like(sy["verts"], bool), kcell,
+            sy["centers"], midpoint=MID, steepness=STEEP, threshold=THR,
+            s_tile=256, cutoff_shape=CUTOFF, full_mask=True)
+        lv = gather_rows(a, False).view(a["mob"].shape[0], -1,
+                                        a["vp"].shape[3])
+        margins.append(top2_margin(lv[:, :n_ions, :len(sy["verts"])],
+                                   sy["centers"], "none"))
+        del lv, a
+    margin, top1 = (np.concatenate([m[i] for m in margins]) for i in (0, 1))
+    compare_assign(
+        "K3 pipeline vs the dense route (256 bench frames, no vertex "
+        "sharing)", [torch.as_tensor(labels), torch.as_tensor(confs)],
+        [torch.as_tensor(np.concatenate([o[i] for o in ref]))
+         for i in (0, 1)], margin, top1, True)
+    print(f"pipeline (K3, 8 x 32 bench frames without vertex sharing, "
+          f"carry): {fps:.1f} frames/s, median of 3 [{min(reps):.1f}, "
+          f"{max(reps):.1f}]; {100 * np.mean(labels >= 0):.2f}% assigned; "
+          f"{int(n_ij.sum())} jumps == int64 oracle", flush=True)
+
+    kw = dict(cutoff_midpoint=MID, cutoff_steepness=STEEP,
+              cutoff_shape=CUTOFF, block_frames=256,
+              fit_max_samples=8 * n_ions,
+              clustering_params={"k_max": 1024}, verbose=False,
+              device=device)
+    with tempfile.TemporaryDirectory() as tmp:
+        sla = StreamingLandmarkAnalysis(
+            store_labels=str(Path(tmp) / "labels.npy"), **kw)
+        t0 = time.perf_counter()
+        centers = sla.fit_centers(sn, ArrayTrajectory(frames))
+        sync()
+        t_fit = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = sla.run(sn, frames, centers=centers)
+        sync()
+        t_run = time.perf_counter() - t0
+        check(sla.route_ == "gather", f"streaming route {sla.route_}")
+        slabels = np.array(np.load(Path(tmp) / "labels.npy"))
+    sfps = n_frames / t_run
+    Ks = len(centers)
+    want, _, _ = _jump_stats_block_int64(
+        slabels, Ks, np.full(n_ions, -1, np.int64),
+        np.zeros(n_ions, np.int64), "persist")
+    check(np.array_equal(res.n_ij, want["n_ij"]),
+          "K3 streaming n_ij differs from the int64 oracle on its labels")
+    check(res.n_ij.sum() > 0, "K3 streaming: no jumps")
+    pipe_s = SpmdLandmarkPipeline(sn, centers, np.ones(Ks, bool),
+                                  static_drift_budget=1.0, **pk)
+    got = one_pass(pipe_s, [frames[i:i + 256]
+                            for i in range(0, n_frames, 256)])
+    n_diff = int((np.concatenate([o[0] for o in got]) != slabels).sum())
+    check(n_diff == 0, f"K3 streaming labels differ from the pipeline's on "
+          f"{n_diff} rows")
+    launches = read_launches()
+    print(f"streaming (K3 pass 2, {n_frames} bench frames without vertex "
+          f"sharing in 256-frame blocks): fit {Ks} centres in {t_fit:.2f} s; "
+          f"pass 2 {sfps:.1f} frames/s ({t_run:.3f} s); "
+          f"{100 * np.mean(slabels >= 0):.2f}% assigned, "
+          f"{int(res.n_ij.sum())} jumps == int64 oracle, labels == "
+          f"SpmdLandmarkPipeline on all {slabels.size} rows; launches "
+          f"{launches}", flush=True)
+    check(launches["K3"] > 0, "K3 was not launched on its path")
+    return launches, fps, sfps
+
+
 def phase_streaming(device):
     """``StreamingLandmarkAnalysis`` at the bench width: fit (K2) and pass 2
     (K1) over 1024 frames in 256-frame blocks.  Returns the launch counts
@@ -930,6 +1175,25 @@ def profile_pass(pipe, blocks):
                                for k, t in ops[:8]), flush=True)
 
 
+def no_sharing_bench_system(n_frames, seed):
+    """The bench scale without vertex sharing: each of the bench's 21^3 =
+    9261 simple-cubic sites is the centre of a tetrahedron of its own 4
+    static atoms (37,044 static atoms); 739 ions hop among 1024 centred
+    sites."""
+    import bench
+    rng = np.random.default_rng(seed)
+    n_c, a = bench.N_CELLS, bench.A_LAT
+    g = np.stack(np.meshgrid(*(np.arange(n_c),) * 3, indexing="ij"),
+                 -1).reshape(-1, 3)
+    cell = np.eye(3) * a * n_c
+    sites = (g + 0.5) * a
+    tet = np.array([[1, 1, 1], [1, -1, -1], [-1, 1, -1], [-1, -1, 1]]) * 1.0
+    host = (sites[:, None, :] + tet[None]).reshape(-1, 3)
+    verts = np.arange(len(host), dtype=np.int32).reshape(len(sites), 4)
+    return hopping(rng, cell, host, verts, sites, bench.N_IONS, n_frames,
+                   bench.K_CENTERS, 0.01, sigma=0.25)
+
+
 def no_sharing_system(seed):
     """48 sites on a 4 x 4 x 3 grid, each a tetrahedron of its own 4 static
     atoms (no vertex is shared); 24 ions hopping among them, 16 frames."""
@@ -956,14 +1220,19 @@ KERNELS = {
     "K2": dict(name="K2 unique-atom landmark vectors (lv_tile)",
                source="sitator_tpu_torch/csrc/lv_tile.cu",
                replaces="sitator_tpu/ops/landmark_mxu.py:667"),
-    "K3": dict(name="K3 gather assign (lv_gather + assign_tail with "
-                    "sims_wgmma)",
+    "K3": dict(name="K3 gather assign (lv_gather with the norm and bf16 "
+                    "copy, sims_wgmma, merge; f32 or clip: lv_gather + "
+                    "assign_tail)",
                source="sitator_tpu_torch/csrc/lv_gather.cu",
-               also=["sitator_tpu_torch/csrc/assign_tail.cu",
-                     "sitator_tpu_torch/csrc/sims_wgmma.cu"],
+               also=["sitator_tpu_torch/csrc/sims_wgmma.cu",
+                     "sitator_tpu_torch/csrc/assign_tail.cu"],
                replaces="sitator_tpu/ops/landmark_pallas.py:82"),
-    "K1s": dict(name="K1s skewed unique-atom assign (assign_skew)",
-                source="sitator_tpu_torch/csrc/assign_skew.cu",
+    "K1s": dict(name="K1s skewed unique-atom assign (assign_skew_wgmma: a "
+                     "cluster splitting the centres, wgmma, the lv on chip; "
+                     "f32: assign_skew)",
+                source="sitator_tpu_torch/csrc/assign_skew_wgmma.cu",
+                also=["sitator_tpu_torch/csrc/assign_skew.cu",
+                      "sitator_tpu_torch/csrc/hopper_common.cuh"],
                 replaces="sitator_tpu/ops/landmark_mxu.py:473"),
 }
 
@@ -988,6 +1257,7 @@ def main():
     paths["slice"], fps = phase_slice("cuda")
     paths["K1s"] = phase_skew("cuda")
     paths["streaming"], stream_fps = phase_streaming("cuda")
+    paths["gather"], gather_fps, gather_stream_fps = phase_gather("cuda")
     check(not any(m == "jax" or m.startswith("jax.") for m in sys.modules),
           "jax was imported")
     check(not any(m == "sitator_tpu" or m.startswith("sitator_tpu.")
@@ -997,14 +1267,15 @@ def main():
         r = res[key]
         n = sum(p[key] for p in paths.values())
         check(n > 0, f"{key} was launched on no path")
+        extra = {k: r[k] for k in ("bit_equal_k1", "cluster") if k in r}
         kernels.append(dict(meta, route="cuda", launches=n,
                             max_abs_err=r["err"], ms=r["ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"],
-                            library_ms=r["library_ms"]))
-    print(f"pipeline frames/s: {fps:.1f}; streaming pass 2 frames/s: "
-          f"{stream_fps:.1f}; total {time.perf_counter() - t0:.1f} s",
-          flush=True)
+                            library_ms=r["library_ms"], **extra))
+    print(f"pipeline frames/s: K1 {fps:.1f}, K3 {gather_fps:.1f}; streaming "
+          f"pass 2 frames/s: K1 {stream_fps:.1f}, K3 {gather_stream_fps:.1f}; "
+          f"total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,18 @@
-// K1s: the skewed, fused unique-atom assign kernel.
+// K1s with f32 similarity operands: the skewed, fused unique-atom assign
+// kernel on the f32 FMA pipes.
 //
 // Replaces sitator_tpu/ops/landmark_mxu.py::_kernel_skew (peak_evening =
-// 'none' only).  It computes what K1 (lv_tile.cu + assign_tail.cu) computes,
-// in one kernel, and keeps the landmark vectors on chip: per (frame, ion) row
-// the lv of every kd site tile (the shared core of landmark_common.cuh), the
-// norm, sims = lv @ centres with bf16-rounded operands (f32 operands when
-// bf16 = 0) and f32 FMA accumulation, sims * rsqrt(max(norm², 1e-24)), the
-// arg-max over the KP centre columns with the lowest index winning a tie, and
-// the threshold (label -1 below it).
+// 'none') where the similarity operands are f32 (mxu_bf16=False).  The bf16
+// route, the default, is assign_skew_wgmma.cu on the tensor cores; wgmma has
+// no full-f32 mode and TF32 is not the reference's f32, so this kernel stays
+// the f32 route, as K1 keeps its FMA tail (assign_tail.cu).  The caller's
+// dtype picks the kernel.  It computes what K1 (lv_tile.cu + assign_tail.cu)
+// computes, in one kernel, and keeps the landmark vectors on chip: per
+// (frame, ion) row the lv of every kd site tile (the shared core of
+// landmark_common.cuh), the norm, sims = lv @ centres with f32 FMA
+// accumulation, sims * rsqrt(max(norm², 1e-24)), the arg-max over the KP
+// centre columns with the lowest index winning a tie, and the threshold
+// (label -1 below it).
 //
 // The TPU kernel skews its grid by one site tile: step st computes tile st's
 // lv while folding tile st-1's into the similarity accumulator.  Here that
@@ -15,7 +20,7 @@
 // 16 ion rows of one frame:
 //   - producer warps 0-3 compute each 128-site lv tile into a
 //     double-buffered shared-memory ring (the membership product is staged
-//     through shared memory in 32-atom slices, as in lv_tile.cu);
+//     through shared memory in 32-atom slices);
 //   - consumer warps 4-11 fold the previous tile from the other buffer
 //     against the centres, which stream through shared memory in 16-site
 //     slices with cp.async (two stages), into 8 x (KC / 128) register
@@ -27,34 +32,30 @@
 // More than 1024 centres are taken in chunks of 1024 columns; each chunk
 // recomputes the lv tiles, and the running arg-max is carried across chunks.
 //
-// Agreement with K1: every lv element is the same sequential fmaf over the
-// tile's unique atoms in ascending order as lv_tile's (the shared core of
-// landmark_common.cuh; lv_tile skips the zero terms, which leaves the sum
-// bit-identical), so the lv are bit-equal.  The similarity here is a
-// sequential fmaf over sites 0 .. SP-1 on the FMA pipes, while K1 sums on
-// the tensor cores (sims_wgmma.cu) in another order, so labels agree with
-// K1's wherever the top-2 margin exceeds the bf16 gate and confidences to
-// f32 rounding of that order; the arg-max keeps the largest value and,
-// among equal values, the lowest index.  norm² is summed lane-strided
-// (lane l takes columns = l mod 32, in order) and xor-shuffled, as
-// row_prep_kernel does.
+// Agreement with K1's f32 route: every lv element is the same sequential
+// fmaf over the tile's unique atoms in ascending order as lv_tile's (the
+// shared core of landmark_common.cuh; lv_tile skips the zero terms, which
+// leaves the sum bit-identical), and norm² is summed lane-strided (lane l
+// takes columns = l mod 32, in order) and xor-shuffled, as row_prep_kernel
+// does.  The similarity is a sequential fmaf over sites 0 .. SP-1, while K1's
+// FMA tail sums in 32-site slices per thread tile, so confidences agree to
+// f32 rounding of that order.
 //
 // What bounds it on an H100: the similarity product on the f32 FMA pipes,
 // 2 * MP * SP * KP flop a frame (14.7 GFLOP at the 10k-atom bench config),
 // and the centre stream: every 16-row block reads all SP x KP centres from
-// L2 (38 MB at the bench config).  The lv never goes to device memory (K1
-// writes B * MP * SP floats of scratch, 0.92 GB per 32-frame bench block).
-// Later work: a thread-block cluster that splits KP and shares the lv tile
-// through distributed shared memory (fewer centre bytes per row), bf16
-// centres in shared memory, and the product on the tensor cores (wgmma), as
-// K1's tail now does.
-#include <cuda_bf16.h>
+// L2 (38 MB at the bench config).  The lv never goes to device memory.
 #include <limits.h>
 #include <math.h>
 
+#include "hopper_common.cuh"
 #include "landmark_common.cuh"
 
 namespace {
+
+using hopper::cp_async16;
+using hopper::cp_async_commit;
+using hopper::cp_async_wait_all;
 
 constexpr int R = 16;               // ion rows of one frame per block
 constexpr int TILE = 128;           // sites per lv tile in the ring
@@ -82,25 +83,6 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
 }
 
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;" ::: "memory");
-}
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
 // (v, i) beats (bv, bi): larger value, or the same value at a lower index.
 __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
@@ -117,7 +99,7 @@ __global__ void __launch_bounds__(THREADS, 1) assign_skew_kernel(
     int* __restrict__ labels,           // (B * MP)
     float* __restrict__ confs,          // (B * MP)
     int MP, int n_st, int UP, int s_tile, int KP, int ldc, CellParams P,
-    int r2, int preshift, int bf16) {
+    int r2, int preshift) {
   constexpr int KC = 128 * NJ;  // centre columns per chunk
   const int row0 = blockIdx.x * R;
   const int b = blockIdx.y;
@@ -191,8 +173,7 @@ __global__ void __launch_bounds__(THREADS, 1) assign_skew_kernel(
         membership_fma<4, 4, UK>(acc, &As[0][0], R, 4 * w, 1, &Bs[0][0], TILE,
                                  l, 32);
       }
-      // exp + pad-kill; the norm (first chunk only: the lv repeats) over the
-      // f32 values; the ring holds the similarity operand
+      // exp + pad-kill; the norm (first chunk only: the lv repeats)
       const float* kl = kill + (size_t)t * s_tile + c0;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -202,7 +183,6 @@ __global__ void __launch_bounds__(THREADS, 1) assign_skew_kernel(
         for (int i = 0; i < 4; ++i) {
           x[i] = lv_value(acc[i][j], kv);
           if (g < n_tiles) n2[i] = fmaf(x[i], x[i], n2[i]);
-          if (bf16) x[i] = round_bf16(x[i]);
         }
         *reinterpret_cast<float4*>(&ring[buf][l + 32 * j][4 * w]) =
             make_float4(x[0], x[1], x[2], x[3]);
@@ -341,7 +321,7 @@ int launch(const float* mob, const float* vpu, const float* A,
            const float* kill, const float* anchors, const float* C,
            int* labels, float* confs, int B, int MP, int n_st, int UP,
            int s_tile, int KP, int ldc, const CellParams& P, int r2,
-           int preshift, int bf16, cudaStream_t stream) {
+           int preshift, cudaStream_t stream) {
   const int smem = 2 * CK * 128 * NJ * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       assign_skew_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -349,7 +329,7 @@ int launch(const float* mob, const float* vpu, const float* A,
   if (err != cudaSuccess) return (int)err;
   assign_skew_kernel<NJ><<<dim3(MP / R, B), THREADS, smem, stream>>>(
       mob, vpu, A, kill, anchors, C, labels, confs, MP, n_st, UP, s_tile, KP,
-      ldc, P, r2, preshift, bf16);
+      ldc, P, r2, preshift);
   return (int)cudaGetLastError();
 }
 
@@ -363,22 +343,22 @@ extern "C" int sit_assign_skew(const float* mob, const float* vpu,
                                int* labels, float* confs, int B, int MP,
                                int n_st, int UP, int s_tile, int KP, int ldc,
                                int nj, const float* params, int triclinic,
-                               int r2, int preshift, int bf16, void* stream) {
+                               int r2, int preshift, void* stream) {
   const CellParams P = load_cell_params(params, triclinic);
   cudaStream_t s = (cudaStream_t)stream;
   switch (nj) {
     case 1:
       return launch<1>(mob, vpu, A, kill, anchors, C, labels, confs, B, MP,
-                       n_st, UP, s_tile, KP, ldc, P, r2, preshift, bf16, s);
+                       n_st, UP, s_tile, KP, ldc, P, r2, preshift, s);
     case 2:
       return launch<2>(mob, vpu, A, kill, anchors, C, labels, confs, B, MP,
-                       n_st, UP, s_tile, KP, ldc, P, r2, preshift, bf16, s);
+                       n_st, UP, s_tile, KP, ldc, P, r2, preshift, s);
     case 4:
       return launch<4>(mob, vpu, A, kill, anchors, C, labels, confs, B, MP,
-                       n_st, UP, s_tile, KP, ldc, P, r2, preshift, bf16, s);
+                       n_st, UP, s_tile, KP, ldc, P, r2, preshift, s);
     case 8:
       return launch<8>(mob, vpu, A, kill, anchors, C, labels, confs, B, MP,
-                       n_st, UP, s_tile, KP, ldc, P, r2, preshift, bf16, s);
+                       n_st, UP, s_tile, KP, ldc, P, r2, preshift, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -33,7 +33,7 @@
 // frame).  The membership sum is 2 * nnz FMAs a row (nnz = 8 * S at the
 // bench basis), no longer the bound.  For K1 the lv goes to scratch that
 // assign_tail reads back; keeping it on chip is K1s's design
-// (assign_skew.cu).
+// (assign_skew_wgmma.cu).
 #include "landmark_common.cuh"
 
 namespace {

@@ -25,6 +25,8 @@ from pathlib import Path
 
 import torch
 
+from sitator_tpu_torch.ops.kernel_common import skew_cluster_size
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -37,9 +39,9 @@ _SIGNATURES = {
     # n_st, UP, s_tile, vmax, out_cols, params, triclinic, r2, preshift,
     # stream
     "sit_lv_tile": [_P] * 8 + [_I] * 8 + [_P, _I, _I, _I, _P],
-    # mob, vp, mask, out, B, MP, V, SP, params, triclinic, r2, full_mask,
-    # stream
-    "sit_lv_gather": [_P] * 4 + [_I] * 4 + [_P, _I, _I, _I, _P],
+    # mob, vp, mask, out (or NULL), lvb (or NULL), inv_norm (or NULL), B,
+    # MP, V, SP, params, triclinic, r2, full_mask, stream
+    "sit_lv_gather": [_P] * 6 + [_I] * 4 + [_P, _I, _I, _I, _P],
     # lv, lvb (or NULL), inv_norm, rows, cols, clip, stream
     "sit_row_prep": [_P] * 3 + [_I] * 3 + [_P],
     # lv, inv_norm, centers, part_val, part_idx, rows, cols, KP, stream
@@ -49,8 +51,14 @@ _SIGNATURES = {
     # part_val, part_idx, labels, confs, rows, n_kb, threshold, stream
     "sit_argmax_merge": [_P] * 4 + [_I] * 2 + [_F, _P],
     # mob, vpu, A, kill, anchors, centers, labels, confs, B, MP, n_st, UP,
-    # s_tile, KP, ldc, nj, params, triclinic, r2, preshift, bf16, stream
-    "sit_assign_skew": [_P] * 8 + [_I] * 8 + [_P, _I, _I, _I, _I, _P],
+    # s_tile, KP, ldc, nj, params, triclinic, r2, preshift, stream
+    "sit_assign_skew": [_P] * 8 + [_I] * 8 + [_P, _I, _I, _I, _P],
+    # mob, vpu, midx, mmul, kill, anchors, tile_nu, centers_bf16, labels,
+    # confs, run_val, run_idx, B, MP, n_st, UP, s_tile, vmax, KP, nc,
+    # params, triclinic, r2, preshift, stream
+    "sit_assign_skew_wgmma": [_P] * 12 + [_I] * 8 + [_P, _I, _I, _I, _P],
+    # nc, UP, s_tile, vmax, &stages, &smem, &clusters
+    "sit_assign_skew_wgmma_occupancy": [_I] * 4 + [_P] * 3,
 }
 
 
@@ -187,20 +195,35 @@ def lv_tile(mob, vpu, midx, mmul, kill, anchors, col_map, out, params, *,
           int(triclinic), int(r2_cutoff), int(preshift), _stream())
 
 
-def lv_gather(mob, vp, mask, out, params, *, triclinic, r2_cutoff,
-              full_mask):
-    """Per-vertex-slot landmark vectors ``out (B, MP, SP)`` of every (ion,
-    site) pair; mask row ``V`` kills padding sites."""
+def lv_gather(mob, vp, mask, params, *, triclinic, r2_cutoff, full_mask,
+              bf16):
+    """Per-vertex-slot landmark vectors of every (ion, site) pair, rows
+    ``B * MP`` x ``SP`` columns; mask row ``V`` kills padding sites.  With
+    ``bf16`` the kernel forms each row's norm itself and returns ``(lvb,
+    inv_norm)``: the bf16 copy and ``rsqrt(max(norm², 1e-24))``, bit-equal
+    to :func:`row_prep` on the f32 rows; else the f32 rows ``lv``."""
     B, _, MP = mob.shape
     _, _, V, SP = vp.shape
+    if MP % 32:
+        raise ValueError("lv_gather needs MP % 32 == 0")
     p = _host_params(params)
+    dev = mob.device
+    lv = lvb = inv_norm = None
+    if bf16:
+        lvb = torch.empty((B * MP, SP), device=dev, dtype=torch.bfloat16)
+        inv_norm = torch.empty(B * MP, device=dev, dtype=torch.float32)
+    else:
+        lv = torch.empty((B * MP, SP), device=dev, dtype=torch.float32)
     _call("sit_lv_gather",
           _check(mob, "mob", torch.float32, (B, 3, MP)),
           _check(vp, "vp", torch.float32, (B, 3, V, SP)),
           _check(mask, "mask", torch.float32, (V + 1, SP)),
-          _check(out, "out", torch.float32, (B, MP, SP)),
+          None if lv is None else lv.data_ptr(),
+          None if lvb is None else lvb.data_ptr(),
+          None if inv_norm is None else inv_norm.data_ptr(),
           B, MP, V, SP, p.data_ptr(), int(triclinic), int(r2_cutoff),
           int(full_mask), _stream())
+    return (lvb, inv_norm) if bf16 else lv
 
 
 def row_prep(lv, *, peak_clip, bf16_copy):
@@ -224,23 +247,25 @@ def centers_bf16(centers):
     return centers.t().to(torch.bfloat16).contiguous()
 
 
-def sims_argmax(lv, lvb, inv_norm, centers, centers_b=None):
+def sims_argmax(lv, inv_norm, centers, centers_b=None):
     """Tail stage 2: per row, the max and first arg-max of ``sims ·
-    inv_norm`` over each block of centre columns.  With ``lvb`` (bf16
-    operands) the product runs on the tensor cores over 256-column blocks
-    against ``centers_b`` (:func:`centers_bf16`, made here when None); else
-    on the f32 FMA pipes over 128-column blocks against the f32 ``centers
-    (SP, KP)``.  Returns ``(part_val, part_idx)``, ``(rows, n_kb)``."""
+    inv_norm`` over each block of centre columns.  The dtype of ``lv
+    (rows, SP)`` picks the kernel: bf16 rows run on the tensor cores over
+    256-column blocks against ``centers_b`` (:func:`centers_bf16`, made here
+    when None); f32 rows on the FMA pipes over 128-column blocks against the
+    f32 ``centers (SP, KP)``.  Returns ``(part_val, part_idx)``, ``(rows,
+    n_kb)``."""
     rows, SP = lv.shape
     KP = centers.shape[1]
     if KP % 128:
         raise ValueError("centers must be padded to a multiple of 128")
     _check(centers, "centers", torch.float32, (SP, KP))
+    bf16 = lv.dtype == torch.bfloat16
     dev = lv.device
-    n_kb = -(-KP // 256) if lvb is not None else KP // 128
+    n_kb = -(-KP // 256) if bf16 else KP // 128
     part_val = torch.empty((rows, n_kb), device=dev, dtype=torch.float32)
     part_idx = torch.empty((rows, n_kb), device=dev, dtype=torch.int32)
-    if lvb is None:
+    if not bf16:
         _call("sit_sims_fma", _check(lv, "lv", torch.float32, (rows, SP)),
               _check(inv_norm, "inv_norm", torch.float32, (rows,)),
               centers.data_ptr(), part_val.data_ptr(), part_idx.data_ptr(),
@@ -251,7 +276,7 @@ def sims_argmax(lv, lvb, inv_norm, centers, centers_b=None):
                          f"SP % 64 == 0 (rows={rows}, SP={SP})")
     if centers_b is None:
         centers_b = centers_bf16(centers)
-    _call("sit_sims_wgmma", _check(lvb, "lvb", torch.bfloat16, (rows, SP)),
+    _call("sit_sims_wgmma", _check(lv, "lvb", torch.bfloat16, (rows, SP)),
           _check(centers_b, "centers_b", torch.bfloat16, (KP, SP)),
           _check(inv_norm, "inv_norm", torch.float32, (rows,)),
           part_val.data_ptr(), part_idx.data_ptr(), rows, SP, KP, _stream())
@@ -277,16 +302,17 @@ def assign_tail(lv, centers, threshold, *, peak_clip, mxu_bf16):
     (on the tensor cores when ``mxu_bf16``), :func:`argmax_merge`.  Returns
     (labels int32, confs float32), both ``(rows,)``."""
     inv_norm, lvb = row_prep(lv, peak_clip=peak_clip, bf16_copy=mxu_bf16)
-    part_val, part_idx = sims_argmax(lv, lvb, inv_norm, centers)
+    part_val, part_idx = sims_argmax(lvb if mxu_bf16 else lv, inv_norm,
+                                     centers)
     return argmax_merge(part_val, part_idx, threshold)
 
 
 def assign_skew(mob, vpu, A, kill, anchors, centers, params, *, n_valid,
-                nj, triclinic, r2_cutoff, preshift, mxu_bf16):
-    """K1s: landmark vectors, norm and cosine assignment of every (frame,
-    ion) row in one launch, the lv kept on chip.  ``centers (SP, ldc)`` are
-    the zero-padded centre columns (already rounded to bf16 when
-    ``mxu_bf16``), taken in chunks of ``128 * nj`` columns; only the first
+                nj, triclinic, r2_cutoff, preshift):
+    """K1s with f32 similarity operands (the FMA kernel): landmark vectors,
+    norm and cosine assignment of every (frame, ion) row in one launch, the
+    lv kept on chip.  ``centers (SP, ldc)`` are the zero-padded f32 centre
+    columns, taken in chunks of ``128 * nj`` columns; only the first
     ``n_valid`` columns compete in the arg-max.  Returns (labels int32,
     confs float32), both ``(B * MP,)``."""
     B, _, MP = mob.shape
@@ -312,5 +338,60 @@ def assign_skew(mob, vpu, A, kill, anchors, centers, params, *, n_valid,
           _check(centers, "centers", torch.float32, (SP, ldc)),
           labels.data_ptr(), confs.data_ptr(), B, MP, n_st, UP, s_tile,
           n_valid, ldc, nj, p.data_ptr(), int(triclinic), int(r2_cutoff),
-          int(preshift), int(mxu_bf16), _stream())
+          int(preshift), _stream())
+    return labels, confs
+
+
+def skew_occupancy(nc, UP, s_tile, vmax):
+    """The launch shape of the tensor-core K1s with ``nc`` CTAs a cluster:
+    ``{"stages", "smem", "clusters"}``: the ring depth, a CTA's dynamic
+    shared memory and ``cudaOccupancyMaxActiveClusters``."""
+    out = [ctypes.c_int(0) for _ in range(3)]
+    _call("sit_assign_skew_wgmma_occupancy", nc, UP, s_tile, vmax,
+          *[ctypes.addressof(x) for x in out])
+    return dict(zip(("stages", "smem", "clusters"), (x.value for x in out)))
+
+
+def assign_skew_wgmma(mob, vpu, midx, mmul, kill, anchors, centers_b,
+                      params, *, triclinic, r2_cutoff, preshift):
+    """K1s with bf16 similarity operands: landmark vectors (summed over the
+    membership lists ``midx`` / ``mmul`` of ``landmark_mxu.
+    membership_lists``), norm, the similarity on the tensor cores and the
+    cosine assignment of every (frame, ion) row, the lv kept on chip, in
+    clusters of :func:`skew_cluster_size` CTAs that split the centre
+    columns.  ``centers_b (KP, SP)`` is the centres' K-major bf16 copy
+    (:func:`centers_bf16`); every one of the ``KP`` columns competes in the
+    arg-max.  Returns (labels int32, confs float32), both ``(B * MP,)``."""
+    B, _, MP = mob.shape
+    n_st, s_tile, vmax = midx.shape
+    UP = vpu.shape[-1]
+    SP = n_st * s_tile
+    KP = centers_b.shape[0]
+    if KP % 128 or MP % 64 or s_tile % 64:
+        raise ValueError("assign_skew_wgmma needs KP % 128 == 0, "
+                         "MP % 64 == 0, s_tile % 64 == 0")
+    nc = skew_cluster_size(KP)
+    p = _host_params(params)
+    dev = mob.device
+    labels = torch.empty(B * MP, device=dev, dtype=torch.int32)
+    confs = torch.empty(B * MP, device=dev, dtype=torch.float32)
+    # one more than the largest atom index each tile's lists use
+    tile_nu = (midx.amax(dim=(1, 2)) + 1).to(torch.int32)
+    multi = KP > 256 * nc
+    run_val = torch.empty(B * MP if multi else 1, device=dev)
+    run_idx = torch.empty(B * MP if multi else 1, device=dev,
+                          dtype=torch.int32)
+    _call("sit_assign_skew_wgmma",
+          _check(mob, "mob", torch.float32, (B, 3, MP)),
+          _check(vpu, "vpu", torch.float32, (B, n_st, 3, UP)),
+          _check(midx, "midx", torch.int32),
+          _check(mmul, "mmul", torch.float32, (n_st, s_tile, vmax)),
+          _check(kill, "kill", torch.float32, (SP,)),
+          _check(anchors, "anchors", torch.float32, (n_st, 3)),
+          tile_nu.data_ptr(),
+          _check(centers_b, "centers_b", torch.bfloat16, (KP, SP)),
+          labels.data_ptr(), confs.data_ptr(), run_val.data_ptr(),
+          run_idx.data_ptr(), B, MP, n_st, UP, s_tile, vmax, KP, nc,
+          p.data_ptr(), int(triclinic), int(r2_cutoff), int(preshift),
+          _stream())
     return labels, confs

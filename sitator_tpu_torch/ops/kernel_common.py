@@ -13,7 +13,8 @@ import torch
 
 __all__ = ["round_up", "pack_cell_params", "load_cell_params",
            "min_image_xyz", "merge_top2", "supports_cell", "kernel_cell",
-           "softplus", "tiled_assign_plain", "blocked_assign_plain"]
+           "softplus", "tiled_assign_plain", "blocked_assign_plain",
+           "row_prep_plain", "skew_cluster_size", "clustered_assign_plain"]
 
 
 def round_up(x, m):
@@ -200,3 +201,93 @@ def blocked_assign_plain(lv, inv_norm, centers, threshold, *, mxu_bf16):
         idx = torch.where(take, part_idx[:, kb], idx)
     labels = torch.where(best >= threshold, idx, -1).to(torch.int32)
     return labels, best
+
+
+def row_prep_plain(lv, *, peak_clip):
+    """Plain twin of ``row_prep_kernel`` (``csrc/assign_tail.cu``) and of the
+    norm the bf16 gather route forms itself (``csrc/lv_gather.cu``) on
+    ``lv (rows, SP)``, SP a multiple of 32: with ``peak_clip`` every row
+    capped at its second-largest value (a repeated maximum is its own
+    second value); then norm² in the kernels' order — lane ``l`` sums
+    ``fmaf(x, x, n2)`` over columns ``l, l + 32, ...`` in ascending order,
+    then the 32 lane sums are combined by the xor-shuffle tree (offsets 16,
+    8, 4, 2, 1) — and ``inv_norm = rsqrt(max(norm², 1e-24))``.  The fused
+    multiply-add is taken in float64 and rounded once to float32 (equal to
+    ``fmaf`` but on the rare double-rounding tie).  Returns ``(inv_norm,
+    rows)``: the (clipped) f32 rows, whose bf16 rounding is the kernels'
+    bf16 copy."""
+    rows, SP = lv.shape
+    if peak_clip:
+        cap = lv.topk(2, dim=-1).values[:, 1:2]
+        lv = torch.minimum(lv, cap)
+    x = lv.view(rows, SP // 32, 32).double()
+    n2 = torch.zeros((rows, 32), dtype=torch.float64, device=lv.device)
+    for j in range(SP // 32):
+        n2 = (x[:, j] * x[:, j] + n2).float().double()
+    off = 16
+    while off:
+        lanes = torch.arange(32, device=lv.device) ^ off
+        n2 = (n2 + n2[:, lanes]).float().double()
+        off //= 2
+    n2 = n2[:, 0].float()
+    return torch.rsqrt(torch.clamp_min(n2, 1e-24)), lv
+
+
+def skew_cluster_size(KP):
+    """CTAs in a cluster of the tensor-core K1s kernel for ``KP`` centre
+    columns (``csrc/assign_skew_wgmma.cu``): 256 columns each, the power of
+    two at or above ``KP / 256``, at most 8 — more columns run in passes of
+    8 CTAs."""
+    n = -(-KP // 256)
+    return min(8, 1 << (n - 1).bit_length())
+
+
+def clustered_assign_plain(lv, inv_norm, centers, threshold):
+    """Plain twin of the tensor-core K1s kernel's partition
+    (``csrc/assign_skew_wgmma.cu``) on ``lv (rows, SP)``, ``centers (SP,
+    KP)``, bf16 operands: per tile of 64 rows, clusters of
+    :func:`skew_cluster_size` CTAs of 256 columns each (a CTA past ``KP``
+    sees zero centres, masked), each CTA's max of ``sims · inv_norm`` and
+    its first arg-max, the CTAs merged in rank (column) order with a strict
+    ``>``, passes of at most 8 CTAs with the running (value, index) carried
+    (a later pass wins only with a strictly larger value), then the
+    threshold.  Returns (labels int32, confs)."""
+    rows, _ = lv.shape
+    KP = centers.shape[1]
+    nc = skew_cluster_size(KP)
+    a = _round_bf16(lv)
+    c = _round_bf16(centers)
+    dev = lv.device
+    labels = torch.empty(rows, dtype=torch.int32, device=dev)
+    confs = torch.empty(rows, device=dev)
+    for r0 in range(0, rows, 64):
+        r1 = min(rows, r0 + 64)
+        run_v = run_i = None
+        for base in range(0, KP, 256 * nc):
+            best = idx = None
+            for rank in range(nc):
+                c0 = base + 256 * rank
+                c1 = min(KP, c0 + 256)
+                if c0 >= KP:          # zero centres, every column masked
+                    v = torch.full((r1 - r0,), -float("inf"), device=dev)
+                    i = torch.full((r1 - r0,), c0, dtype=torch.int64,
+                                   device=dev)
+                else:
+                    s = (a[r0:r1] @ c[:, c0:c1]) * inv_norm[r0:r1, None]
+                    v, i = s.max(1)
+                    i = i + c0
+                if best is None:
+                    best, idx = v, i
+                else:
+                    take = v > best
+                    best = torch.where(take, v, best)
+                    idx = torch.where(take, i, idx)
+            if run_v is not None:
+                keep = ~(best > run_v)
+                best = torch.where(keep, run_v, best)
+                idx = torch.where(keep, run_i, idx)
+            run_v, run_i = best, idx
+        confs[r0:r1] = run_v
+        labels[r0:r1] = torch.where(run_v >= threshold, run_i, -1).to(
+            torch.int32)
+    return labels, confs

@@ -22,10 +22,11 @@ and its plain PyTorch version on CPU tensors:
 - :func:`mxu_assign_blocks` (K1, replaces
   ``sitator_tpu/ops/landmark_mxu.py::_kernel``) — lv tiles, then cosine
   assignment to the centres; with ``skew=True`` K1s (replaces
-  ``::_kernel_skew``), the same function in one kernel whose warps overlap
-  one tile's lv with the previous tile's similarity fold (its similarity
-  sums run in another order than K1's tensor-core tail, so its labels
-  equal K1's outside the bf16 top-2 margin gate);
+  ``::_kernel_skew``), the same function in one kernel that keeps the lv
+  on chip: with bf16 operands a thread-block cluster whose CTAs split the
+  centre columns and share the lv tile (``csrc/assign_skew_wgmma.cu``, the
+  product on the tensor cores in K1's k-step order), with f32 operands
+  the FMA kernel (``csrc/assign_skew.cu``);
 - :func:`mxu_landmark_blocks` (K2, replaces ``::_lv_kernel``) — the lv
   matrix itself, in the caller's site order.
 """
@@ -491,27 +492,34 @@ def _mxu_assign_cuda(mob, vpu, A, kill, cpad, params, anchors, *,
 
 def _mxu_assign_skew_cuda(mob, vpu, A, kill, cpad, params, anchors, *,
                           triclinic, r2_cutoff, peak_clip, preshift,
-                          mxu_bf16, members=None):
-    """K1s on the card: one ``assign_skew`` launch computes the lv tiles,
-    the norm and the assignment with the lv kept on chip.  The centres are
-    taken in chunks of up to 1024 columns (a power of two times 128), so
-    they are padded to whole chunks here, and rounded to bf16 once when the
-    similarity operands are bf16 (the kernel streams them with async
-    copies, which cannot convert)."""
+                          mxu_bf16, members):
+    """K1s on the card, the lv kept on chip.  With bf16 similarity operands
+    (the default) one ``assign_skew_wgmma`` call (a cluster launch per 2048
+    centre columns): a thread-block cluster per 64-row tile whose CTAs each own
+    256 centre columns, share the tile's lv through distributed shared
+    memory (each CTA computes 64 / cluster-size of its rows, summing over
+    the membership lists ``members``) and run the product on the tensor
+    cores against the centres' K-major bf16 copy.  With f32 operands the
+    FMA kernel ``assign_skew``: the centres in chunks of up to 1024 columns
+    (a power of two times 128), so they are padded to whole chunks here."""
     if peak_clip:
         raise ValueError(_SKEW_CLIP)
     from sitator_tpu_torch.ops import _cuda
     B, _, MP = mob.shape
+    if mxu_bf16:
+        labels, confs = _cuda.assign_skew_wgmma(
+            mob, vpu, *members, kill, anchors, _cuda.centers_bf16(cpad),
+            params, triclinic=triclinic, r2_cutoff=r2_cutoff,
+            preshift=preshift)
+        return labels.view(B, MP), confs.view(B, MP)
     KP = cpad.shape[1]
     nj = min(8, 1 << (KP // 128 - 1).bit_length())
     ldc = _round_up(KP, 128 * nj)
     centers = torch.nn.functional.pad(cpad, (0, ldc - KP))
-    if mxu_bf16:
-        centers = centers.to(torch.bfloat16).float()
     labels, confs = _cuda.assign_skew(
         mob, vpu, A, kill, anchors, centers.contiguous(), params,
         n_valid=KP, nj=nj, triclinic=triclinic, r2_cutoff=r2_cutoff,
-        preshift=preshift, mxu_bf16=mxu_bf16)
+        preshift=preshift)
     return labels.view(B, MP), confs.view(B, MP)
 
 
@@ -607,7 +615,7 @@ def mxu_assign_blocks(mobile, static, basis, cell, centers_perm, *,
                       skew=False):
     """Fused landmark + normalise + assign through the unique-atom kernel
     (K1, or K1s with ``skew=True``: the same function with
-    ``peak_evening='none'`` only, its sums in another order).  ``basis`` from
+    ``peak_evening='none'`` only, the lv kept on chip).  ``basis`` from
     :func:`prepare_mxu_basis`; ``centers_perm (K, S)`` unit centres with
     columns in kd order (:func:`permute_centers`).  Returns (labels (B, M)
     int32 with −1 below threshold, confs (B, M)).  On CUDA tensors this

@@ -10,21 +10,25 @@ of the mask kills padding sites.  Then the cosine assignment tail shared
 with K1.
 
 :func:`fused_assign_blocks` (K3, replaces
-``sitator_tpu/ops/landmark_pallas.py::_kernel``) launches the CUDA kernel on
-CUDA tensors and runs the plain PyTorch version on CPU tensors.  It serves
-bases without vertex sharing, and it is the exactness arbiter the
-unique-atom kernel is held against.
+``sitator_tpu/ops/landmark_pallas.py::_kernel``) launches the CUDA kernels
+on CUDA tensors (``csrc/lv_gather.cu``, then the tensor-core tail) and runs
+the plain PyTorch version on CPU tensors.  It serves bases without vertex
+sharing, and it is the exactness arbiter the unique-atom kernel is held
+against.  :func:`_gather_route_plain` is the plain twin of the card's
+partition (lane-strided norm, blocked arg-max).
 """
 from __future__ import annotations
 
 import torch
 
-from sitator_tpu_torch.ops.kernel_common import (as_f32, cell_array,
-                                                 kernel_cell,
+from sitator_tpu_torch.ops.kernel_common import (as_f32,
+                                                 blocked_assign_plain,
+                                                 cell_array, kernel_cell,
                                                  load_cell_params,
                                                  min_image_xyz,
                                                  pack_cell_params,
                                                  round_up as _round_up,
+                                                 row_prep_plain,
                                                  supports_cell,
                                                  tiled_assign_plain)
 
@@ -93,19 +97,61 @@ def _gather_assign_plain(mob, vp, mask, cpad, params, *, s_tile, triclinic,
 
 def _gather_assign_cuda(mob, vp, mask, cpad, params, *, s_tile, triclinic,
                         r2_cutoff, peak_clip, full_mask, mxu_bf16):
-    """K3 on the card: ``lv_gather`` writes the block's landmark vectors to
-    scratch, then the ``assign_tail`` shared with K1.  ``s_tile`` only sets
-    the site padding here: one launch covers every site."""
+    """K3 on the card.  ``lv_gather`` (one warp a group of 8 ion rows,
+    sweeping every site: each vertex loaded once per column for the 8 ions)
+    computes the block's landmark vectors.  With bf16 similarity operands
+    and no clip (the default) it forms each row's norm itself in
+    ``row_prep``'s order and writes only the bf16 copy and ``inv_norm``, and
+    the tensor-core product (``sims_wgmma``) and the merge follow: the f32
+    lv never reaches device memory and ``row_prep`` is not launched.  With
+    the clip or f32 operands it writes the f32 lv and K1's whole tail runs
+    (``assign_tail``: the clip needs each row's second-largest value before
+    the norm).  ``s_tile`` only sets the site padding here: one launch
+    covers every site."""
     from sitator_tpu_torch.ops import _cuda
     B, _, MP = mob.shape
-    SP = vp.shape[3]
-    lv = torch.empty((B, MP, SP), device=mob.device)
-    _cuda.lv_gather(mob, vp, mask, lv, params, triclinic=triclinic,
-                    r2_cutoff=r2_cutoff, full_mask=full_mask)
-    labels, confs = _cuda.assign_tail(
-        lv.view(B * MP, SP), cpad, float(params[-1]), peak_clip=peak_clip,
-        mxu_bf16=mxu_bf16)
+    kw = dict(triclinic=triclinic, r2_cutoff=r2_cutoff, full_mask=full_mask)
+    thr = float(params[-1])
+    if mxu_bf16 and not peak_clip:
+        lvb, inv_norm = _cuda.lv_gather(mob, vp, mask, params, bf16=True,
+                                        **kw)
+        labels, confs = _cuda.argmax_merge(
+            *_cuda.sims_argmax(lvb, inv_norm, cpad), thr)
+    else:
+        lv = _cuda.lv_gather(mob, vp, mask, params, bf16=False, **kw)
+        labels, confs = _cuda.assign_tail(lv, cpad, thr, peak_clip=peak_clip,
+                                          mxu_bf16=mxu_bf16)
     return labels.view(B, MP), confs.view(B, MP)
+
+
+def _gather_lv_rows_plain(mob, vp, mask, params, *, triclinic, r2_cutoff,
+                          full_mask):
+    """The f32 landmark vectors ``(B * MP, SP)`` of every (ion, site) pair:
+    the plain version of ``lv_gather``'s f32 output."""
+    B, _, MP = mob.shape
+    cell, mid, steep, _ = load_cell_params(params.to(mob.device), triclinic)
+    return _gather_tile_plain(mob, vp, mask, cell, mid, steep,
+                              r2_cutoff=r2_cutoff, triclinic=triclinic,
+                              full_mask=full_mask).reshape(B * MP, -1)
+
+
+def _gather_route_plain(mob, vp, mask, cpad, params, *, s_tile, triclinic,
+                        r2_cutoff, peak_clip, full_mask, mxu_bf16):
+    """Plain twin of K3's partition on the card: the f32 lv rows, the
+    norm in the kernels' lane-strided order (``row_prep_plain``: what
+    ``row_prep`` computes on the f32 route and what ``lv_gather`` forms
+    itself on the bf16 route), then the tail's blocks and merge
+    (``blocked_assign_plain``).  Returns ``(labels, confs, inv_norm,
+    rows)``; ``rows`` are the (clipped) f32 rows the product reads, rounded
+    to bf16 by it when ``mxu_bf16``."""
+    B, _, MP = mob.shape
+    lv = _gather_lv_rows_plain(mob, vp, mask, params, triclinic=triclinic,
+                               r2_cutoff=r2_cutoff, full_mask=full_mask)
+    inv_norm, rows = row_prep_plain(lv, peak_clip=peak_clip)
+    labels, confs = blocked_assign_plain(rows, inv_norm, cpad,
+                                         float(params[-1]),
+                                         mxu_bf16=mxu_bf16)
+    return labels.view(B, MP), confs.view(B, MP), inv_norm, rows
 
 
 def _gather_inputs(mobile, static, verts, vmask, cell, centers, *,

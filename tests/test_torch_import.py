@@ -246,6 +246,7 @@ def test_kernel_sources_ship_with_the_package():
     csrc = ROOT / "sitator_tpu_torch" / "csrc"
     names = sorted(p.name for p in csrc.iterdir()
                    if p.suffix in (".cu", ".cuh"))
-    assert names == ["assign_skew.cu", "assign_tail.cu",
+    assert names == ["assign_skew.cu", "assign_skew_wgmma.cu",
+                     "assign_tail.cu", "hopper_common.cuh",
                      "landmark_common.cuh", "lv_gather.cu", "lv_tile.cu",
                      "sims_wgmma.cu"]

@@ -284,7 +284,7 @@ def test_k1_plain_matches_reference_preshift(cutoff_shape, peak_evening):
 # -- K3: gather assign -------------------------------------------------------
 
 @pytest.mark.parametrize("peak_evening,full_mask", [
-    ("none", False), ("clip", True)])
+    ("none", False), ("clip", True), ("none", True), ("clip", False)])
 @pytest.mark.parametrize("cell_kind", ["orthorhombic", "triclinic"])
 @pytest.mark.parametrize("cutoff_shape,mxu_bf16", [
     ("logistic", False), ("logistic_r2", True)])

@@ -143,3 +143,32 @@ def test_skew_on_cpu_counts_no_launch():
                           steepness=4.0, threshold=THR, skew=True)
     assert (tmx.mxu_assign_blocks.launches,
             tmx.mxu_assign_blocks.skew_launches) == before
+
+
+@pytest.mark.parametrize("cell_kind,cutoff_shape,mxu_bf16", [
+    ("orthorhombic", "logistic", False), ("triclinic", "logistic", False),
+    ("orthorhombic", "logistic_r2", True), ("triclinic", "logistic_r2", True)])
+def test_skew_matches_reference_cases(cell_kind, cutoff_shape, mxu_bf16):
+    """K1s's plain path against the reference's skew kernel in interpret
+    mode across cells, cutoffs and similarity precisions (two kd tiles,
+    so the skew's cross-tile carry is exercised)."""
+    r = np.random.default_rng(19)
+    cell = TRICLINIC if cell_kind == "triclinic" else None
+    cell, mobile, static, verts, vmask, centers, site_pos = _system(
+        r, S=200, K=8, cell=cell)
+    kcell = tkc.kernel_cell(cell).numpy()
+    bj = jmx.prepare_mxu_basis(verts, vmask, site_pos, cell, s_tile=128)
+    bt = tmx.prepare_mxu_basis(verts, vmask, site_pos, cell, s_tile=128)
+    kw = dict(midpoint=3.0, steepness=4.0, threshold=THR, mxu_bf16=mxu_bf16,
+              cutoff_shape=cutoff_shape)
+    want = jmx.mxu_assign_blocks(jnp.asarray(mobile), jnp.asarray(static),
+                                 bj, jnp.asarray(kcell),
+                                 jmx.permute_centers(centers, bj), skew=True,
+                                 interpret=True, **kw)
+    got = tmx.mxu_assign_blocks(_t(mobile), _t(static), bt, kcell,
+                                tmx.permute_centers(centers, bt), skew=True,
+                                **kw)
+    margin, top1 = _reference_margin(
+        cell, mobile, static, verts, vmask, centers, midpoint=3.0,
+        steepness=4.0, cutoff_shape=cutoff_shape, peak_evening="none")
+    _assert_assign(got, want, margin, top1, mxu_bf16)
