@@ -50,14 +50,36 @@ Phases; any failure exits non-zero before the result lines:
    the spilled labels, its labels bit for bit against
    ``SpmdLandmarkPipeline`` on the same frames and centres, and the run
    again without the memmap, counters reset first and read after;
-7. K3's own path at the bench width: the bench's sites, each with a
+7. the seed → stream → merge → network path at the bench width (K2 in
+   ``fit_centers``, K1 in pass 2), counters reset first and read after:
+   ``StreamingLandmarkAnalysis`` at its shipped defaults (the run-ahead
+   dispatcher, ``pipeline_depth=2``) against ``pipeline_depth=0`` on the
+   same centres over 1024 frames (runs in the order 2, 0, 0, 2; label
+   memmaps and every integer statistic equal, float attributes within
+   1e-9, tallies equal to the int64 oracle; frames/s and ``phase_times_``
+   of both printed), the count of host synchronisations PyTorch reports
+   for a depth-2 run (it must not grow with the number of blocks), one
+   pass at each depth under ``torch.profiler``, a short run with two
+   static atoms exchanged inside the second of four blocks
+   (``dynamic_lattice_mapping``: depth 2, also with ``retire_group=2`` and
+   ``async_label_copy``, equals depth 0 and the unswapped run, the
+   permutation included, after one rollback), the accumulator copy taken
+   before each optimistic fold; ``merge_network`` on the streamed result
+   and ``DiffusionPathwayAnalysis`` on the merged network; Markov
+   clustering on the card against ``device="cpu"`` (equal partitions,
+   converged matrices within 1e-5; iterations and time printed); a classic
+   run ``LandmarkAnalysis`` → ``JumpAnalysis`` → ``MergeSitesByDynamics`` →
+   ``RemoveUnoccupiedSites`` → ``DiffusionPathwayAnalysis``; and
+   ``VoronoiSiteGenerator`` on the bench's static lattice (SciPy on the
+   host), its network carried through ``prepare_engine_basis`` and K2;
+8. K3's own path at the bench width: the bench's sites, each with a
    tetrahedron of its own 4 static atoms (no vertex shared, 37,044 static
    atoms): ``SpmdLandmarkPipeline`` (route 'gather', 8 x 32 frames with the
    carry, timed, profiled) held to the dense route and the int64 oracle,
    then ``StreamingLandmarkAnalysis`` fit and pass 2 (route 'gather', 1024
    frames in 256-frame blocks, timed) held to the oracle and to the
    pipeline;
-8. one JSON line of per-kernel results, then the ``ok`` line, last.
+9. one JSON line of per-kernel results, then the ``ok`` line, last.
 
 Label comparisons are gated on the reference's top-2 margin: labels must be
 equal wherever the best and second-best cosine similarities (f32, from the
@@ -1134,6 +1156,428 @@ def phase_streaming(device):
           f"SpmdLandmarkPipeline on all {labels.size} rows; the run without "
           f"store_labels gives the same statistics; launches with the "
           f"checks {read_launches()}", flush=True)
+    return launches, fps, dict(sy=sy, sn=sn, frames=frames, centers=centers,
+                               kw=kw)
+
+
+def run_streaming(ctx, tmp, name, frames=None, **kw):
+    """One timed pass 2 on the context's network and centres with the labels
+    spilled: (engine, result, labels, seconds)."""
+    from sitator_tpu_torch import StreamingLandmarkAnalysis
+    path = Path(tmp) / f"{name}.npy"
+    sla = StreamingLandmarkAnalysis(store_labels=str(path),
+                                    **{**ctx["kw"], **kw})
+    sync()
+    t0 = time.perf_counter()
+    out = sla.run(ctx["sn"], ctx["frames"] if frames is None else frames,
+                  centers=ctx["centers"])
+    sync()
+    seconds = time.perf_counter() - t0
+    return sla, out, np.array(np.load(path)), seconds
+
+
+INT_ATTRS = ("n_ij", "total_corrected_residences", "occupancies")
+FLOAT_ATTRS = ("p_ij", "jump_lag", "residence_times", "centers")
+
+
+def check_same_streaming(name, got, want, lab_got, lab_want):
+    """Labels and integer statistics equal, float attributes within 1e-9
+    (on the card the float64 sums add atomically in arrival order)."""
+    check(np.array_equal(lab_got, lab_want), f"{name}: label memmaps differ "
+          f"on {int((lab_got != lab_want).sum())} rows")
+    for k in INT_ATTRS:
+        check(np.array_equal(getattr(got, k), getattr(want, k)),
+              f"{name}: {k} differs")
+    worst = 0.0
+    for k in FLOAT_ATTRS:
+        a, b = getattr(got, k), getattr(want, k)
+        check(np.array_equal(np.isnan(a), np.isnan(b)), f"{name}: {k} NaNs")
+        err = float(np.nanmax(np.abs(a - b), initial=0.0))
+        check(err <= 1e-9, f"{name}: {k} differs by {err:.3g} > 1e-9")
+        worst = max(worst, err)
+    return worst
+
+
+def count_host_syncs(ctx, tmp, n_frames, depth):
+    """Host synchronisations PyTorch reports (``set_sync_debug_mode``) while
+    one pass 2 over ``n_frames`` runs: blocking copies, ``.item()``,
+    ``torch.cuda.synchronize``.  Waits on an event are not among them."""
+    import warnings
+    import torch
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run_streaming(ctx, tmp, f"sync{depth}_{n_frames}",
+                          frames=ctx["frames"][:n_frames],
+                          pipeline_depth=depth)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    # the two around the timed run are run_streaming's own
+    return sum("synchroniz" in str(w.message) for w in caught) - 2
+
+
+def profile_streaming(ctx, tmp, depth):
+    """One pass 2 under ``torch.profiler``: the wall time, the device's
+    kernels and copies summed and by name (the 6 largest).  The sum can
+    exceed the wall where copies on their own streams overlap kernels; the
+    profiler's overhead (about 15,000 small launches a pass) is in the
+    wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = run_streaming(ctx, tmp, f"prof{depth}",
+                             pipeline_depth=depth)[3] * 1e3
+    ops = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0), key=lambda x: -x[1])
+    dev = sum(t for _, t, _ in ops)
+    print(f"profile of pass 2 at pipeline_depth={depth} (torch.profiler on): "
+          f"wall {wall:.0f} ms, device kernels and copies {dev:.0f} ms "
+          f"({100 * dev / wall:.1f}% of the wall) in "
+          f"{sum(n for _, _, n in ops)} launches; by name (ms): "
+          + "; ".join(f"{k[:48]} {t:.1f}" for k, t, _ in ops[:6]), flush=True)
+
+
+def phase_network(device, ctx):
+    """The seed → stream → merge → network path.  Returns the launch counts
+    and the frames/s of pass 2 at depth 2 and depth 0."""
+    import tempfile
+    import torch
+    from sitator_tpu_torch import (JumpAnalysis, LandmarkAnalysis,
+                                   StreamingLandmarkAnalysis)
+    from sitator_tpu_torch.dynamics import (MergeSitesByDynamics,
+                                            RemoveUnoccupiedSites)
+    from sitator_tpu_torch.io import ArrayTrajectory
+    from sitator_tpu_torch.network import DiffusionPathwayAnalysis
+    from sitator_tpu_torch.ops import mcl
+    from sitator_tpu_torch.ops.jumps import _jump_stats_block_int64
+    from sitator_tpu_torch.voronoi import VoronoiSiteGenerator
+
+    from scipy.optimize import linear_sum_assignment  # noqa: F401 (warm)
+
+    sy, sn, frames = ctx["sy"], ctx["sn"], ctx["frames"]
+    n_frames, n_ions = len(frames), sy["mobile"].shape[1]
+    last = [time.perf_counter()]
+
+    def lap():
+        """Seconds since the last call, as a tag for a progress line."""
+        now = time.perf_counter()
+        dt, last[0] = now - last[0], now
+        return f"[+{dt:.1f} s]"
+
+    reset_launches()
+
+    # 1. shipped defaults (run-ahead) against the synchronous loop
+    check(StreamingLandmarkAnalysis(device=device).pipeline_depth == 2,
+          "the shipped pipeline_depth is not 2")
+    fit = StreamingLandmarkAnalysis(**ctx["kw"])
+    centers = fit.fit_centers(sn, ArrayTrajectory(frames))
+    check(read_launches()["K2"] > 0, "fit_centers did not launch K2")
+    check(centers.shape == ctx["centers"].shape
+          and np.allclose(centers, ctx["centers"], atol=1e-5),
+          "fit_centers is not reproducible")
+    ctx = dict(ctx, centers=centers)
+    K = len(centers)
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {}
+        for i, depth in enumerate((2, 0, 0, 2)):
+            kw = {} if depth == 2 else {"pipeline_depth": 0}
+            runs[i] = (depth,) + run_streaming(ctx, tmp, f"d{depth}_{i}", **kw)
+            check(runs[i][1].pipeline_depth == depth
+                  and runs[i][1].route_ == "mxu",
+                  f"run {i}: depth {runs[i][1].pipeline_depth}, route "
+                  f"{runs[i][1].route_}")
+        check(read_launches()["K1"] >= 16, "pass 2 did not launch K1")
+        _, sla2, out2, lab2, _ = runs[0]
+        for i in (1, 2, 3):
+            err = check_same_streaming(
+                f"depth {runs[i][0]} (run {i}) vs depth 2", runs[i][2], out2,
+                runs[i][3], lab2)
+        want, _, _ = _jump_stats_block_int64(
+            lab2, K, np.full(n_ions, -1, np.int64),
+            np.zeros(n_ions, np.int64), "persist")
+        check(np.array_equal(out2.n_ij, want["n_ij"])
+              and np.array_equal(out2.total_corrected_residences,
+                                 want["occ_counts"]) and out2.n_ij.sum() > 0,
+              "depth 2: tallies differ from the int64 oracle on its labels")
+        check(sla2.rollbacks_ == 0, "a rollback without an offender")
+        fps = {d: max(n_frames / r[4] for r in runs.values() if r[0] == d)
+               for d in (2, 0)}
+        for i, (depth, sla, _, _, sec) in runs.items():
+            print(f"streaming pass 2, pipeline_depth={depth} (run {i}, "
+                  f"{n_frames} bench frames in 256-frame blocks, labels "
+                  f"spilled): {n_frames / sec:.1f} frames/s ({sec:.3f} s)",
+                  flush=True)
+            print(f"phase_times_ depth {depth} run {i} (s): " + json.dumps(
+                {k: round(v, 4) for k, v in sla.phase_times_.items()}),
+                flush=True)
+        print(f"depth 2 == depth 0: labels on all {lab2.size} rows, every "
+              f"integer statistic, float attributes within 1e-9 (worst of "
+              f"the last pair {err:.3g}), tallies == int64 oracle; best "
+              f"frames/s depth 2 {fps[2]:.1f}, depth 0 {fps[0]:.1f} {lap()}",
+              flush=True)
+
+        syncs = {(d, n): count_host_syncs(ctx, tmp, n, d)
+                 for d in (2, 0) for n in (512, 1024)}
+        print(f"host synchronisations reported by PyTorch in one pass 2 "
+              f"(depth, frames): {syncs} {lap()}", flush=True)
+        check(syncs[2, 1024] == syncs[2, 512],
+              "the run-ahead loop synchronises the host once or more a block")
+        check(syncs[0, 1024] > syncs[0, 512],
+              "the synchronous loop shows no per-block synchronisation: the "
+              "counter does not see them")
+
+        for depth in (2, 0):
+            profile_streaming(ctx, tmp, depth)
+        lap()
+
+        # 2. two static atoms exchange inside the second of four blocks
+        T, (a, b) = 64 + 17, (100, 101)
+        swapped = frames[:256].copy()
+        swapped[T:, [a, b]] = swapped[T:, [b, a]]
+        dl = dict(frames=swapped, block_frames=64,
+                  dynamic_lattice_mapping=True)
+        plain = run_streaming(ctx, tmp, "noswap", frames=frames[:256],
+                              block_frames=64)
+        s0, o0, l0, t0 = run_streaming(ctx, tmp, "swap0", pipeline_depth=0,
+                                       **dl)
+        s2, o2, l2, t2 = run_streaming(ctx, tmp, "swap2", **dl)
+        sg, og, lg, _ = run_streaming(ctx, tmp, "swap2g", retire_group=2,
+                                      async_label_copy=True, **dl)
+        check_same_streaming("lattice exchange, retire_group=2 with "
+                             "async_label_copy vs depth 0", og, o0, lg, l0)
+        check(np.array_equal(sg.lattice_mapping_, s0.lattice_mapping_)
+              and sg.rollbacks_ == 1, "lattice exchange, retire_group=2: "
+              f"rollbacks {sg.rollbacks_} or another permutation")
+        check_same_streaming("lattice exchange, depth 2 vs 0", o2, o0, l2, l0)
+        check(np.array_equal(s2.lattice_mapping_, s0.lattice_mapping_)
+              and s2.lattice_mapping_[a] == b and s2.lattice_mapping_[b] == a,
+              "lattice exchange: the permutations differ")
+        check(s2.rollbacks_ == 1 and s0.rollbacks_ == 0,
+              f"lattice exchange: rollbacks {s2.rollbacks_}, {s0.rollbacks_}")
+        check_same_streaming("lattice exchange vs the unswapped run", o2,
+                             plain[1], l2, plain[2])
+        print(f"lattice exchange at frame {T} of 256 (4 blocks of 64): depth "
+              f"2 (also with retire_group=2 and async_label_copy) == depth 0 "
+              f"== the unswapped run (labels, integers, floats within 1e-9, "
+              f"permutation); rollbacks at depth 2: "
+              f"{s2.rollbacks_}; {t2:.3f} s against {t0:.3f} s at depth 0 "
+              f"and {plain[3]:.3f} s unswapped {lap()}", flush=True)
+
+    # the accumulator copy taken before each optimistic fold: the engine's
+    # own accumulators and its own copy, at this run's site count
+    from sitator_tpu_torch.landmark.streaming import (_snapshot,
+                                                      _zero_accumulators)
+    acc = {k: v.to(device) for k, v in _zero_accumulators(
+        K, sla2.max_mobile_per_site).items()}
+    nbytes = sum(v.numel() * v.element_size() for v in acc.values())
+    snap_ms = timed(lambda: _snapshot(acc), 20)
+    print(f"accumulator snapshot at {K} sites: {nbytes / 1e6:.1f} MB, "
+          f"{snap_ms:.3f} ms of device time a block; host time in "
+          f"phase_times_['snapshot'] above {lap()}", flush=True)
+    del acc
+
+    # 3. merge the streamed network, read off the pathways; MCL card vs CPU
+    def check_merged(name, merged, remap):
+        """A merged network against a NumPy reduction of the streamed one by
+        ``remap``: a partition numbered by smallest member, hop counts
+        summed by group with the hops inside a group dropped, occupancy
+        summed by group."""
+        n = merged.n_sites
+        first = np.full(n, K)
+        np.minimum.at(first, remap, np.arange(K))
+        check(remap.shape == (K,) and remap.min() == 0
+              and remap.max() == n - 1 and (np.diff(first) > 0).all()
+              and first[0] == 0, f"{name}: remap is not a partition numbered "
+              "by smallest member")
+        onehot = np.zeros((K, n))         # float64: exact on these counts
+        onehot[np.arange(K), remap] = 1.0
+        want = (onehot.T @ np.asarray(out2.n_ij, np.float64)
+                @ onehot).astype(np.int64)
+        inside = int(np.trace(want))
+        np.fill_diagonal(want, 0)
+        check(np.array_equal(merged.n_ij, want),
+              f"{name}: n_ij is not the sum over the groups")
+        check(np.allclose(merged.occupancies, onehot.T @ out2.occupancies,
+                          rtol=1e-12, atol=0),
+              f"{name}: occupancies are not the sum over the groups")
+        check(merged.centers.shape == (n, 3)
+              and np.isfinite(merged.centers).all(), f"{name}: bad centres")
+        return inside
+
+    t0 = time.perf_counter()
+    merged, remap = StreamingLandmarkAnalysis.merge_network(
+        out2, verbose=False, device=device)
+    t_merge = time.perf_counter() - t0
+    check_merged("merge_network", merged, remap)
+    dpa = DiffusionPathwayAnalysis(verbose=False, device=device)
+    dpa.run(merged)
+    check(dpa.n_pathways >= 1 and len(merged.diffusion_pathway)
+          == merged.n_sites, "no diffusion pathway on the merged network")
+    print(f"merge_network: {K} -> {merged.n_sites} sites, "
+          f"{int(out2.n_ij.sum())} -> {int(merged.n_ij.sum())} jumps in "
+          f"{t_merge:.3f} s; pathways {dpa.n_pathways}, dims "
+          f"{np.bincount(dpa.pathway_dims, minlength=4).tolist()} (count by "
+          f"dimension 0-3) {lap()}", flush=True)
+
+    n_ij = np.asarray(out2.n_ij, np.float64)
+    T = n_ij + n_ij.T
+    T[np.diag_indices_from(T)] += np.maximum(T.max(axis=1), 1.0)
+    mats, iters, ms = {}, {}, {}
+    for d in (device, "cpu"):
+        t = torch.as_tensor(T, dtype=torch.float32, device=d)
+        mcl.mcl_iterate(t, 2.0)                       # warm-up
+        sync()
+        t0 = time.perf_counter()
+        mats[d], iters[d] = mcl._mcl_loop(t, 2.0)
+        sync()
+        ms[d] = (time.perf_counter() - t0) * 1e3
+    err = float((mats[device].cpu() - mats["cpu"]).abs().max())
+    check(err <= 1e-5, f"MCL: card and CPU matrices differ by {err:.3g}")
+    g_card = mcl.markov_cluster(T, device=device)
+    g_cpu = mcl.markov_cluster(T, device="cpu")
+    check(len(g_card) == len(g_cpu) and all(
+        np.array_equal(x, y) for x, y in zip(g_card, g_cpu)),
+        "MCL: card and CPU partitions differ")
+    check(iters[device] == iters["cpu"], f"MCL iterations {iters}")
+    loose, loose_map = StreamingLandmarkAnalysis.merge_network(
+        out2, distance_threshold=None, verbose=False, device=device)
+    check(loose.n_sites == len(g_card) <= merged.n_sites,
+          f"merge_network without the distance guard: {loose.n_sites} sites "
+          f"for {len(g_card)} MCL groups")
+    check(loose.n_sites < K, "merge_network without the distance guard "
+          "merged nothing: the group sums below would check an identity")
+    for k, g in enumerate(sorted(g_card, key=lambda g: int(g.min()))):
+        check((loose_map[g] == k).all(), "merge_network without the distance "
+              f"guard: group {k} is not MCL's")
+    flickers = check_merged("merge_network without the distance guard",
+                            loose, loose_map)
+    check(int(loose.n_ij.sum()) == int(out2.n_ij.sum()) - flickers,
+          "merge_network without the distance guard: jumps lost")
+    dpa_loose = DiffusionPathwayAnalysis(verbose=False, device=device)
+    dpa_loose.run(loose)
+    check(dpa_loose.n_pathways >= 1 and len(loose.diffusion_pathway)
+          == loose.n_sites, "no diffusion pathway on the loosely merged "
+          "network")
+    print(f"MCL on the {K}-site jump graph: {iters[device]} iterations, "
+          f"{ms[device]:.2f} ms on the card, {ms['cpu']:.2f} ms on the CPU; "
+          f"{len(g_card)} groups (merge_network without its distance "
+          f"guard: {K} -> {loose.n_sites} sites, {flickers} hops inside "
+          f"the groups dropped, n_ij and occupancies == the NumPy sums over "
+          f"the groups), partitions equal, matrices within {err:.3g} "
+          f"{lap()}", flush=True)
+    tf32_before = torch.backends.cuda.matmul.allow_tf32
+    check(not tf32_before, "TF32 products were on during the MCL comparison")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    refused = False
+    try:
+        mcl.mcl_iterate(torch.as_tensor(T, dtype=torch.float32,
+                                        device=device), 2.0)
+    except RuntimeError:
+        refused = True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32_before
+    check(refused, "MCL ran with TF32 products enabled")
+
+    # 4. the classic chain on a shorter run
+    t0 = time.perf_counter()
+    st = LandmarkAnalysis(cutoff_midpoint=MID, cutoff_steepness=STEEP,
+                          cutoff_shape=CUTOFF, verbose=False,
+                          clustering_params={"k_max": 1024},
+                          device=device).run(sn, frames[:32])
+    JumpAnalysis(verbose=False, device=device).run(st)
+    n0 = st.site_network.n_sites
+    st = MergeSitesByDynamics(verbose=False, device=device).run(st)
+    n1 = st.site_network.n_sites
+    st = RemoveUnoccupiedSites(verbose=False).run(st)
+    dpa = DiffusionPathwayAnalysis(verbose=False, device=device)
+    dpa.run(st)
+    check(0 < st.site_network.n_sites <= n1 <= n0, "classic chain: site "
+          f"counts {n0} -> {n1} -> {st.site_network.n_sites}")
+    check(st.traj.shape == (32, n_ions) and (st.traj >= 0).any()
+          and st.traj.max() < st.site_network.n_sites,
+          "classic chain: bad trajectory")
+    print(f"LandmarkAnalysis -> JumpAnalysis -> MergeSitesByDynamics -> "
+          f"RemoveUnoccupiedSites (32 bench frames): {n0} -> {n1} -> "
+          f"{st.site_network.n_sites} sites; pathways {dpa.n_pathways}; "
+          f"{time.perf_counter() - t0:.2f} s {lap()}", flush=True)
+
+    # ... and on an input that both engines change: the streamed labels on
+    # the K fitted sites, without the distance guard (the MCL groups above),
+    # then the first frames alone, which leave sites unvisited
+    from sitator_tpu_torch import SiteTrajectory
+    lab = np.asarray(lab2)
+    stm = MergeSitesByDynamics(distance_threshold=None, verbose=False,
+                               device=device).run(SiteTrajectory(out2, lab))
+    want = np.where(lab >= 0, loose_map[np.maximum(lab, 0)], -1)
+    check(stm.site_network.n_sites == loose.n_sites < K
+          and np.array_equal(stm.traj, want),
+          "MergeSitesByDynamics on the streamed labels: the trajectory is "
+          "not the labels renumbered by the MCL groups")
+    d = (stm.site_network.centers - loose.centers) @ np.linalg.inv(
+        sn.structure.cell)
+    d = np.abs((d - np.round(d)) @ sn.structure.cell).max()
+    check(d <= 1e-6, "MergeSitesByDynamics on the streamed labels: centres "
+          f"{d:.3g} A from merge_network's")
+    JumpAnalysis(verbose=False, device=device).run(stm)
+    check(np.array_equal(stm.site_network.n_ij, loose.n_ij),
+          "JumpAnalysis on the merged labels differs from merge_network's "
+          "group sums")
+    few = SiteTrajectory(out2, lab[:32])
+    kept = np.unique(lab[:32][lab[:32] >= 0])
+    stf = RemoveUnoccupiedSites(verbose=False).run(few)
+    want = np.where(lab[:32] >= 0,
+                    np.searchsorted(kept, np.maximum(lab[:32], 0)), -1)
+    check(0 < len(kept) < K and stf.site_network.n_sites == len(kept)
+          and np.array_equal(stf.traj, want)
+          and np.array_equal(stf.site_network.n_ij,
+                             out2.n_ij[np.ix_(kept, kept)])
+          and np.array_equal(stf.site_network.centers, out2.centers[kept]),
+          "RemoveUnoccupiedSites on 32 frames of the streamed labels: not "
+          "the visited sites, renumbered in order")
+    print(f"on the streamed labels: MergeSitesByDynamics without the "
+          f"distance guard {K} -> {stm.site_network.n_sites} sites "
+          f"(trajectory == labels renumbered by MCL's groups, centres within "
+          f"{d:.3g} A of merge_network's, JumpAnalysis n_ij == its group "
+          f"sums); RemoveUnoccupiedSites on the first 32 frames {K} -> "
+          f"{len(kept)} sites (== the visited sites, attributes subset) "
+          f"{lap()}", flush=True)
+
+    # 5. Voronoi seeds of the bench's static lattice (frame 0), then K2
+    from sitator_tpu_torch import SiteNetwork, Structure
+    t0 = time.perf_counter()
+    bare = SiteNetwork(Structure(frames[0].astype(np.float64),
+                                 sn.structure.species, sn.structure.cell),
+                       sn.static_mask, sn.mobile_mask)
+    seeds = VoronoiSiteGenerator(merge_tol=0.3, verbose=False).run(bare)
+    t_vor = time.perf_counter() - t0
+    sizes = np.bincount([len(v) for v in seeds.vertices])
+    check(seeds.n_sites >= len(sy["site_pos"]) and sizes[0] == 0,
+          f"Voronoi: {seeds.n_sites} nodes, {sizes[0]} without vertices")
+    before = read_launches()["K2"]
+    la = LandmarkAnalysis(cutoff_midpoint=MID, cutoff_steepness=STEEP,
+                          cutoff_shape=CUTOFF, verbose=False,
+                          clustering_params={"k_max": 1024}, device=device)
+    st = la.run(seeds, frames[:8])
+    check(read_launches()["K2"] > before,
+          "the Voronoi-seeded network did not reach K2")
+    check(la.landmark_vectors.shape[-1] == seeds.n_sites
+          and np.isfinite(la.landmark_vectors).all()
+          and st.site_network.n_sites > 0, "Voronoi-seeded run: bad result")
+    print(f"VoronoiSiteGenerator on {sn.n_static} static atoms: "
+          f"{seeds.n_sites} nodes in {t_vor:.2f} s on the host, vertices a "
+          f"node by count {dict(enumerate(sizes.tolist()))}; through "
+          f"prepare_engine_basis and K2: {st.site_network.n_sites} sites "
+          f"from 8 frames {lap()}", flush=True)
+
+    launches = read_launches()
+    print(f"launches on the seed -> stream -> merge -> network path: "
+          f"{launches}", flush=True)
+    for k in ("K1", "K2"):
+        check(launches[k] > 0, f"{k} was not launched on the network path")
     return launches, fps
 
 
@@ -1256,7 +1700,9 @@ def main():
     paths = {}
     paths["slice"], fps = phase_slice("cuda")
     paths["K1s"] = phase_skew("cuda")
-    paths["streaming"], stream_fps = phase_streaming("cuda")
+    paths["streaming"], stream_fps, ctx = phase_streaming("cuda")
+    paths["network"], depth_fps = phase_network("cuda", ctx)
+    del ctx
     paths["gather"], gather_fps, gather_stream_fps = phase_gather("cuda")
     check(not any(m == "jax" or m.startswith("jax.") for m in sys.modules),
           "jax was imported")
@@ -1274,7 +1720,8 @@ def main():
                             bound_by=r["bound_by"],
                             library_ms=r["library_ms"], **extra))
     print(f"pipeline frames/s: K1 {fps:.1f}, K3 {gather_fps:.1f}; streaming "
-          f"pass 2 frames/s: K1 {stream_fps:.1f}, K3 {gather_stream_fps:.1f}; "
+          f"pass 2 frames/s: K1 {stream_fps:.1f} (depth 2 {depth_fps[2]:.1f}, "
+          f"depth 0 {depth_fps[0]:.1f}), K3 {gather_stream_fps:.1f}; "
           f"total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

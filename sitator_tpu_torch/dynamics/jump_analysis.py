@@ -81,3 +81,20 @@ class JumpAnalysis:
         if self._stats is None:
             raise ValueError("JumpAnalysis has not been run")
         return int(self._stats["n_ij"].sum())
+
+    def jump_lag_by_type(self, sn):
+        """Mean jump lag aggregated over (from_type, to_type) pairs."""
+        if sn.site_types is None:
+            raise ValueError("SiteNetwork has no site_types")
+        types = np.unique(sn.site_types)
+        out = np.full((len(types), len(types)), np.nan)
+        lag = self._stats["lag_sum"]
+        cnt = self._stats["n_ij"]
+        for a, ta in enumerate(types):
+            ia = sn.site_types == ta
+            for b, tb in enumerate(types):
+                ib = sn.site_types == tb
+                c = cnt[np.ix_(ia, ib)].sum()
+                if c > 0:
+                    out[a, b] = lag[np.ix_(ia, ib)].sum() / c
+        return types, out

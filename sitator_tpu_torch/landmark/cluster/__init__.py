@@ -2,12 +2,11 @@
 
 A backend is a module exposing ``do_landmark_clustering(landmark_vectors,
 clustering_params, min_samples, verbose, device) -> (counts, assignments,
-confidences, centers)``.  The port has the ``dotprod`` backend; ``mcl`` is
-still to port.
+confidences, centers)``.  Backends: ``dotprod`` (the default) and ``mcl``.
 """
-from sitator_tpu_torch.landmark.cluster import dotprod
+from sitator_tpu_torch.landmark.cluster import dotprod, mcl
 
-_BACKENDS = {"dotprod": dotprod}
+_BACKENDS = {"dotprod": dotprod, "mcl": mcl}
 
 
 def get_backend(name):

@@ -28,11 +28,12 @@ Differences from the reference, none of which changes a result:
   routing of hazardous epochs through a host int64 jump scan are not needed:
   ``spill_every`` is kept as an attribute that changes nothing, and
   ``exact_jump_epochs_`` is always 0;
-- pass 2 runs the reference's synchronous per-block path
-  (``pipeline_depth=0``); the run-ahead dispatcher is not ported yet, so
-  ``pipeline_depth > 0`` and ``async_label_copy=True`` raise, as does a
-  multi-device ``mesh``;
-- ``merge_network`` waits for the port of the MCL merging modules.
+- the run-ahead dispatcher (``pipeline_depth > 0``, the default) snapshots
+  the accumulators by copying them (tensors are folded in place here), and
+  moves frames, labels and drift over two copy streams and pinned buffers
+  (:class:`_Lanes`); on a CPU device the same window runs without them;
+- a multi-device ``mesh`` raises, and ``packed_retire`` (drift riding in the
+  egress columns) is not ported.
 """
 from __future__ import annotations
 
@@ -61,11 +62,19 @@ class _Phase:
     """Accumulate the host wall time of one named engine phase into a dict
     (``engine.phase_times_``); always on (~100 ns a use).  Phases are
     disjoint, so their sum against the run's wall time splits it into host
-    dwell categories: feeder, upload, dispatch_assign, dispatch_fold,
+    dwell categories: feeder, upload (gathering a block's columns into the
+    staging buffers and starting the copy), snapshot (copying the
+    accumulators before an optimistic fold), dispatch_assign, dispatch_fold,
     drift_fetch, labels_fetch, labels_memmap_write, epoch_spill (the copy of
     the device accumulators to the host), checkpoint, setup, finalize.
-    CUDA calls return before the device finishes, so device time shows up in
-    the phases that wait for it: drift_fetch, labels_fetch, epoch_spill."""
+    These are host clocks, as in the reference: CUDA calls return before the
+    device finishes, so device time shows up in whichever phase waits for
+    it.  In the synchronous loop those are drift_fetch and labels_fetch of
+    the block just dispatched; with run-ahead they wait only for a block
+    dispatched ``pipeline_depth`` blocks earlier, and what device time is
+    not hidden moves to wherever the host blocks next: a launch that finds
+    the stream's queue full (inside dispatch_fold, which enqueues the
+    most), the staging-slot wait in upload, epoch_spill at the end."""
 
     __slots__ = ("pt", "name", "t0")
 
@@ -129,6 +138,127 @@ def _unpack12(arr, n):
     d = w2 >> 4
     out = np.stack([a, b, c, d], axis=-1).reshape(arr.shape[0], -1)
     return out[:, :n].astype(np.int16) - np.int16(1)
+
+
+def _zero_accumulators(K, max_mobile_per_site=None):
+    """The pass-2 accumulators for ``K`` sites, zeroed, on the host: integer
+    tallies in int64, float sums in float64; row ``K`` of the per-site ones
+    collects the unassigned."""
+    acc = {
+        "occ": torch.zeros(K + 1, dtype=torch.int64),
+        "conf": torch.zeros(K + 1, dtype=torch.float64),
+        "cos": torch.zeros((K + 1, 3), dtype=torch.float64),
+        "sin": torch.zeros((K + 1, 3), dtype=torch.float64),
+        "n_ij": torch.zeros((K, K), dtype=torch.int64),
+        "lag_sum": torch.zeros((K, K), dtype=torch.int64),
+        "res_sum": torch.zeros(K, dtype=torch.int64),
+        "res_cnt": torch.zeros(K, dtype=torch.int64),
+    }
+    if max_mobile_per_site is not None:
+        acc["mo_viol"] = torch.zeros((), dtype=torch.int64)
+    return acc
+
+
+def _snapshot(acc):
+    """A copy of the accumulators, taken before an optimistic fold (they are
+    folded in place) and restored on a rollback."""
+    return {k: v.clone() for k, v in acc.items()}
+
+
+class _Lanes:
+    """Host↔device traffic of pass 2 off the compute stream.
+
+    On a CUDA device: frames go up from a ring of pinned staging slots on
+    one copy stream, labels and drift come down into pinned buffers on a
+    second one, and events order both against the compute stream (the
+    current stream), so neither direction makes the host wait for queued
+    kernels.  On a CPU device the same calls copy in place and skip the
+    streams and events, so one window logic serves both.
+
+    A slot is handed out again only after the upload last made from it has
+    finished (its event), and the ring is longer than the run-ahead window,
+    so a block still in flight never shares a slot."""
+
+    def __init__(self, device, n_slots):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self.slots = [{} for _ in range(n_slots)]
+        self.cursor = 0
+        self._streams = {}
+
+    def _stream(self, name):
+        """The copy stream ``name``, created at its first use: a run that
+        never uploads or downloads through the lanes (``pipeline_depth=0``
+        without ``async_label_copy``) creates none."""
+        if name not in self._streams:
+            self._streams[name] = torch.cuda.Stream(self.device)
+        return self._streams[name]
+
+    def upload(self, block, columns):
+        """``block[:, idx]`` for each index array of ``columns`` as float32
+        tensors on the device: gathered straight into the next slot's
+        pinned buffers, copied on the upload stream, and made visible to
+        the compute stream by an event."""
+        slot = self.slots[self.cursor]
+        self.cursor = (self.cursor + 1) % len(self.slots)
+        if "uploaded" in slot:
+            slot["uploaded"].synchronize()
+        staged = []
+        for i, idx in enumerate(columns):
+            shape = (block.shape[0], len(idx), 3)
+            buf = slot.get(i)
+            if buf is None or buf.shape != shape:
+                buf = slot[i] = torch.empty(shape, dtype=torch.float32,
+                                            pin_memory=self.cuda)
+            if block.dtype == np.float32:
+                np.take(block, idx, axis=1, out=buf.numpy(), mode="clip")
+            else:
+                buf.numpy()[...] = block[:, idx]
+            staged.append(buf)
+        if not self.cuda:
+            return [b.clone() for b in staged]
+        compute = torch.cuda.current_stream(self.device)
+        up = self._stream("up")
+        with torch.cuda.stream(up):
+            out = [b.to(self.device, non_blocking=True) for b in staged]
+            slot["uploaded"] = up.record_event()
+        compute.wait_event(slot["uploaded"])
+        for t in out:   # allocated on the upload stream, used on this one
+            t.record_stream(compute)
+        return out
+
+    def mark(self):
+        """An event at the compute stream's present end (None on a CPU
+        device): what was enqueued so far, and nothing enqueued later."""
+        if not self.cuda:
+            return None
+        return torch.cuda.current_stream(self.device).record_event()
+
+    def start_download(self, t, produced=None):
+        """Begin copying device tensor ``t`` into a pinned host buffer once
+        ``produced`` (a :meth:`mark` taken after the kernels that wrote it;
+        taken now when None) has passed, so the copy waits for those
+        kernels only and not for work enqueued since; returns a ticket for
+        :meth:`wait`."""
+        if not self.cuda:
+            return t, None
+        if produced is None:
+            produced = self.mark()
+        down = self._stream("down")
+        with torch.cuda.stream(down):
+            down.wait_event(produced)
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            t.record_stream(down)
+            return host, down.record_event()
+
+    @staticmethod
+    def wait(ticket):
+        """The NumPy view of a finished download (blocks until its event)."""
+        host, done = ticket
+        if done is not None:
+            done.synchronize()
+        return host.numpy()
 
 
 def _assign_block(mobile, static, route, *, centers, midpoint, steepness,
@@ -236,14 +366,41 @@ class StreamingLandmarkAnalysis:
     use_fused : 'auto' (the kernels on CUDA) | True | False (dense route).
     egress_pack12 : pack spilled labels 4-per-3 into int16 words on the
         device (needs fewer than 4096 sites) before the device→host copy.
+    pipeline_depth : blocks kept in flight by the optimistic run-ahead
+        dispatcher (default 2, as in the reference; 0 is the fully
+        synchronous loop).  Each block's upload, assignment and whole-block
+        fold are enqueued with no host synchronisation; its drift and
+        egress labels are read on the host when it retires,
+        ``pipeline_depth`` blocks later.  With the drift guard on, the
+        accumulators are copied before each optimistic fold (they are
+        folded in place); a drift offender found at retirement restores
+        the offender's copy and replays it and every later in-flight block
+        through the synchronous path, so labels, tallies, remaps and the
+        :class:`StaticLatticeError` are those of ``pipeline_depth=0``
+        (``rollbacks_`` counts these events).  Checkpoints drain the window
+        first.  Contract: labels, every integer tally, the remaps and the
+        checkpoint cursor are identical at every depth; the float64 sums
+        (confidence, toroidal centre sums) are identical on a CPU device
+        and agree within 1e-12 relative on CUDA, where ``index_add_`` adds
+        atomically in arrival order and is not bit-stable from run to run
+        at any depth.
+    retire_group : in-flight blocks retired together, with their
+        downloads started back to back on the download stream; the window
+        grows to ``pipeline_depth + retire_group`` blocks.  An offender
+        rolls back to its own copy, so results do not depend on it.
+        Default 1; ignored when ``pipeline_depth=0``.
+    async_label_copy : start the device→host copy of a block's egress
+        labels right after its assignment (on the download stream, so it
+        overlaps the fold) instead of at retirement; needs
+        ``store_labels``.  Off by default, as in the reference.
     device : torch device the engine runs on (default 'cuda').
 
-    Not in this port yet (they raise :class:`NotImplementedError`):
-    ``mesh`` (multi-device frame sharding), ``pipeline_depth > 0`` and
-    ``async_label_copy=True`` (the run-ahead dispatcher).  The reference's
-    default ``pipeline_depth`` is 2; its results are bit-identical at any
-    depth, so the port's synchronous default gives the same results.
-    ``retire_group`` only acts with run-ahead and is kept as an attribute.
+    Not in this port: ``mesh`` (multi-device frame sharding) raises
+    :class:`NotImplementedError`, and the reference's opt-in
+    ``packed_retire`` (drift bit-cast into trailing egress columns, one
+    fetch instead of two at retirement) is left out: a fetch here is a
+    copy on its own stream and an event wait, and the drift of a block is
+    1 KB, so there is no round trip to save.
     With int64/float64 accumulators on the device there is no epoch spill:
     ``spill_every`` changes no result, and ``exact_jump_epochs_`` is 0.
     """
@@ -258,22 +415,13 @@ class StreamingLandmarkAnalysis:
                  multiple_occupancy_action="warn",
                  static_movement_threshold=1.0,
                  dynamic_lattice_mapping=False, use_fused="auto",
-                 async_label_copy=False, pipeline_depth=0,
+                 async_label_copy=False, pipeline_depth=2,
                  retire_group=1, egress_pack12=True, verbose=True,
                  device="cuda"):
         if mesh is not None:
             raise NotImplementedError(
                 "mesh: multi-device frame sharding is not ported yet "
                 "(ROADMAP queue 1, item 12.3)")
-        if int(pipeline_depth) > 0:
-            raise NotImplementedError(
-                "pipeline_depth > 0: the run-ahead dispatcher is not ported "
-                "yet (ROADMAP queue 1, item 9.5); pipeline_depth=0 gives the "
-                "same results")
-        if async_label_copy:
-            raise NotImplementedError(
-                "async_label_copy: part of the run-ahead dispatcher, not "
-                "ported yet (ROADMAP queue 1, item 9.5)")
         self.cutoff_midpoint = float(cutoff_midpoint)
         self.cutoff_steepness = float(cutoff_steepness)
         self.cutoff_shape = cutoff_shape
@@ -301,6 +449,8 @@ class StreamingLandmarkAnalysis:
             raise ValueError("dynamic_lattice_mapping needs a "
                              "static_movement_threshold")
         self.use_fused = use_fused  # 'auto' | True | False
+        self.async_label_copy = bool(async_label_copy)
+        self.pipeline_depth = int(pipeline_depth)
         self.retire_group = max(1, int(retire_group))
         self.egress_int16 = "auto"  # 'auto' (site count < 2^15) | bool
         self.egress_pack12 = bool(egress_pack12)
@@ -509,18 +659,7 @@ class StreamingLandmarkAnalysis:
             if self.verbose:
                 logger.info("resuming streaming run at frame %d", start_lo)
 
-        acc = {
-            "occ": torch.zeros(K + 1, dtype=torch.int64),
-            "conf": torch.zeros(K + 1, dtype=torch.float64),
-            "cos": torch.zeros((K + 1, 3), dtype=torch.float64),
-            "sin": torch.zeros((K + 1, 3), dtype=torch.float64),
-            "n_ij": torch.zeros((K, K), dtype=torch.int64),
-            "lag_sum": torch.zeros((K, K), dtype=torch.int64),
-            "res_sum": torch.zeros(K, dtype=torch.int64),
-            "res_cnt": torch.zeros(K, dtype=torch.int64),
-        }
-        if self.max_mobile_per_site is not None:
-            acc["mo_viol"] = torch.zeros((), dtype=torch.int64)
+        acc = _zero_accumulators(K, self.max_mobile_per_site)
         for k, v in host_acc.items():
             if k in acc:
                 acc[k] += torch.as_tensor(np.asarray(v)).to(acc[k].dtype)
@@ -549,12 +688,19 @@ class StreamingLandmarkAnalysis:
             want_drift=thr_drift is not None, egress_int16=egress_int16,
             egress_pack12=egress_pack12, **plan)
 
+        W = max(0, self.pipeline_depth)
+        G = self.retire_group if W else 1
+        lanes = _Lanes(dev, W + G + 1 if W else 0)
+        frame_ids = torch.arange(B, device=dev)
+        self.rollbacks_ = 0
+
         def fetch_labels(box):
             """Host copy of one assignment's egress labels, fetched at most
             once per assignment and decoded."""
             if box["np"] is None:
                 with ph("labels_fetch"):
-                    arr = box["dev"].cpu().numpy()
+                    arr = (box["dev"].cpu().numpy() if box["copy"] is None
+                           else lanes.wait(box["copy"]))
                 box["np"] = _unpack12(arr, n_mobile) if egress_pack12 \
                     else arr
             return box["np"]
@@ -567,41 +713,53 @@ class StreamingLandmarkAnalysis:
             with ph("labels_memmap_write"):
                 labels_out[lo + a:lo + b] = lab[a:b]
 
-        def fold(valid_np, labels, confs, mobile):
+        def fold(a, b, labels, confs, mobile):
+            """Fold frames [a, b) of one block's assignment."""
             nonlocal carry
             with ph("dispatch_fold"):
                 carry = _accum_block(
                     labels, confs, mobile, cell_inv,
-                    torch.as_tensor(valid_np, device=dev), carry, acc,
+                    (frame_ids >= a) & (frame_ids < b), carry, acc,
                     n_sites=K, max_mobile=self.max_mobile_per_site)
+
+        def static_columns():
+            return static_idx[perm] if self.dynamic_lattice_mapping \
+                else static_idx
 
         def upload_static(block):
             with ph("upload"):
-                static_np = block[:, static_idx]
-                if self.dynamic_lattice_mapping:
-                    static_np = static_np[:, perm]
-                return torch.as_tensor(static_np, dtype=torch.float32,
-                                       device=dev)
+                return torch.as_tensor(block[:, static_columns()],
+                                       dtype=torch.float32, device=dev)
 
         def assign(mobile, static):
+            """One block's assignment and the box its egress labels are
+            fetched through."""
             with ph("dispatch_assign"):
-                return _assign_block(mobile, static, route, **assign_kw)
+                out = _assign_block(mobile, static, route, **assign_kw)
+            box = {"np": None, "dev": out[3], "copy": None}
+            if labels_out is not None and self.async_label_copy:
+                box["copy"] = lanes.start_download(out[3])
+            return out, box
 
-        def process_block(lo, block, nb, mobile):
+        def process_block(lo, block, nb, mobile, pre=None):
             """The synchronous per-block path: per-frame drift gating,
-            lattice remapping, partial folds."""
+            lattice remapping, partial folds.  ``pre = (labels, confs,
+            drift_f, box)`` reuses an existing assignment of the block and
+            its host drift: valid only while ``perm`` is unchanged since it
+            was made."""
             nonlocal perm, n_remaps
             processed = 0
             last_remap = (-1, 0)
-            need_assign = True
+            need_assign = pre is None
+            if pre is not None:
+                labels, confs, drift_f, box = pre
             while processed < nb:
                 if need_assign:
                     # (re)assign the whole block — on entry and after a
                     # slot→atom permutation change; labels are fetched
                     # lazily after the first accumulator dispatch
-                    labels, confs, drift, labels_eg = assign(
+                    (labels, confs, drift, _), box = assign(
                         mobile, upload_static(block))
-                    box = {"np": None, "dev": labels_eg}
                     if thr_drift is not None:
                         with ph("drift_fetch"):
                             drift_f = drift[:nb].cpu().numpy()
@@ -621,9 +779,7 @@ class StreamingLandmarkAnalysis:
                                 frame=lo + processed + int(off[0]))
                         stop = processed + int(off[0])
                 if stop > processed:
-                    valid = np.zeros(B, bool)
-                    valid[processed:stop] = True
-                    fold(valid, labels, confs, mobile)
+                    fold(processed, stop, labels, confs, mobile)
                     write_labels(lo, processed, stop, box)
                 if stop < nb:
                     # a few remap attempts are allowed at one frame; any
@@ -651,9 +807,7 @@ class StreamingLandmarkAnalysis:
                         # the f32 device drift grazed the threshold but the
                         # f64 check finds no offender: accept the frame;
                         # the assignment stays valid (perm unchanged)
-                        valid = np.zeros(B, bool)
-                        valid[stop] = True
-                        fold(valid, labels, confs, mobile)
+                        fold(stop, stop + 1, labels, confs, mobile)
                         write_labels(lo, stop, stop + 1, box)
                         processed = stop + 1
                         continue
@@ -666,6 +820,90 @@ class StreamingLandmarkAnalysis:
                     n_remaps += 1
                     need_assign = True
                 processed = stop
+
+        # --- optimistic run-ahead (the dispatch pipeline) ---------------
+        # The synchronous path reads a block's drift back between its
+        # assignment and its fold, so the host waits for the device twice a
+        # block and the device idles while the host dispatches.  The fast
+        # path enqueues upload, assignment and the whole-block fold at once
+        # and keeps up to ``pipeline_depth`` blocks in flight; drift and
+        # labels are read when a block RETIRES, after its kernels have
+        # finished.  Exactness: the fold is optimistic.  The accumulators
+        # are folded in place, so with the drift guard on they are copied
+        # before each fold (no other event rolls back; the carry tensors
+        # are replaced, not written, and need no copy).  If retirement
+        # finds a drift offender, the copy is restored and the offending
+        # block and every later in-flight block go through the synchronous
+        # path, which reproduces the never-pipelined behaviour (same perm,
+        # same kernels, same folds).  Checkpoints drain the window first,
+        # so no optimistic state reaches a snapshot.
+        window = []
+
+        def dispatch(lo, block, nb):
+            """Enqueue one block with no host synchronisation."""
+            nonlocal carry
+            with ph("upload"):
+                mobile, static = lanes.upload(
+                    block, (mobile_idx, static_columns()))
+            snap = None
+            if thr_drift is not None:
+                with ph("snapshot"):
+                    snap = (carry, _snapshot(acc))
+            (labels, confs, drift, _), box = assign(mobile, static)
+            assigned = lanes.mark()
+            fold(0, nb, labels, confs, mobile)
+            window.append(dict(lo=lo, nb=nb, block=block, mobile=mobile,
+                               labels=labels, confs=confs, drift=drift,
+                               box=box, snap=snap, assigned=assigned))
+
+        def retire_many(g):
+            """Retire the ``g`` oldest in-flight blocks: their downloads
+            are started together, drift is checked oldest first, and an
+            offender at group index ``i`` rolls the accumulators back to
+            ITS pre-block copy and replays it and every later in-flight
+            block through the synchronous path."""
+            nonlocal carry, acc
+            entries = window[:g]
+            del window[:g]
+            guard = thr_drift is not None
+            tickets = [lanes.start_download(e["drift"], e["assigned"])
+                       for e in entries if guard]
+            if labels_out is not None:
+                for e in entries:
+                    if e["box"]["copy"] is None:
+                        e["box"]["copy"] = lanes.start_download(
+                            e["box"]["dev"], e["assigned"])
+            drifts = []
+            if guard:
+                with ph("drift_fetch"):
+                    drifts = [lanes.wait(t)[:e["nb"]]
+                              for t, e in zip(tickets, entries)]
+            off_at = next((i for i, dr in enumerate(drifts)
+                           if (dr > thr_drift).any()), None)
+            for e in entries[:off_at]:
+                write_labels(e["lo"], 0, e["nb"], e["box"])
+            if off_at is None:
+                return
+            # rollback: the blocks before the offender passed the guard and
+            # keep their folds; restore the offender's pre-block copy and
+            # replay it and every later in-flight block synchronously
+            # (raises StaticLatticeError or remaps, exactly like the
+            # synchronous engine).  The offender's assignment predates any
+            # remap and is reused; later blocks re-assign under the updated
+            # permutation.
+            self.rollbacks_ += 1
+            carry, acc = entries[off_at]["snap"]
+            redo = entries[off_at:] + window
+            window.clear()
+            for i, r in enumerate(redo):
+                process_block(
+                    r["lo"], r["block"], r["nb"], r["mobile"],
+                    pre=(r["labels"], r["confs"], drifts[off_at], r["box"])
+                    if i == 0 else None)
+
+        def drain():
+            while window:
+                retire_many(min(G, len(window)))
 
         def host_totals():
             with ph("epoch_spill"):
@@ -682,17 +920,26 @@ class StreamingLandmarkAnalysis:
             if nb < B:  # pad to the block shape (frames masked out)
                 from sitator_tpu_torch.parallel.mesh import pad_frames
                 block, _ = pad_frames(block, B)
-            with ph("upload"):
-                mobile = torch.as_tensor(block[:, mobile_idx],
-                                         dtype=torch.float32, device=dev)
-            process_block(lo, block, nb, mobile)
+            if W == 0:
+                with ph("upload"):
+                    mobile = torch.as_tensor(block[:, mobile_idx],
+                                             dtype=torch.float32, device=dev)
+                process_block(lo, block, nb, mobile)
+            else:
+                dispatch(lo, block, nb)
+                while len(window) >= W + G:
+                    retire_many(G)
             blocks_done += 1
             if ckpt is not None and blocks_done % self.checkpoint_every == 0:
+                # in-flight blocks must retire (or roll back) before their
+                # statistics can reach a checkpoint
+                drain()
                 totals = host_totals()
                 with ph("checkpoint"):
                     self._save_checkpoint(ckpt, n_frames, K, lo + nb, carry,
                                           totals, perm)
 
+        drain()
         totals = host_totals()
         if n_remaps and self.verbose:
             logger.info("dynamic lattice mapping: %d slot→atom remaps",
@@ -715,6 +962,76 @@ class StreamingLandmarkAnalysis:
         if self.multiple_occupancy_action == "raise":
             raise MultipleOccupancyError(msg, count=n_viol)
         logger.warning(msg)
+
+    # -- streaming post-merge -------------------------------------------
+    @staticmethod
+    def merge_network(sn, inflation=2.0, distance_threshold=3.0,
+                      verbose=True, device="cuda"):
+        """Merge over-split sites of a *streamed* result network using its
+        accumulated ``n_ij`` (MCL on the jump graph, like
+        ``MergeSitesByDynamics``, on ``device``) — but at the statistics
+        level, since the label matrix may never be memory-resident: hop
+        counts and occupancy-style attributes are group-summed; intra-group
+        hops (flickers between split halves) drop out of ``n_ij``.
+
+        Returns ``(merged_network, remap)`` where ``remap[j]`` is the new
+        index of old site ``j`` — apply to spilled labels lazily.
+
+        Note: residence-style attributes cannot be exactly reconstituted
+        from summed statistics (a flicker inside a merged group should have
+        been one continuous residence); they are dropped.  Re-run
+        JumpAnalysis on remapped labels where exact residences matter.
+        """
+        from sitator_tpu_torch.network.merging import _components
+        from sitator_tpu_torch.ops.mcl import markov_cluster
+        from sitator_tpu_torch.ops.pbc import PBCCalculator
+
+        n_ij = np.asarray(sn.n_ij, dtype=np.float64)
+        T = n_ij + n_ij.T
+        T[np.diag_indices_from(T)] += np.maximum(T.max(axis=1), 1.0)
+        groups = markov_cluster(T, inflation=inflation, device=device)
+        calc = PBCCalculator(sn.structure.cell)
+        occ = np.asarray(sn.occupancies)
+
+        # distance guard: single-linkage split within each group
+        final = []
+        for g in groups:
+            g = np.asarray(g)
+            if len(g) == 1 or distance_threshold is None:
+                final.append(g)
+                continue
+            d = calc.pairwise_distances(sn.centers[g])
+            final.extend(g[c] for c in _components(d <= distance_threshold))
+        final.sort(key=lambda g: int(g.min()))
+
+        S = sn.n_sites
+        remap = np.empty(S, dtype=np.int32)
+        for k, g in enumerate(final):
+            remap[g] = k
+        K2 = len(final)
+        centers = np.empty((K2, 3))
+        for k, g in enumerate(final):
+            w = occ[g]
+            centers[k] = calc.average(sn.centers[g],
+                                      w if w.sum() > 0 else None)
+        n_ij2 = np.zeros((K2, K2), dtype=np.int64)
+        idx_i = np.broadcast_to(remap[:, None], (S, S))
+        idx_j = np.broadcast_to(remap[None, :], (S, S))
+        np.add.at(n_ij2, (idx_i, idx_j), n_ij.astype(np.int64))
+        np.fill_diagonal(n_ij2, 0)  # intra-group hops were flickers
+        out = SiteNetwork(sn.structure, sn.static_mask, sn.mobile_mask)
+        out.centers = centers
+        out.add_site_attribute("occupancies",
+                               np.bincount(remap, weights=occ,
+                                           minlength=K2))
+        out.add_edge_attribute("n_ij", n_ij2)
+        row = n_ij2.sum(1, keepdims=True)
+        out.add_edge_attribute(
+            "p_ij", np.where(row > 0, n_ij2 / np.maximum(row, 1), 0.0))
+        if verbose:
+            logger.info("merge_network: %d -> %d sites, %d -> %d jumps",
+                        S, K2, int(n_ij.sum()), int(n_ij2.sum()))
+        return out, remap
 
     @staticmethod
     def _save_checkpoint(path, n_frames, K, next_lo, carry, host_acc,

@@ -335,6 +335,23 @@ def _members(basis, A):
     return cached
 
 
+def _cell_on(basis, cell, device):
+    """The float32 NumPy ``cell`` as the (3, 3) matrix and its inverse on
+    ``device``, made once per basis, cell and device and kept in the basis
+    dict (key ``cell_dev``).  The per-block path must not make them: a
+    host→device copy from pageable memory waits for the stream, and
+    ``torch.linalg.inv`` reads its error flag back on the host."""
+    key = (str(device), cell.tobytes())
+    cached = basis.get("cell_dev")
+    if cached is None or cached[0] != key:
+        cm = torch.from_numpy(cell).to(device)
+        if cm.ndim == 1:
+            cm = torch.diag(cm)
+        cached = (key, cm, torch.linalg.inv(cm))
+        basis["cell_dev"] = cached
+    return cached[1:]
+
+
 def _basis_tensors(basis, device):
     """(uidx, A, kill, ref_u, anchors) on ``device``; zeros stand in for the
     preshift geometry on the per-pair route."""
@@ -361,14 +378,16 @@ def _prep_mob_vpu(mobile, static, uidx, ref_u, cell, n_st, UP, MP,
     """Input prep shared by both entry points: ion coordinate planes padded
     to ``MP`` (repeating the last ion), and each tile's unique-atom
     coordinate planes — re-unwrapped to the reference image when
-    preshifting.  Returns ``mob (B, 3, MP)``, ``vpu (B, n_st, 3, UP)``."""
+    preshifting (``cell`` is the (matrix, inverse) pair of
+    :func:`_cell_on`).  Returns ``mob (B, 3, MP)``, ``vpu (B, n_st, 3,
+    UP)``."""
     B, M, _ = mobile.shape
     mob = mobile.transpose(1, 2)
     mob = torch.cat([mob, mob[:, :, -1:].expand(B, 3, MP - M)], dim=2)
     vpu = static[:, uidx.reshape(-1).long()].reshape(B, n_st, UP, 3)
     if preshift:
-        cm = torch.diag(cell) if cell.ndim == 1 else cell
-        f = (vpu - ref_u[None]) @ torch.linalg.inv(cm)
+        cm, cm_inv = cell
+        f = (vpu - ref_u[None]) @ cm_inv
         vpu = ref_u[None] + (f - torch.round(f)) @ cm
     return mob.contiguous(), vpu.transpose(2, 3).contiguous()
 
@@ -543,7 +562,7 @@ def _kernel_inputs(mobile, static, basis, cell, consts):
     cell = cell_array(cell)
     MP = _round_up(mobile.shape[1], 128)
     mob, vpu = _prep_mob_vpu(mobile, static, uidx, ref_u,
-                             torch.from_numpy(cell).to(dev), n_st, UP, MP,
+                             _cell_on(basis, cell, dev), n_st, UP, MP,
                              preshift)
     params, triclinic = pack_cell_params(cell, consts)
     members = _members(basis, A) if dev.type == "cuda" else None

@@ -1,20 +1,39 @@
 """Periodic-boundary-condition math (counterpart of ``sitator_tpu.ops.pbc``).
 
-Only what the landmark → assign → jump path calls is here: the
-minimum-image displacement on tensors, and :class:`PBCCalculator`, the
-host-side float64 NumPy class, copied because ``sitator_tpu.ops`` cannot be
-imported without JAX.
+Functional tensor ops (the cell is passed explicitly; shapes broadcast) for
+device code, and :class:`PBCCalculator`, the host-side float64 NumPy class
+that the merging, seeding and network modules use.
 
 Conventions: ``cell`` is a ``(3, 3)`` matrix whose **rows** are the lattice
 vectors (cartesian = fractional @ cell); minimum images use fractional
 rounding, with an optional 27-image search for pathologically skewed cells.
+PBC-aware averaging maps points into the image nearest a reference member
+before the weighted mean.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["to_frac", "to_cart", "min_image_disp", "PBCCalculator"]
+__all__ = [
+    "cell_inverse",
+    "to_frac",
+    "to_cart",
+    "wrap_frac",
+    "wrap",
+    "min_image_disp",
+    "pbc_distance",
+    "pairwise_pbc_distances",
+    "pbc_average",
+    "masked_pbc_average",
+    "rescale_to_cell",
+    "PBCCalculator",
+]
+
+
+def cell_inverse(cell):
+    """Inverse of the cell matrix (fractional = cartesian @ cell_inv)."""
+    return torch.linalg.inv(cell)
 
 
 def to_frac(x, cell_inv):
@@ -25,6 +44,16 @@ def to_frac(x, cell_inv):
 def to_cart(f, cell):
     """Fractional → cartesian coordinates. ``f``: (..., 3)."""
     return f @ cell
+
+
+def wrap_frac(f):
+    """Wrap fractional coords into [0, 1)."""
+    return f - torch.floor(f)
+
+
+def wrap(x, cell, cell_inv):
+    """Wrap cartesian points into the home cell."""
+    return to_cart(wrap_frac(to_frac(x, cell_inv)), cell)
 
 
 def min_image_disp(dx, cell, cell_inv, exact: bool = False):
@@ -39,6 +68,92 @@ def min_image_disp(dx, cell, cell_inv, exact: bool = False):
     cand = d[..., None, :] + shifts                          # (..., 27, 3)
     best = (cand * cand).sum(-1).argmin(-1)
     return torch.take_along_dim(cand, best[..., None, None], dim=-2)[..., 0, :]
+
+
+def pbc_distance(a, b, cell, cell_inv, exact: bool = False):
+    """Minimum-image distance |b - a| with broadcasting over leading dims."""
+    d = min_image_disp(b - a, cell, cell_inv, exact=exact)
+    return torch.sqrt((d * d).sum(-1))
+
+
+def pairwise_pbc_distances(a, b, cell, cell_inv, exact: bool = False):
+    """All-pairs minimum-image distances.  a: (n, 3), b: (m, 3) → (n, m)."""
+    d = min_image_disp(a[:, None, :] - b[None, :, :], cell, cell_inv,
+                       exact=exact)
+    return torch.sqrt((d * d).sum(-1))
+
+
+def _average_about(points, w, cell, cell_inv, ref):
+    disp = min_image_disp(points - ref, cell, cell_inv)
+    mean = ref + (disp * w[..., None]).sum(0) / w.sum().clamp_min(1e-30)
+    return wrap(mean, cell, cell_inv)
+
+
+def pbc_average(points, cell, cell_inv, weights=None, ref=None):
+    """PBC-aware (weighted) mean of ``points`` (n, 3).
+
+    Maps every point into the minimum image of a reference point (by default
+    the highest-weight member, falling back to the first point) before taking
+    the weighted mean, then wraps the result into the home cell.  Correct
+    whenever the point cloud is clustered within half a cell — true by
+    construction for site-member point clouds.
+    """
+    if weights is None:
+        w = torch.ones(points.shape[:-1], dtype=points.dtype,
+                       device=points.device)
+    else:
+        w = torch.as_tensor(weights, dtype=points.dtype, device=points.device)
+    if ref is None:
+        ref = points[torch.argmax(w)]
+    return _average_about(points, w, cell, cell_inv, ref)
+
+
+def masked_pbc_average(points, mask, cell, cell_inv, weights=None):
+    """PBC mean over ``points`` (n, 3) where ``mask`` (n,) selects members:
+    the fixed-shape variant (masked rows weigh nothing).  The reference
+    point is the highest-(masked-)weight member."""
+    w = mask.to(points.dtype)
+    if weights is not None:
+        w = torch.as_tensor(weights, dtype=points.dtype,
+                            device=points.device) * w
+    return _average_about(points, w, cell, cell_inv, points[torch.argmax(w)])
+
+
+def rescale_to_cell(positions, cells, ref_cell, origins=None, ref_origin=None):
+    """Affine, fractional-preserving map of per-frame positions into one
+    reference cell — the variable-cell (NPT) → fixed-cell data-model bridge.
+
+    Frame ``t`` goes through ``frac = (pos_t - origin_t) @ inv(cell_t)`` and
+    back out through ``frac @ ref_cell + ref_origin``: fractional
+    coordinates are preserved exactly, so sites (which live in fractional
+    space for homogeneous cell fluctuations) become stationary in the
+    reference cell.  **No wrapping** is applied — unwrapped (continuous)
+    coordinates stay continuous, which downstream min-image math handles.
+
+    Host-side NumPy float64 by design: this runs at the IO boundary, once
+    per frame, on data that is about to be staged to the device anyway.
+
+    positions: (F, A, 3) (or (A, 3)); cells: (F, 3, 3) (or (3, 3));
+    ref_cell: (3, 3); origins: optional (F, 3) per-frame box origins;
+    ref_origin: optional (3,).  Returns positions mapped into ``ref_cell``,
+    same shape, float64.
+    """
+    pos = np.asarray(positions, dtype=np.float64)
+    cells = np.asarray(cells, dtype=np.float64)
+    ref_cell = np.asarray(ref_cell, dtype=np.float64)
+    squeeze = pos.ndim == 2
+    if squeeze:
+        pos = pos[None]
+    if cells.ndim == 2:
+        cells = np.broadcast_to(cells, (pos.shape[0], 3, 3))
+    if origins is not None:
+        org = np.atleast_2d(np.asarray(origins, dtype=np.float64))
+        pos = pos - org[:, None, :]
+    frac = np.einsum("fai,fij->faj", pos, np.linalg.inv(cells))
+    out = frac @ ref_cell
+    if ref_origin is not None:
+        out = out + np.asarray(ref_origin, dtype=np.float64)
+    return out[0] if squeeze else out
 
 
 class PBCCalculator:

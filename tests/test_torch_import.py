@@ -2,8 +2,9 @@
 interpreter with JAX blocked (and, in a second one, ``sitator_tpu`` too, by
 a meta-path finder) imports ``sitator_tpu_torch`` and runs the tiny slice
 end to end on the CPU (``LandmarkAnalysis`` → ``JumpAnalysis``,
-``SpmdLandmarkPipeline``, ``StreamingLandmarkAnalysis`` fit and run), and
-no source file of the package imports either.  The port's own copy of the
+``SpmdLandmarkPipeline``, ``StreamingLandmarkAnalysis`` fit and run; in a
+third, Voronoi seeds → streaming at the shipped run-ahead depth → merging →
+pathways), and no source file of the package imports either.  The port's own copy of the
 data model behaves as the reference's."""
 import pathlib
 import re
@@ -153,6 +154,90 @@ GUARDED_SLICE = GUARD + textwrap.dedent("""
     assert not bad, bad
     print("GUARDED-OK")
 """)
+
+
+NEW_MODULES = [
+    "ops.mcl", "ops.pbc", "network", "network.merging", "network.compare",
+    "network.pathways", "network.graph", "network.site_volumes",
+    "dynamics.merge_dynamics", "dynamics.filters", "landmark.cluster.mcl",
+    "util.dotprod", "voronoi", "voronoi.generator",
+]
+
+SEED_TO_PATHWAYS = GUARD + textwrap.dedent("""
+    import importlib
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    import sitator_tpu_torch as port
+    from sitator_tpu_torch import SiteNetwork, SiteTrajectory, Structure
+    for name in %r:
+        importlib.import_module("sitator_tpu_torch." + name)
+    from sitator_tpu_torch.dynamics import (MergeSitesByDynamics,
+                                            RemoveUnoccupiedSites)
+    from sitator_tpu_torch.network import DiffusionPathwayAnalysis
+    from sitator_tpu_torch.voronoi import VoronoiSiteGenerator
+
+    rng = np.random.default_rng(2)
+    n_c, a, n_ions, n_frames = 3, 4.0, 4, 120
+    g = np.arange(n_c)
+    grid = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    host, sites = grid * a, (grid + 0.5) * a
+    # every ion hops along x through the periodic boundary
+    start = rng.choice(len(sites), n_ions, replace=False)
+    step = (np.arange(n_frames)[:, None] // 12) * n_c * n_c
+    site_of = (start[None] + step) %% len(sites)
+    frames = np.concatenate([
+        host[None] + rng.normal(scale=0.03, size=(n_frames,) + host.shape),
+        sites[site_of] + rng.normal(scale=0.15, size=(n_frames, n_ions, 3))],
+        axis=1).astype(np.float32)
+    mask = np.arange(len(host) + n_ions) < len(host)
+    sn0 = SiteNetwork(Structure(frames[0], np.r_[np.full(len(host), 16),
+                                                 np.full(n_ions, 3)],
+                                np.eye(3) * a * n_c), mask, ~mask)
+    seeds = VoronoiSiteGenerator(merge_tol=0.3, verbose=False).run(sn0)
+    assert seeds.n_sites >= len(sites) and all(
+        len(v) >= 4 for v in seeds.vertices)
+
+    # seed -> stream (run-ahead, the shipped depth) -> merge -> pathways
+    sla = port.StreamingLandmarkAnalysis(
+        cutoff_midpoint=4.0, cutoff_steepness=3.0, block_frames=25,
+        fit_frames=60, minimum_site_occupancy=0.0, verbose=False,
+        device="cpu")
+    assert sla.pipeline_depth == 2
+    out = sla.run(seeds, frames)
+    assert out.n_ij.sum() > 0
+    merged, remap = port.StreamingLandmarkAnalysis.merge_network(
+        out, verbose=False, device="cpu")
+    assert merged.n_sites <= out.n_sites and len(remap) == out.n_sites
+    assert merged.n_ij.sum() <= out.n_ij.sum()
+    dpa = DiffusionPathwayAnalysis(verbose=False, device="cpu")
+    dpa.run(merged)
+    assert dpa.n_pathways >= 1 and dpa.pathway_percolating.any()
+
+    # the classic chain on the same seeds
+    st = port.LandmarkAnalysis(cutoff_midpoint=4.0, cutoff_steepness=3.0,
+                               minimum_site_occupancy=0.0, verbose=False,
+                               device="cpu").run(seeds, frames)
+    port.JumpAnalysis(verbose=False, device="cpu").run(st)
+    st = RemoveUnoccupiedSites(verbose=False).run(
+        MergeSitesByDynamics(verbose=False, device="cpu").run(st))
+    assert isinstance(st, SiteTrajectory) and st.site_network.n_sites > 0
+    DiffusionPathwayAnalysis(verbose=False, device="cpu").run(st)
+    assert (st.site_network.diffusion_pathway >= 0).any()
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "sitator_tpu"))
+    assert not bad, bad
+    print("PATHWAYS-OK")
+""") % (NEW_MODULES,)
+
+
+def test_seed_stream_merge_pathways_without_jax():
+    """The new modules import, and a small seed → stream (depth 2) → merge
+    → pathways run completes, with ``jax`` and ``sitator_tpu`` blocked."""
+    proc = subprocess.run([sys.executable, "-c", SEED_TO_PATHWAYS], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "PATHWAYS-OK" in proc.stdout
 
 
 def test_port_imports_nothing_of_sitator_tpu():
