@@ -20,10 +20,13 @@ Phases; any failure exits non-zero before the result lines:
    then every kernel against its plain PyTorch version on the same inputs
    on the card, at the bench width of ``bench.py`` (9261 static + 739
    mobile atoms, 9261 landmarks x 8 vertices, 1024 centres) with its
-   random centres (timed, each stage of K1 and of K3 timed alone, the
+   random centres (a timing-only case: every row is inside the margin
+   gate, so only confidences are compared and the output says so; timed,
+   each stage of K1 and of K3 timed alone, the
    bound of each kernel and stage reckoned from these inputs, and the bf16
    ``torch.matmul`` of the similarity product timed as the library
-   yardstick) and with site centres; then at reduced widths a
+   yardstick) and with site centres (the label check: it must leave rows
+   outside the gate); then at reduced widths a
    ``peak_evening='clip'`` case in f32 (the FMA tail), an f32 case without
    the clip (the FMA K1s), a triclinic case and cases with 384 and 2176
    centres (K1s clusters of 1, 2, 4 and 8 CTAs, the last in two passes).
@@ -69,17 +72,41 @@ Phases; any failure exits non-zero before the result lines:
    clustering on the card against ``device="cpu"`` (equal partitions,
    converged matrices within 1e-5; iterations and time printed); a classic
    run ``LandmarkAnalysis`` → ``JumpAnalysis`` → ``MergeSitesByDynamics`` →
-   ``RemoveUnoccupiedSites`` → ``DiffusionPathwayAnalysis``; and
-   ``VoronoiSiteGenerator`` on the bench's static lattice (SciPy on the
-   host), its network carried through ``prepare_engine_basis`` and K2;
-8. K3's own path at the bench width: the bench's sites, each with a
+   ``RemoveUnoccupiedSites`` → ``DiffusionPathwayAnalysis``; the mergers
+   with their distance guard on, on an engineered over-split copy of the
+   streamed result (64 sites given a near-duplicate centre that their ions
+   flicker onto): ``MergeSitesByDynamics`` and ``merge_network`` must give
+   the streamed labels, hop counts and occupancies back, held to NumPy
+   reductions over the expected groups; and ``VoronoiSiteGenerator`` on the
+   bench's static lattice (SciPy on the host), its network carried through
+   ``prepare_engine_basis`` and K2;
+8. descriptors and the other seeds, after the passes, on the same system
+   (no hand-written kernel runs here; every check is against a host
+   oracle, each sub-step's seconds on its own line):
+   ``SiteCentersDescriptor`` on the 1024 streamed sites and
+   ``SOAPDescriptorAverages(averages_n=16)`` on the card, equal within 2e-5
+   to ``device="cpu"`` on 64 sites, unchanged within 1e-4 under a rotation
+   of the whole system, refused with TF32 products on;
+   ``MergeSitesByDescriptors`` on the over-split input against the
+   components of the thresholded similarity matrix; ``density_grid`` of the
+   ions (total, and every count that differs from a float64 histogram
+   traced to an atom within 16 float32 ulp of a bin seam) and
+   ``DensitySiteGenerator`` matched to the lattice sites;
+   ``bv_mismatch_grid`` against float64 NumPy on 4096 points (within the
+   float32 minimum image's rounding over the 84 Å cell), with its peak
+   device memory; ``refine_string_paths`` along the pathways' edges, card
+   against CPU within 1e-3 Å on every edge after 20 iterations, and the
+   default 300 by their last step (the card's and the CPU's step 300 from
+   the card's nodes after 299; whole runs part where a node meets a kink of
+   the landscape within rounding, and how many did is printed);
+9. K3's own path at the bench width: the bench's sites, each with a
    tetrahedron of its own 4 static atoms (no vertex shared, 37,044 static
    atoms): ``SpmdLandmarkPipeline`` (route 'gather', 8 x 32 frames with the
    carry, timed, profiled) held to the dense route and the int64 oracle,
    then ``StreamingLandmarkAnalysis`` fit and pass 2 (route 'gather', 1024
    frames in 256-frame blocks, timed) held to the oracle and to the
    pipeline;
-9. one JSON line of per-kernel results, then the ``ok`` line, last.
+10. one JSON line of per-kernel results, then the ``ok`` line, last.
 
 Label comparisons are gated on the reference's top-2 margin: labels must be
 equal wherever the best and second-best cosine similarities (f32, from the
@@ -166,9 +193,13 @@ def top2_margin(lv, centers, peak_evening):
         top[..., 0].cpu().numpy()
 
 
-def compare_assign(name, got, want, margin, top1, bf16):
+def compare_assign(name, got, want, margin, top1, bf16, labels="check"):
     """Labels equal outside the margin gate; confidences within tolerance.
-    Returns the max confidence error."""
+    Returns the max confidence error.  ``labels='require'`` fails when the
+    gate leaves no row to compare; ``labels='timing'`` marks a case kept for
+    its timings, whose rows all sit inside the gate (random centres: every
+    similarity is far below the threshold and the top two are close), so
+    that only its confidences are compared."""
     gl, gc = (np.asarray(x.cpu()) for x in got)
     wl, wc = (np.asarray(x.cpu()) for x in want)
     check(gl.shape == wl.shape == margin.shape,
@@ -181,7 +212,15 @@ def compare_assign(name, got, want, margin, top1, bf16):
     bad = np.argwhere((gl != wl) & ~gated)
     check(not len(bad), f"{name}: {len(bad)} labels differ outside the "
           f"margin gate (first at {bad[:1].tolist()})")
-    print(f"  {name}: labels equal on {int((~gated).sum())} ungated rows "
+    n_open = int((~gated).sum())
+    if labels == "timing":
+        print(f"  {name}: timing-only case, {n_open} ungated rows of "
+              f"{gated.size}: no label is compared here (the site-centre "
+              f"case is the label check); max conf err {err:.3g}", flush=True)
+        return err
+    check(labels != "require" or n_open > 0,
+          f"{name}: every row is inside the margin gate, no label compared")
+    print(f"  {name}: labels equal on {n_open} ungated rows "
           f"({int(gated.sum())} gated, {int((gl != wl).sum())} differ "
           f"there); max conf err {err:.3g}", flush=True)
     return err
@@ -572,11 +611,13 @@ def tail_partition_cases():
 
 
 def kernel_cases(sy, centers, device, *, peak_evening, n_lv_frames,
-                 s_tile_gather, full_mask, label, reps, bf16=True):
+                 s_tile_gather, full_mask, label, reps, bf16=True,
+                 labels="check"):
     """K2, K1, K1s (``peak_evening='none'`` only) and K3 against their plain
     versions on one system with the given centres; K1 against K3, and K1s
     against K1.  Returns {kernel: {err, ms, plain_ms, bound_ms, bound_by,
-    library_ms}} (all but err only when ``reps``)."""
+    library_ms}} (all but err only when ``reps``).  ``labels`` as in
+    :func:`compare_assign`."""
     import torch
     from sitator_tpu_torch.ops import landmark_mxu as mx
     from sitator_tpu_torch.ops import landmark_pallas as lp
@@ -633,7 +674,7 @@ def kernel_cases(sy, centers, device, *, peak_evening, n_lv_frames,
     sync()
     p1 = [x[:, :M] for x in mx._mxu_assign_plain(**a1)]
     out["K1"] = dict(err=compare_assign(f"{label} K1", k1, p1, margin, top1,
-                                        bf16))
+                                        bf16, labels))
     if reps:
         out["stages"], library = k1_stages(a1, M, reps)
     timings("K1", lambda: mx._mxu_assign_cuda(**a1),
@@ -644,8 +685,9 @@ def kernel_cases(sy, centers, device, *, peak_evening, n_lv_frames,
         ks = [x[:, :M] for x in mx._mxu_assign_skew_cuda(**a1)]
         sync()
         out["K1s"] = dict(err=compare_assign(f"{label} K1s", ks, p1, margin,
-                                             top1, bf16))
-        compare_assign(f"{label} K1s vs K1", ks, k1, margin, top1, bf16)
+                                             top1, bf16, labels))
+        compare_assign(f"{label} K1s vs K1", ks, k1, margin, top1, bf16,
+                       labels)
         same = torch.equal(ks[0], k1[0]) and torch.equal(
             ks[1].view(torch.int32), k1[1].view(torch.int32))
         out["K1s"]["bit_equal_k1"] = same
@@ -694,7 +736,7 @@ def kernel_cases(sy, centers, device, *, peak_evening, n_lv_frames,
     sync()
     p3 = [x[:, :M] for x in lp._gather_assign_plain(**a3)]
     out["K3"] = dict(err=compare_assign(f"{label} K3", k3, p3, margin, top1,
-                                        bf16))
+                                        bf16, labels))
     if bf16 and peak_evening == "none":
         k3_routes(a3, label)
     if reps:
@@ -702,15 +744,16 @@ def kernel_cases(sy, centers, device, *, peak_evening, n_lv_frames,
     timings("K3", lambda: lp._gather_assign_cuda(**a3),
             lambda: lp._gather_assign_plain(**a3),
             gather_work(a3, M, S, V, K), library if reps else None)
-    compare_assign(f"{label} K1 vs K3", k1, k3, margin, top1, bf16)
+    compare_assign(f"{label} K1 vs K3", k1, k3, margin, top1, bf16, labels)
     return out
 
 
 def phase_kernels(device):
     """Every kernel against its plain version: at the bench width with
-    bench.py's 1024 random centres (timed) and with site centres (labels
-    that mean something), then the clip case (f32 operands, the FMA tail)
-    and the triclinic case at n_c = 8.  Returns the timed case's results
+    bench.py's 1024 random centres (timing and confidences only: every row
+    is inside the margin gate) and with site centres (the label check; it
+    must leave rows outside the gate), then the clip case (f32 operands,
+    the FMA tail) and the triclinic case at n_c = 8.  Returns the timed case's results
     with the largest error of the bench cases."""
     shear = np.array([[0.0, 0.0, 0.0], [0.2, 0.0, 0.0], [-0.1, 0.15, 0.0]])
     tail_partition_cases()
@@ -718,9 +761,10 @@ def phase_kernels(device):
     kw = dict(n_lv_frames=4, s_tile_gather=256, full_mask=True)
     res = kernel_cases(sy, sy["random_centres"], device,
                        peak_evening="none", label="bench random centres",
-                       reps=5, **kw)
+                       reps=5, labels="timing", **kw)
     site = kernel_cases(sy, sy["centers"], device, peak_evening="none",
-                        label="bench site centres", reps=0, **kw)
+                        label="bench site centres", reps=0,
+                        labels="require", **kw)
     for k in KERNELS:
         res[k]["err"] = max(res[k]["err"], site[k]["err"])
     res["K1s"]["bit_equal_k1"] = (res["K1s"]["bit_equal_k1"]
@@ -1242,8 +1286,10 @@ def profile_streaming(ctx, tmp, depth):
 
 
 def phase_network(device, ctx):
-    """The seed → stream → merge → network path.  Returns the launch counts
-    and the frames/s of pass 2 at depth 2 and depth 0."""
+    """The seed → stream → merge → network path.  Returns the launch counts,
+    the frames/s of pass 2 at depth 2 and depth 0, and what the descriptor
+    phase goes on with (the streamed network and labels, the merged network
+    and its pathways, the over-split trajectory)."""
     import tempfile
     import torch
     from sitator_tpu_torch import (JumpAnalysis, LandmarkAnalysis,
@@ -1413,14 +1459,14 @@ def phase_network(device, ctx):
         out2, verbose=False, device=device)
     t_merge = time.perf_counter() - t0
     check_merged("merge_network", merged, remap)
-    dpa = DiffusionPathwayAnalysis(verbose=False, device=device)
-    dpa.run(merged)
-    check(dpa.n_pathways >= 1 and len(merged.diffusion_pathway)
+    dpa_m = DiffusionPathwayAnalysis(verbose=False, device=device)
+    dpa_m.run(merged)
+    check(dpa_m.n_pathways >= 1 and len(merged.diffusion_pathway)
           == merged.n_sites, "no diffusion pathway on the merged network")
     print(f"merge_network: {K} -> {merged.n_sites} sites, "
           f"{int(out2.n_ij.sum())} -> {int(merged.n_ij.sum())} jumps in "
-          f"{t_merge:.3f} s; pathways {dpa.n_pathways}, dims "
-          f"{np.bincount(dpa.pathway_dims, minlength=4).tolist()} (count by "
+          f"{t_merge:.3f} s; pathways {dpa_m.n_pathways}, dims "
+          f"{np.bincount(dpa_m.pathway_dims, minlength=4).tolist()} (count by "
           f"dimension 0-3) {lap()}", flush=True)
 
     n_ij = np.asarray(out2.n_ij, np.float64)
@@ -1546,6 +1592,11 @@ def phase_network(device, ctx):
           f"{len(kept)} sites (== the visited sites, attributes subset) "
           f"{lap()}", flush=True)
 
+    # ... and the mergers with their distance guard on, on an input that
+    # they must change
+    split_st, split = check_guarded_merges(device, out2, lab)
+    lap()
+
     # 5. Voronoi seeds of the bench's static lattice (frame 0), then K2
     from sitator_tpu_torch import SiteNetwork, Structure
     t0 = time.perf_counter()
@@ -1578,7 +1629,494 @@ def phase_network(device, ctx):
           f"{launches}", flush=True)
     for k in ("K1", "K2"):
         check(launches[k] > 0, f"{k} was not launched on the network path")
-    return launches, fps
+    return launches, fps, dict(out=out2, labels=lab, merged=merged, dpa=dpa_m,
+                               split_st=split_st, split=split)
+
+
+SPLIT_OFFSET = 0.2      # Å between the halves of an engineered split site
+
+
+def oversplit(net, labels, n_split, offset=SPLIT_OFFSET):
+    """An engineered over-split copy of a streamed result: the ``n_split``
+    most visited sites of ``net`` each get a near-duplicate centre ``offset``
+    Å away along x (far inside the mergers' 3 Å distance guard, and near
+    enough that the halves' SOAP vectors stay 0.99 similar), appended
+    after the ``K`` sites, and an ion assigned to such a site flickers
+    between the two halves, one frame each.  Returns (SiteTrajectory on the
+    ``K + n_split`` sites, the split sites, the expected remap: every
+    duplicate back onto its site, which keeps the numbering by smallest
+    member)."""
+    from sitator_tpu_torch import SiteNetwork, SiteTrajectory
+    K = net.n_sites
+    visits = np.bincount(labels[labels >= 0], minlength=K)
+    split = np.sort(np.argsort(-visits, kind="stable")[:n_split])
+    sn = SiteNetwork(net.structure, net.static_mask, net.mobile_mask)
+    sn.centers = np.concatenate([net.centers,
+                                 net.centers[split] + [offset, 0.0, 0.0]])
+    twin = np.full(K + 1, -1)
+    twin[split] = K + np.arange(n_split)
+    odd = (np.arange(len(labels)) % 2 == 1)[:, None]
+    lab = np.where(odd & (twin[labels] >= 0), twin[labels], labels)
+    remap = np.concatenate([np.arange(K), split])
+    return SiteTrajectory(sn, lab.astype(np.int32)), split, remap
+
+
+def check_guarded_merges(device, net, labels, n_split=64):
+    """The *guarded* mergers on an input they must change: on the
+    over-split copy of the streamed result, ``MergeSitesByDynamics`` and
+    ``merge_network`` with their default 3 Å distance guard must merge each
+    duplicate back into its site and nothing else, so that the streamed
+    labels, hop counts and occupancies come back, held to NumPy reductions
+    over the expected groups.  Returns the over-split trajectory and the
+    sites that were split."""
+    from sitator_tpu_torch import (JumpAnalysis, SiteTrajectory,
+                                   StreamingLandmarkAnalysis)
+    from sitator_tpu_torch.dynamics import MergeSitesByDynamics
+    from sitator_tpu_torch.ops.jumps import _jump_stats_block_int64
+
+    K, n_ions = net.n_sites, labels.shape[1]
+    st, split, remap = oversplit(net, labels, n_split)
+    S = st.site_network.n_sites
+    check(S == K + n_split and (st.traj >= K).any(), "over-split input: no "
+          "duplicate site is visited")
+    # host oracle of the over-split statistics and of their group sums
+    stats, _, _ = _jump_stats_block_int64(
+        st.traj, S, np.full(n_ions, -1, np.int64), np.zeros(n_ions, np.int64),
+        "persist")
+    onehot = np.zeros((S, K))                 # float64: exact on these counts
+    onehot[np.arange(S), remap] = 1.0
+    want_nij = (onehot.T @ stats["n_ij"].astype(np.float64)
+                @ onehot).astype(np.int64)
+    flickers = int(np.trace(want_nij))
+    np.fill_diagonal(want_nij, 0)
+    check(flickers > 0 and np.array_equal(want_nij, net.n_ij),
+          "over-split input: its group sums are not the streamed hop counts")
+    occ = stats["occ_counts"] / len(labels)
+    w = stats["occ_counts"][K:] / (stats["occ_counts"][split]
+                                   + stats["occ_counts"][K:])
+    want_centres = net.centers.copy()
+    want_centres[split] += (st.site_network.centers[K:]
+                            - net.centers[split]) * w[:, None]
+
+    def centre_err(got):
+        d = (got - want_centres) @ np.linalg.inv(net.structure.cell)
+        return float(np.abs((d - np.round(d)) @ net.structure.cell).max())
+
+    t0 = time.perf_counter()
+    merged = MergeSitesByDynamics(verbose=False, device=device).run(
+        SiteTrajectory(st.site_network, st.traj.copy()))
+    t_dyn = time.perf_counter() - t0
+    check(merged.site_network.n_sites == K,
+          f"guarded MergeSitesByDynamics: {S} -> "
+          f"{merged.site_network.n_sites} sites, expected {K}")
+    check(np.array_equal(merged.traj, labels), "guarded MergeSitesByDynamics: "
+          "the merged trajectory is not the streamed labels")
+    e_dyn = centre_err(merged.site_network.centers)
+    check(e_dyn <= 1e-6, f"guarded MergeSitesByDynamics: centres {e_dyn:.3g} "
+          "A from the occupancy-weighted means")
+    JumpAnalysis(verbose=False, device=device).run(merged)
+    check(np.array_equal(merged.site_network.n_ij, want_nij),
+          "guarded MergeSitesByDynamics: n_ij differs from the group sums")
+
+    # merge_network works on statistics: the engine's own tallies of the
+    # over-split labels, held to the host oracle first
+    JumpAnalysis(verbose=False, device=device).run(st)
+    st.compute_site_occupancies()
+    check(np.array_equal(st.site_network.n_ij, stats["n_ij"])
+          and np.allclose(st.site_network.occupancies, occ, rtol=1e-12,
+                          atol=0), "over-split input: JumpAnalysis differs "
+          "from the int64 oracle")
+    t0 = time.perf_counter()
+    net2, got_map = StreamingLandmarkAnalysis.merge_network(
+        st.site_network, verbose=False, device=device)
+    t_net = time.perf_counter() - t0
+    check(net2.n_sites == K and np.array_equal(got_map, remap),
+          f"guarded merge_network: {S} -> {net2.n_sites} sites, or another "
+          "remap than duplicate -> site")
+    check(np.array_equal(net2.n_ij, want_nij)
+          and np.allclose(net2.occupancies, onehot.T @ occ, rtol=1e-12,
+                          atol=0), "guarded merge_network: n_ij or "
+          "occupancies differ from the group sums")
+    e_net = centre_err(net2.centers)
+    check(e_net <= 1e-6, f"guarded merge_network: centres {e_net:.3g} A from "
+          "the occupancy-weighted means")
+    print(f"guarded merges on the over-split input ({n_split} visited sites "
+          f"given a duplicate centre {SPLIT_OFFSET} A away, ions flickering "
+          f"between the "
+          f"halves): MergeSitesByDynamics {S} -> "
+          f"{merged.site_network.n_sites} sites in {t_dyn:.2f} s (trajectory == the streamed labels, n_ij "
+          f"== the group sums), merge_network {S} -> {net2.n_sites} in "
+          f"{t_net:.2f} s (remap == duplicate -> site, n_ij and occupancies "
+          f"== the NumPy sums over the groups, {flickers} flickers dropped); "
+          f"centres within {max(e_dyn, e_net):.3g} A of the weighted means",
+          flush=True)
+    return st, split
+
+
+def seam_check(grid, pos, cell, n_bins, ulps=16):
+    """Hold a float32-binned count grid to float64 arithmetic on the same
+    positions.  An atom whose float64 bin coordinate lies within ``ulps``
+    float32 ulp (of the coordinate's range, ``n_bins``) of a bin seam may
+    land on either side; every other atom must be counted exactly where
+    float64 puts it.  Returns (atoms near a seam, counts that differ
+    from the straight float64 histogram)."""
+    x = pos.astype(np.float64) @ np.linalg.inv(np.asarray(cell, np.float64))
+    x = (x - np.floor(x)) * n_bins
+    tol = ulps * n_bins * 2.0 ** -24
+    near = (np.abs(x - np.round(x)) < tol).any(axis=1)
+
+    def hist(points):
+        h = np.zeros((n_bins,) * 3, np.int64)
+        idx = np.floor(points).astype(np.int64) % n_bins
+        np.add.at(h, tuple(idx.T), 1)
+        return h
+
+    rest = grid - hist(x[~near])
+    # the bins a near-seam atom may fall in: each axis one ulp-window down
+    # and up
+    room = np.zeros_like(grid)
+    corners = np.stack(np.meshgrid(*[(-tol, tol)] * 3, indexing="ij"),
+                       -1).reshape(-1, 1, 3)
+    cand = np.floor(x[near][None] + corners).astype(np.int64) % n_bins
+    who = np.broadcast_to(np.arange(cand.shape[1])[None, :, None],
+                          cand.shape[:2] + (1,))
+    pairs = np.unique(np.concatenate([who, cand], axis=-1).reshape(-1, 4),
+                      axis=0)                     # each (atom, bin) once
+    np.add.at(room, tuple(pairs[:, 1:].T), 1)
+    check((rest >= 0).all() and rest.sum() == near.sum()
+          and (rest <= room).all(), "density_grid: a count differs from the "
+          "float64 histogram away from every bin seam")
+    return int(near.sum()), int(np.abs(grid - hist(x)).sum() // 2)
+
+
+def first_cpu_math_calls_on_one_thread():
+    """Call each vectorised math function the CPU oracles below reach once,
+    on a tensor under torch's parallel grain.  The first call of such a
+    function on a CPU build of torch, when it is a multi-threaded one, has
+    been seen to return 12-bit approximations on some threads' chunks
+    (relative error up to 3e-4); later calls are exact."""
+    import torch
+    x = torch.linspace(0.5, 2.0, 1024)
+    for fn in (torch.sqrt, torch.rsqrt, torch.exp, torch.log, torch.cos,
+               torch.sin, torch.round, torch.floor, torch.abs):
+        fn(x)
+    torch.atan2(x, x)
+    torch.pow(x, torch.arange(1024) % 7)
+    x[:64].reshape(8, 8) @ x[:64].reshape(8, 8)
+
+
+def phase_descriptors(device, ctx):
+    """Site descriptors and the other two ways to seed sites, after the
+    passes, at the bench width (9261 static atoms, 739 ions, the streamed
+    1024-site network and its labels over 1024 frames): SOAP per site
+    (centres, and averages over sampled ion positions) on the card against
+    the CPU, rotation invariance, the TF32 refusal, the descriptor merge on
+    the over-split input, the density grid and its site generator, the
+    bond-valence mismatch grid, and string refinement of the pathways'
+    edges.  No hand-written kernel runs here; every check is against a host
+    oracle."""
+    import torch
+    from sitator_tpu_torch import SiteNetwork, SiteTrajectory, Structure
+    from sitator_tpu_torch.network import (DensitySiteGenerator, match_sites,
+                                           min_image_distance_matrix)
+    from sitator_tpu_torch.ops import bondvalence, density, mep
+    from sitator_tpu_torch.site_descriptors import (MergeSitesByDescriptors,
+                                                    SiteCentersDescriptor,
+                                                    SOAPDescriptorAverages,
+                                                    soap_descriptors)
+
+    sy, sn, frames = ctx["sy"], ctx["sn"], ctx["frames"]
+    net, labels = ctx["out"], ctx["labels"]
+    cell = np.asarray(sn.structure.cell, np.float64)
+    K, (n_frames, n_ions) = net.n_sites, labels.shape
+    n_static = sn.n_static
+    first_cpu_math_calls_on_one_thread()
+    last = [time.perf_counter()]
+
+    def lap():
+        now = time.perf_counter()
+        dt, last[0] = now - last[0], now
+        return f"[{dt:.2f} s]"
+
+    def network(centers=None, structure=sn.structure):
+        out = SiteNetwork(structure, sn.static_mask, sn.mobile_mask)
+        if centers is not None:
+            out.centers = centers
+        return out
+
+    # 1. SOAP at the site centres: card against CPU on 64 sites, rotation
+    rng = np.random.default_rng(23)
+    sub = np.sort(rng.choice(K, 64, replace=False))
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    d_card, ones = SiteCentersDescriptor(device=device).get_descriptors(net)
+    sync()
+    t_centres = time.perf_counter() - t0
+    peak_centres = torch.cuda.max_memory_allocated() / 1e9
+    D = d_card.shape[1]
+    check(d_card.shape == (K, 8 * 8 * 7) and np.isfinite(d_card).all()
+          and np.allclose(np.linalg.norm(d_card, axis=1), 1.0, atol=1e-5)
+          and (ones == 1).all(), "SiteCentersDescriptor: bad descriptors")
+    d_cpu, _ = SiteCentersDescriptor(device="cpu").get_descriptors(
+        network(net.centers[sub]))
+    e_centres = float(np.abs(d_card[sub] - d_cpu).max())
+    check(e_centres <= 2e-5, f"SiteCentersDescriptor: card and CPU differ by "
+          f"{e_centres:.3g} > 2e-5")
+    q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+    q *= np.sign(np.linalg.det(q))                   # a proper rotation
+    turned = Structure(sn.structure.positions @ q.T, sn.structure.species,
+                       cell @ q.T)
+    d_rot, _ = SiteCentersDescriptor(device=device).get_descriptors(
+        network(net.centers @ q.T, turned))
+    e_rot = float(np.abs(d_rot - d_card).max())
+    check(e_rot <= 1e-4, f"SiteCentersDescriptor: a rotation of the system "
+          f"moves the descriptors by {e_rot:.3g} > 1e-4")
+    print(f"SiteCentersDescriptor ({K} probes x {n_static} atoms, n_max=8, "
+          f"l_max=6, D={D}): {t_centres:.2f} s on the card, peak memory "
+          f"{peak_centres:.2f} GB; card == CPU on 64 sites within "
+          f"{e_centres:.3g} (<= 2e-5); rotated system within {e_rot:.3g} "
+          f"(<= 1e-4) {lap()}", flush=True)
+
+    # TF32 on must raise (the check stands outside the handler)
+    tf32_before = torch.backends.cuda.matmul.allow_tf32
+    check(not tf32_before, "TF32 products were on during the SOAP comparison")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    refused = False
+    try:
+        soap_descriptors(net.centers[:4], sn.static_structure.positions,
+                         sn.static_structure.species, cell, device=device)
+    except RuntimeError as e:
+        refused = "allow_tf32" in str(e)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32_before
+    check(refused, "soap_descriptors ran with TF32 products enabled")
+    print("soap_descriptors with TF32 products enabled raises RuntimeError",
+          flush=True)
+
+    # 2. SOAP averaged over sampled ion positions, each in its own frame
+    st = SiteTrajectory(net, labels)
+    st.set_real_traj(frames)
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    avg, counts = SOAPDescriptorAverages(
+        averages_n=16, verbose=False, device=device).get_descriptors(st)
+    sync()
+    t_avg = time.perf_counter() - t0
+    peak_avg = torch.cuda.max_memory_allocated() / 1e9
+    visits = np.bincount(labels[labels >= 0], minlength=K)
+    check(np.array_equal(counts, np.minimum(visits, 16)),
+          "SOAPDescriptorAverages: counts are not the capped visits")
+    norms = np.linalg.norm(avg, axis=1)
+    check(avg.shape == (K, D) and np.isfinite(avg).all()
+          and np.allclose(norms[visits > 0], 1.0, atol=1e-5)
+          and (norms[visits == 0] == 0).all(),
+          "SOAPDescriptorAverages: bad descriptors")
+    # the same call on 64 sites alone (other rows unassigned), card and CPU:
+    # both draw the same samples from the same seed
+    keep = np.full(K + 1, -1)
+    keep[sub] = sub
+    st_sub = SiteTrajectory(net, keep[labels].astype(np.int32))
+    st_sub.set_real_traj(frames)
+    a_card, c_card = SOAPDescriptorAverages(
+        averages_n=16, verbose=False, device=device).get_descriptors(st_sub)
+    sync()
+    t0 = time.perf_counter()
+    a_cpu, c_cpu = SOAPDescriptorAverages(
+        averages_n=16, verbose=False, device="cpu").get_descriptors(st_sub)
+    t_avg_cpu = time.perf_counter() - t0
+    e_avg = float(np.abs(a_card - a_cpu).max())
+    check(np.array_equal(c_card, c_cpu) and c_card.sum() > 0
+          and e_avg <= 2e-5, f"SOAPDescriptorAverages: card and CPU differ "
+          f"by {e_avg:.3g} > 2e-5 on 64 sites, or in their counts")
+    print(f"SOAPDescriptorAverages (averages_n=16: {int(counts.sum())} "
+          f"probes, each in its own frame's {n_static}-atom environment): "
+          f"{t_avg:.2f} s on the card, peak memory {peak_avg:.2f} GB; counts "
+          f"== the capped visits; card == CPU on 64 sites "
+          f"({int(c_card.sum())} probes, {t_avg_cpu:.2f} s on the CPU) "
+          f"within {e_avg:.3g} (<= 2e-5) {lap()}", flush=True)
+
+    # 3. the descriptor merge on the over-split input
+    from scipy.sparse.csgraph import connected_components
+    split_st = ctx["split_st"]
+    S = split_st.site_network.n_sites
+    desc = SiteCentersDescriptor(device=device)
+    merger = MergeSitesByDescriptors(desc, similarity_threshold=0.98,
+                                     verbose=False)
+    groups = sorted(tuple(g) for g in merger._get_merges(split_st))
+    d = desc.get_descriptors(split_st)[0].astype(np.float64)
+    d /= np.maximum(np.linalg.norm(d, axis=1, keepdims=True), 1e-12)
+    sims = d @ d.T
+    adj = sims >= 0.98
+    np.fill_diagonal(adj, False)
+    _, comp = connected_components(adj, directed=False)
+    want = sorted(tuple(np.flatnonzero(comp == c)) for c in np.unique(comp))
+    check(groups == want, "MergeSitesByDescriptors: its groups are not the "
+          "components of the thresholded similarity matrix")
+    twin_sim = sims[np.arange(K, S), ctx["split"]]
+    merged = merger.run(SiteTrajectory(split_st.site_network,
+                                       split_st.traj.copy()))
+    # the 3 A guard: single linkage inside each group, by NumPy
+    dist = min_image_distance_matrix(split_st.site_network.centers,
+                                     split_st.site_network.centers, cell)
+    link = (dist <= 3.0) & (comp[:, None] == comp[None, :])
+    n_guarded = connected_components(link, directed=False)[0]
+    check(merged.site_network.n_sites == n_guarded,
+          f"MergeSitesByDescriptors: {S} -> {merged.site_network.n_sites} "
+          f"sites, the NumPy oracle gives {n_guarded}")
+    check(n_guarded < S, "MergeSitesByDescriptors merged nothing on the "
+          "over-split input")
+    print(f"MergeSitesByDescriptors (SiteCentersDescriptor, similarity >= "
+          f"0.98, 3 A guard) on the over-split input: {len(groups)} "
+          f"similarity group(s) == the NumPy components; {S} -> "
+          f"{merged.site_network.n_sites} sites == the guarded NumPy oracle; "
+          f"duplicate-to-site similarity {twin_sim.min():.4f} to "
+          f"{twin_sim.max():.4f} {lap()}", flush=True)
+
+    # 4. density grid of the ions, its seams, and the density site generator
+    mobile = np.flatnonzero(sn.mobile_mask)
+    sync()
+    t0 = time.perf_counter()
+    grid = density.density_grid(frames, cell, mask=sn.mobile_mask, n_bins=48,
+                                device=device)
+    sync()
+    t_grid = time.perf_counter() - t0
+    check(grid.dtype == np.int64 and grid.sum() == n_frames * n_ions,
+          f"density_grid: total {grid.sum()} != {n_frames} x {n_ions}")
+    n_near, n_moved = seam_check(grid, frames[:, mobile].reshape(-1, 3),
+                                 cell, 48)
+    t0 = time.perf_counter()
+    seeds = DensitySiteGenerator(n_bins=48, verbose=False,
+                                 device=device).run(
+        network(), frames)
+    t_gen = time.perf_counter() - t0
+    true_sites = sy["site_pos"][sy["centred"]]
+    mapping, dists = match_sites(seeds, network(true_sites), cutoff=1.0)
+    n_match = int((mapping >= 0).sum())
+    check(seeds.n_sites > 0 and n_match >= 0.9 * seeds.n_sites
+          and all(len(v) == 8 for v in seeds.vertices),
+          f"DensitySiteGenerator: {seeds.n_sites} sites, {n_match} within "
+          "1 A of a lattice site the ions hop between")
+    print(f"density_grid ({n_frames} frames x {n_ions} ions, 48^3 bins): "
+          f"{t_grid:.2f} s, total == frames x ions, max count "
+          f"{int(grid.max())}; against the float64 histogram {n_moved} "
+          f"count(s) differ, every one an atom within 16 f32 ulp of a seam "
+          f"({n_near} such seam atoms); DensitySiteGenerator: "
+          f"{seeds.n_sites} sites in {t_gen:.2f} s, {n_match} within 1 A of "
+          f"one of the {len(true_sites)} lattice sites the ions hop between "
+          f"(worst {np.nanmax(dists):.2f} A) {lap()}", flush=True)
+
+    # 5. bond-valence mismatch of the static lattice taken as the anions
+    anions = sn.static_structure.positions
+    r0, cutoff = 2.4, 6.0
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    mism = bondvalence.bv_mismatch_grid(anions, r0, cell, 1.0, n_bins=48,
+                                        cutoff=cutoff, device=device)
+    sync()
+    t_bv = time.perf_counter() - t0
+    peak_bv = torch.cuda.max_memory_allocated() / 1e9
+    pick = np.sort(rng.choice(48 ** 3, 4096, replace=False))
+    ii = (np.arange(48) + 0.5) / 48
+    pts = np.stack(np.meshgrid(ii, ii, ii, indexing="ij"),
+                   -1).reshape(-1, 3)[pick] @ cell
+    inv = np.linalg.inv(cell)
+    # float64 arithmetic on the coordinates as the device holds them
+    pts32 = pts.astype(np.float32).astype(np.float64)
+    an32 = anions.astype(np.float32).astype(np.float64)
+    v64 = np.empty(len(pts))
+    for lo in range(0, len(pts), 256):
+        df = (pts32[lo:lo + 256, None, :] - an32[None]) @ inv
+        dist = np.linalg.norm((df - np.round(df)) @ cell, axis=-1)
+        v64[lo:lo + 256] = np.where(dist < cutoff,
+                                    np.exp((r0 - dist) / bondvalence.BV_B),
+                                    0.0).sum(axis=1)
+    e_bv = float((np.abs(mism.reshape(-1)[pick] - np.abs(v64 - 1.0))
+                  / v64).max())
+    # the float32 minimum image rounds a fractional separation of up to 1
+    # before the nearest integer is taken off it: 4 ulp of that, times the
+    # cell's edge, over b, is what a term's exponent can be off by
+    edge = float(np.linalg.norm(cell, axis=1).max())
+    tol_bv = 4 * 2.0 ** -24 * edge / bondvalence.BV_B
+    check(mism.shape == (48,) * 3 and np.isfinite(mism).all()
+          and e_bv <= tol_bv, f"bv_mismatch_grid: {e_bv:.3g} relative from "
+          f"the float64 oracle > {tol_bv:.3g}")
+    print(f"bv_mismatch_grid (48^3 = {48 ** 3} points x {len(anions)} anions, "
+          f"chunk 65536): {t_bv:.2f} s, peak memory {peak_bv:.2f} GB; within "
+          f"{e_bv:.3g} relative (<= {tol_bv:.3g}: 4 f32 ulp of the fractional "
+          f"separation over a {edge:.0f} A edge, over b) of float64 NumPy on "
+          f"4096 points; mismatch {mism.min():.3f} to {mism.max():.3f} "
+          f"{lap()}",
+          flush=True)
+
+    # 6. string refinement along the pathways' edges on the smoothed density
+    merged_net, dpa = ctx["merged"], ctx["dpa"]
+    nij = np.asarray(merged_net.n_ij)
+    edges = np.argwhere(np.triu(nij + nij.T >= dpa.connectivity_threshold, 1))
+    edges = edges[:256]
+    check(len(edges) > 0, "no edge on the merged network")
+    a = merged_net.centers[edges[:, 0]]
+    step = (merged_net.centers[edges[:, 1]] - a) @ inv
+    step = (step - np.round(step)) @ cell              # minimum image
+    paths = a[:, None, :] + np.linspace(0, 1, 21)[None, :, None] \
+        * step[:, None, :]
+    rho = density.smooth_density(grid, cell, 1.0)
+
+    def refine(nodes, its, dev):
+        sync()
+        t0 = time.perf_counter()
+        got = mep.refine_string_paths(rho, cell, nodes, iterations=its,
+                                      device=dev)
+        sync()
+        return got, time.perf_counter() - t0
+
+    def moved(a, b):
+        """Largest node distance of each edge between two sets of paths."""
+        return np.abs(a - b).max(axis=(1, 2))
+
+    # The ions of this system hop to any free site, so these edges cross
+    # voids where the density sits on its floor.  There the landscape is a
+    # plateau with a kink at its rim, and the gradient of the trilinear
+    # interpolation also jumps at the borders of its cells: a node within
+    # rounding of such a place gets another force on the card than on the
+    # CPU, and that string then relaxes along another route.  So whole runs
+    # are held to the CPU while rounding is all that separates them (20
+    # iterations, every edge), and the full 300 by their last step: the
+    # card's and the CPU's step 300 from the card's nodes after 299.
+    early, t20 = refine(paths, 20, device)
+    e20 = moved(early, refine(paths, 20, "cpu")[0])
+    check(np.isfinite(early).all() and e20.max() <= 1e-3,
+          f"refine_string_paths, 20 iterations: card and CPU differ by "
+          f"{e20.max():.3g} A > 1e-3")
+    full, t300 = refine(paths, 300, device)
+    full_cpu, t300_cpu = refine(paths, 300, "cpu")
+    before, _ = refine(paths, 299, device)
+    chained = moved(refine(before, 1, device)[0], full)
+    e_step = moved(refine(before, 1, "cpu")[0], full)
+    e300 = moved(full, full_cpu)
+    pinned = float(np.abs(full[:, [0, -1]] - paths[:, [0, -1]]).max())
+    check(np.isfinite(full).all() and pinned <= 1e-4 and chained.max() == 0,
+          f"refine_string_paths, 300 iterations: an end point moved by "
+          f"{pinned:.3g} A, or 299 + 1 iterations differ from 300 by "
+          f"{chained.max():.3g} A")
+    check((e_step > 1e-4).sum() <= 3, f"refine_string_paths: step 300 on "
+          f"the card and on the CPU from the same nodes differ by more than "
+          f"1e-4 A on {(e_step > 1e-4).sum()} edges (worst "
+          f"{e_step.max():.3g} A)")
+    print(f"refine_string_paths ({len(edges)} edges x 21 nodes, 48^3 density "
+          f"smoothed by 1 A): 20 iterations {t20:.2f} s, card == CPU on "
+          f"every edge within {e20.max():.3g} A (<= 1e-3); 300 iterations "
+          f"{t300:.2f} s on the card ({t300_cpu:.2f} s on the CPU), nodes "
+          f"moved up to {moved(full, paths).max():.2f} A, end points pinned; "
+          f"step 300 from the card's nodes after 299: card == CPU within "
+          f"1e-4 A on {(e_step <= 1e-4).sum()} edges (median "
+          f"{np.median(e_step):.3g} A, worst {e_step.max():.3g} A), 299 + 1 "
+          f"== 300 on the card exactly; the whole runs agree within 1e-3 A "
+          f"on {(e300 <= 1e-3).sum()} edges, the other {(e300 > 1e-3).sum()} "
+          f"strings took another route (worst {e300.max():.3g} A) {lap()}",
+          flush=True)
 
 
 def one_pass(pipe, blocks):
@@ -1701,8 +2239,9 @@ def main():
     paths["slice"], fps = phase_slice("cuda")
     paths["K1s"] = phase_skew("cuda")
     paths["streaming"], stream_fps, ctx = phase_streaming("cuda")
-    paths["network"], depth_fps = phase_network("cuda", ctx)
-    del ctx
+    paths["network"], depth_fps, net_ctx = phase_network("cuda", ctx)
+    phase_descriptors("cuda", dict(ctx, **net_ctx))
+    del ctx, net_ctx
     paths["gather"], gather_fps, gather_stream_fps = phase_gather("cuda")
     check(not any(m == "jax" or m.startswith("jax.") for m in sys.modules),
           "jax was imported")

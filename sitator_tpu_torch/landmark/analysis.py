@@ -56,6 +56,11 @@ class LandmarkAnalysis:
     use_fused : 'auto' (the K2 kernel on CUDA when the basis shares
         vertices) | True | False (dense route).
     device : torch device the engine runs on (default 'cuda').
+
+    ``mesh`` is accepted as ``None`` only: multi-device frame sharding is
+    not ported and any other value raises :class:`NotImplementedError`.
+    The reference's ``interpret`` flag (its kernels' CPU emulation) is left
+    out on purpose: on a CPU device this engine takes the plain versions.
     """
 
     def __init__(self,
@@ -73,9 +78,14 @@ class LandmarkAnalysis:
                  clustering_algorithm="dotprod",
                  clustering_params=None,
                  batch_frames=256,
+                 mesh=None,
                  use_fused="auto",
                  verbose=True,
                  device="cuda"):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh: multi-device frame sharding is not ported yet "
+                "(ROADMAP queue 1, item 13)")
         self.use_fused = use_fused
         self.dynamic_lattice_mapping = bool(dynamic_lattice_mapping)
         self.cutoff_midpoint = float(cutoff_midpoint)

@@ -421,7 +421,7 @@ class StreamingLandmarkAnalysis:
         if mesh is not None:
             raise NotImplementedError(
                 "mesh: multi-device frame sharding is not ported yet "
-                "(ROADMAP queue 1, item 12.3)")
+                "(ROADMAP queue 1, item 13)")
         self.cutoff_midpoint = float(cutoff_midpoint)
         self.cutoff_steepness = float(cutoff_steepness)
         self.cutoff_shape = cutoff_shape

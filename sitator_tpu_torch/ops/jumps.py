@@ -17,7 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["jump_stats", "jump_stats_exact", "JumpStats"]
+__all__ = ["jump_stats", "jump_stats_exact", "jump_stats_parallel",
+           "JumpStats"]
 
 
 class JumpStats(dict):
@@ -179,6 +180,17 @@ def jump_stats_exact(traj, n_sites, init_last=None, init_res=None,
 def _shift_down(x, fill):
     """``x`` moved one frame later along axis 0, ``fill`` in frame 0."""
     return torch.cat([torch.full_like(x[:1], fill), x[:-1]], dim=0)
+
+
+def jump_stats_parallel(traj, n_sites, unknown_policy="persist"):
+    """Order-dependent jump statistics of a ``(F, M)`` integer label tensor
+    WITHOUT a sequential frame scan: the "last known site" carry is
+    re-expressed as prefix operations (forward fill, ``cumsum``,
+    ``cummax``).  Returns the same :class:`JumpStats` as :func:`jump_stats`
+    from an empty carry, with equal statistics for either
+    ``unknown_policy``."""
+    return JumpStats(_jump_stats_parallel(traj, n_sites,
+                                          unknown_policy=unknown_policy))
 
 
 def _jump_stats_parallel(traj, n_sites, unknown_policy="persist"):

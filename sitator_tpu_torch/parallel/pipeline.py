@@ -132,13 +132,22 @@ class SpmdLandmarkPipeline:
     static_drift_budget : Å static atoms may drift from the seed structure;
         the tile-preshift bound budgets for it (None disables preshift).
     device : torch device (default 'cuda').
+
+    ``mesh`` is accepted as ``None`` only: multi-device frame sharding is
+    not ported and any other value raises :class:`NotImplementedError`.
+    The reference's ``interpret`` flag (its kernels' CPU emulation) is left
+    out on purpose: on a CPU device the pipeline takes the plain versions.
     """
 
     def __init__(self, seed_sn, centers, active, *, cutoff_midpoint,
                  cutoff_steepness, assignment_threshold=0.35,
-                 peak_evening="none", use_fused="auto",
+                 peak_evening="none", mesh=None, use_fused="auto",
                  cutoff_shape="logistic", static_drift_budget=3.0,
                  device="cuda"):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh: multi-device frame sharding is not ported yet "
+                "(ROADMAP queue 1, item 13)")
         from sitator_tpu_torch.ops.kernel_common import kernel_cell
         self.device = dev = torch.device(device)
         self.static_drift_budget = static_drift_budget

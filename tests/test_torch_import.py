@@ -4,7 +4,9 @@ a meta-path finder) imports ``sitator_tpu_torch`` and runs the tiny slice
 end to end on the CPU (``LandmarkAnalysis`` → ``JumpAnalysis``,
 ``SpmdLandmarkPipeline``, ``StreamingLandmarkAnalysis`` fit and run; in a
 third, Voronoi seeds → streaming at the shipped run-ahead depth → merging →
-pathways), and no source file of the package imports either.  The port's own copy of the
+pathways; in a fourth, density seeds → landmark analysis → SOAP →
+``MergeSitesByDescriptors``), and no source file of the package imports
+either.  The port's own copy of the
 data model behaves as the reference's."""
 import pathlib
 import re
@@ -229,6 +231,92 @@ SEED_TO_PATHWAYS = GUARD + textwrap.dedent("""
     assert not bad, bad
     print("PATHWAYS-OK")
 """) % (NEW_MODULES,)
+
+
+DESCRIPTOR_MODULES = [
+    "io", "io.synthetic", "util.elbow", "landmark.calibrate",
+    "site_descriptors", "site_descriptors.soap", "site_descriptors.typing",
+    "site_descriptors.merge_descriptors", "ops.density", "ops.bondvalence",
+    "ops.mep", "ops.msd", "network.density_sites", "network.bond_valence",
+    "misc", "misc.navgs", "misc.recenter",
+]
+
+SEED_TO_DESCRIPTORS = GUARD + textwrap.dedent("""
+    import importlib
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    import sitator_tpu_torch as port
+    for name in %r:
+        importlib.import_module("sitator_tpu_torch." + name)
+    from sitator_tpu_torch import SiteNetwork
+    from sitator_tpu_torch.io import make_hopping_trajectory
+    from sitator_tpu_torch.landmark import suggest_cutoff
+    from sitator_tpu_torch.network import (BondValenceSiteGenerator,
+                                           DensitySiteGenerator)
+    from sitator_tpu_torch.ops.density import density_grid, smooth_density
+    from sitator_tpu_torch.ops.mep import refine_string_paths
+    from sitator_tpu_torch.site_descriptors import (MergeSitesByDescriptors,
+                                                    SiteCentersDescriptor,
+                                                    SOAPDescriptorAverages)
+
+    md = make_hopping_trajectory(n_cells=3, a=4.0, n_ions=6, n_frames=300,
+                                 jump_rate=0.05, seed=3)
+    sn0 = SiteNetwork(md.structure, md.static_mask, md.mobile_mask)
+    # seed (density) -> cutoff -> landmark analysis
+    seeds = DensitySiteGenerator(n_bins=36, sigma=0.5, threshold=0.02,
+                                 min_distance=1.5, verbose=False,
+                                 device="cpu").run(sn0, md.traj)
+    assert seeds.n_sites >= 6 and seeds.has_vertices
+    mid, steep = suggest_cutoff(seeds, md.traj)
+    st = port.LandmarkAnalysis(cutoff_midpoint=mid, cutoff_steepness=steep,
+                               verbose=False, device="cpu").run(seeds, md.traj)
+    st.set_real_traj(md.traj)
+    n_before = st.site_network.n_sites
+    # SOAP per site, both descriptors
+    kw = dict(r_cut=4.0, n_max=4, l_max=3)
+    avg, counts = SOAPDescriptorAverages(averages_n=4, verbose=False,
+                                         device="cpu", **kw).get_descriptors(st)
+    assert avg.shape[0] == n_before and counts.max() == 4
+    assert np.isfinite(avg).all()
+    # every site of the ideal lattice has the same environment: the
+    # descriptor merge groups what the 4.5 A guard lets through
+    merged = MergeSitesByDescriptors(
+        SiteCentersDescriptor(device="cpu", **kw), similarity_threshold=0.9,
+        distance_threshold=4.5, verbose=False).run(st)
+    assert 1 <= merged.site_network.n_sites < n_before
+    assert (merged.traj >= 0).sum() == (st.traj >= 0).sum()
+    # a string on the density the seeds came from
+    rho = smooth_density(density_grid(md.traj, md.structure.cell,
+                                      mask=md.mobile_mask, n_bins=24,
+                                      device="cpu"), md.structure.cell, 0.5)
+    c = seeds.centers
+    path = c[0] + np.linspace(0, 1, 9)[:, None] * (c[1] - c[0])
+    out = refine_string_paths(rho, md.structure.cell, path[None],
+                              iterations=10, device="cpu")
+    assert out.shape == (1, 9, 3) and np.isfinite(out).all()
+    # and the bond-valence seeds of the same host
+    bv = BondValenceSiteGenerator(r0=2.4, n_bins=16, verbose=False,
+                                  device="cpu").run(sn0)
+    assert bv.n_sites >= 1
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "sitator_tpu",
+                                        "sklearn"))
+    assert not bad, bad
+    print("DESCRIPTORS-OK")
+""") % (DESCRIPTOR_MODULES,)
+
+
+def test_seed_landmark_soap_descriptor_merge_without_jax():
+    """The descriptor and seeding modules import, and a density seed →
+    landmark → SOAP → ``MergeSitesByDescriptors`` run completes, with
+    ``jax`` and ``sitator_tpu`` blocked (and without loading ``sklearn``,
+    which only ``SiteTypeAnalysis.run`` needs)."""
+    proc = subprocess.run([sys.executable, "-c", SEED_TO_DESCRIPTORS],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "DESCRIPTORS-OK" in proc.stdout
 
 
 def test_seed_stream_merge_pathways_without_jax():

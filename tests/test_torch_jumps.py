@@ -157,3 +157,25 @@ def test_property_scan_and_prefix_match_reference(flat, policy):
                                  unknown_policy=policy), want)
     _assert_equal(tj._jump_stats_parallel(torch.from_numpy(traj), 4,
                                           unknown_policy=policy), want)
+
+
+@pytest.mark.parametrize("policy", ["persist", "break"])
+@pytest.mark.parametrize("seed", [3, 8])
+def test_jump_stats_parallel_is_exported_and_equal(policy, seed):
+    """The public prefix-form entry point, as the reference exports it: a
+    ``JumpStats`` with every tally equal, on both policies."""
+    assert sorted(tj.__all__) == sorted(jj.__all__)
+    traj = _labels(seed, F=60, M=7)
+    want = jj.jump_stats_parallel(jnp.asarray(traj), 5,
+                                  unknown_policy=policy)
+    got = tj.jump_stats_parallel(torch.from_numpy(traj), 5,
+                                 unknown_policy=policy)
+    assert isinstance(got, tj.JumpStats)
+    _assert_equal(got, want)
+    assert got.n_ij.dtype == torch.int64 and int(got.n_ij.sum()) > 0
+    # equal to the sequential scan from an empty carry
+    _assert_equal(tj.jump_stats(torch.from_numpy(traj), 5,
+                                unknown_policy=policy), got)
+    with pytest.raises(ValueError, match="unknown_policy"):
+        tj.jump_stats_parallel(torch.from_numpy(traj), 5,
+                               unknown_policy="forget")

@@ -245,6 +245,8 @@ def test_network_package_exports():
     for name in ("MergeSitesBase", "MergeSitesByDistance",
                  "DiffusionPathwayAnalysis", "SiteVolumes", "match_sites",
                  "compare_site_networks", "min_image_distance_matrix",
-                 "to_networkx", "ConductionBottleneckAnalysis"):
+                 "to_networkx", "ConductionBottleneckAnalysis",
+                 "DensitySiteGenerator", "BondValenceSiteGenerator"):
         assert name in pnet.__all__ and hasattr(pnet, name)
-    assert not hasattr(pnet, "DensitySiteGenerator")
+    import sitator_tpu.network as rnet
+    assert sorted(pnet.__all__) == sorted(rnet.__all__)

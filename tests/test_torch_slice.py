@@ -192,3 +192,33 @@ def test_pipeline_gather_route_chained_blocks():
     _assert_same_blocks(got, want, 1e-2)
     labels = np.concatenate([o[0] for o in got])
     assert (labels >= 0).mean() > 0.5 and not (labels == 5).any()
+
+
+@pytest.mark.parametrize("engine", ["landmark", "pipeline", "streaming"])
+def test_engines_accept_mesh_none_and_refuse_a_mesh(system, engine):
+    """``mesh=None`` is what a reference script passes on one device: every
+    engine takes it, and raises ``NotImplementedError`` naming the queued
+    multi-device item for a mesh.  ``interpret`` stays out of the port."""
+    frames, seeds = system
+    n_landmarks = int(seeds.static_mask.sum())
+    if engine == "pipeline":
+        def make(**kw):
+            return port.SpmdLandmarkPipeline(
+                seeds, np.eye(n_landmarks, dtype=np.float32)[:4],
+                np.ones(4, bool), cutoff_midpoint=4.0, cutoff_steepness=3.0,
+                device="cpu", **kw)
+    else:
+        cls = (port.LandmarkAnalysis if engine == "landmark"
+               else port.StreamingLandmarkAnalysis)
+
+        def make(**kw):
+            return cls(cutoff_midpoint=4.0, cutoff_steepness=3.0,
+                       verbose=False, device="cpu", **kw)
+    assert make(mesh=None) is not None
+    with pytest.raises(NotImplementedError, match="item 13"):
+        make(mesh=frame_mesh(n_devices=1))
+    with pytest.raises(TypeError, match="interpret"):
+        make(interpret=True)
+    if engine == "landmark":
+        # and the reference does take the same keyword
+        assert JaxLandmarkAnalysis(mesh=None, **KW) is not None

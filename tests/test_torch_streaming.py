@@ -34,25 +34,12 @@ from sitator_tpu_torch.ops.jumps import _jump_stats_block_int64
 from sitator_tpu_torch.util.errors import (MultipleOccupancyError,
                                            StaticLatticeError)
 
+from tests._torch_common import first_math_calls_on_one_thread
+
 torch.set_num_threads(2)
 
 
-def _first_math_calls_on_one_thread():
-    """Call each vectorised math function the engines reach once, on a
-    tensor below torch's parallel grain.  With JAX loaded in the same
-    process, the first call of such a function on an MKL-built CPU torch
-    has been seen to return 12-bit approximations (sqrt off by up to 3e-4)
-    on the chunks of some of the threads that ran it at once; later calls
-    are exact.  Every test worker imports this module when it collects, so
-    no first call there is a parallel one."""
-    x = torch.linspace(0.5, 2.0, 1024)
-    for fn in (torch.sqrt, torch.rsqrt, torch.exp, torch.log, torch.log1p,
-               torch.cos, torch.sin, torch.round, torch.abs):
-        fn(x)
-    x[:64].reshape(8, 8) @ x[:64].reshape(8, 8)
-
-
-_first_math_calls_on_one_thread()
+first_math_calls_on_one_thread()
 
 KW = dict(cutoff_midpoint=4.0, cutoff_steepness=3.0, verbose=False)
 THR = 0.35
