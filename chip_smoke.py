@@ -99,14 +99,32 @@ Phases; any failure exits non-zero before the result lines:
    default 300 by their last step (the card's and the CPU's step 300 from
    the card's nodes after 299; whole runs part where a node meets a kink of
    the landscape within rounding, and how many did is printed);
-9. K3's own path at the bench width: the bench's sites, each with a
+9. the transport and kinetics layer, after the passes, on the same system
+   (no hand-written kernel; seconds and peak device memory a step):
+   ``RDFAnalysis`` ion–ion over 1024 frames, ion–lattice over 64 and with
+   27 images over 8, each held to a float64 histogram on the card (counts
+   may differ only by pairs within 4 float32 ulp of a bin edge), and
+   ion–lattice on the card equal to the CPU's; ``VanHoveAnalysis`` at lags
+   1–256 over every origin, its distinct part equal to the CPU's on 6
+   origins, its self part a density of the displacements; ρ_q(t) for
+   5,000–10,000 modes around the lattice's first reciprocal shell, card
+   against CPU within 1e-4 on 64 frames, and S(q) there; the host
+   diffusion, Onsager and conductivity engines finite;
+   ``KineticMonteCarlo`` with 739 walkers x 10,000 frames on the merged
+   network (a 64-frame run's noise drawn again from the same seeded
+   generator and replayed on the CPU gives its labels; every transition
+   frequency of a row with 1,000 visits within 5 binomial σ of P by the
+   binomial tail; no step where P = 0); density barriers along relaxed
+   strings on at most 256 edges of the jump graph, finite exactly where
+   the profile is positive;
+10. K3's own path at the bench width: the bench's sites, each with a
    tetrahedron of its own 4 static atoms (no vertex shared, 37,044 static
    atoms): ``SpmdLandmarkPipeline`` (route 'gather', 8 x 32 frames with the
    carry, timed, profiled) held to the dense route and the int64 oracle,
    then ``StreamingLandmarkAnalysis`` fit and pass 2 (route 'gather', 1024
    frames in 256-frame blocks, timed) held to the oracle and to the
    pipeline;
-10. one JSON line of per-kernel results, then the ``ok`` line, last.
+11. one JSON line of per-kernel results, then the ``ok`` line, last.
 
 Label comparisons are gated on the reference's top-2 margin: labels must be
 equal wherever the best and second-best cosine similarities (f32, from the
@@ -1630,7 +1648,7 @@ def phase_network(device, ctx):
     for k in ("K1", "K2"):
         check(launches[k] > 0, f"{k} was not launched on the network path")
     return launches, fps, dict(out=out2, labels=lab, merged=merged, dpa=dpa_m,
-                               split_st=split_st, split=split)
+                               remap=remap, split_st=split_st, split=split)
 
 
 SPLIT_OFFSET = 0.2      # Å between the halves of an engineered split site
@@ -2119,6 +2137,319 @@ def phase_descriptors(device, ctx):
           flush=True)
 
 
+# the number of wavevectors the scattering step asks for at the bench width
+NQ_RANGE = (5000, 10000)
+
+
+def pair_hist64(fa, fb, exclude, cell, r_max, n_bins, exact, ulps=4,
+                max_pairs=2 ** 22, device="cuda"):
+    """The float64 oracle of a pair histogram, on the card, independent of
+    ``ops/correlation.py``: ``pbc.min_image_disp`` in float64 (matrix
+    products; TF32 does not touch float64) on the float32-rounded inputs.
+    Returns (int64 counts, pairs within ``ulps`` float32 ulps of a bin edge,
+    the ulps taken at the coordinates' scale, the cell's longest row)."""
+    import torch
+    from sitator_tpu_torch.ops import pbc
+    dev = torch.device(device)
+    c = torch.as_tensor(np.asarray(cell, np.float64), device=dev)
+    inv = torch.linalg.inv(c)
+    keep = ~torch.as_tensor(np.asarray(exclude, bool), device=dev)
+    tol = ulps * float(np.spacing(np.float32(
+        np.linalg.norm(cell, axis=1).max())))
+    width = r_max / n_bins
+    na, nb = fa.shape[1], fb.shape[1]
+    step = max(1, (max_pairs // (27 if exact else 1)) // (na * nb))
+    counts = torch.zeros(n_bins + 1, dtype=torch.int64, device=dev)
+    near = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def on(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device=dev, dtype=torch.float64)
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev).double()
+
+    for s in range(0, len(fa), step):
+        a, b = on(fa[s:s + step]), on(fb[s:s + step])
+        d = pbc.min_image_disp(a[:, :, None] - b[:, None], c, inv,
+                               exact=exact)
+        x = torch.sqrt((d * d).sum(-1)) / width
+        del d
+        idx = torch.floor(x).long()
+        ok = keep & (idx < n_bins)
+        counts += torch.bincount(torch.where(ok, idx, n_bins).reshape(-1),
+                                 minlength=n_bins + 1)
+        near += (keep & (x <= n_bins + 0.5)
+                 & ((x - torch.round(x)).abs() * width <= tol)).sum()
+    return counts[:n_bins].cpu().numpy(), int(near)
+
+
+def phase_transport(device, ctx):
+    """The transport and kinetics layer on what the passes handed on (9261
+    static atoms, 739 ions, 1024 frames; the streamed network, its labels
+    and the merged network): RDF ion–ion and ion–lattice (and the 27-image
+    route) against float64 histograms on the card, van Hove on the card
+    against the CPU, ρ_q(t) on the card against the CPU, the host transport
+    engines, kinetic Monte Carlo on the merged network (its noise replayed
+    on the CPU, its transition frequencies, no forbidden step), and density
+    barriers along relaxed strings.  No hand-written kernel runs here;
+    seconds and peak device memory a step."""
+    import torch
+    from sitator_tpu_torch import SiteNetwork, SiteTrajectory
+    from sitator_tpu_torch.dynamics import (
+        ConductivitySpectrumAnalysis, DiffusionAnalysis, JumpAnalysis,
+        KineticMonteCarlo, OnsagerAnalysis, PathwayBarrierAnalysis,
+        RDFAnalysis, ScatteringAnalysis, VanHoveAnalysis)
+    from sitator_tpu_torch.dynamics import kmc as kmc_ops
+    from sitator_tpu_torch.network import min_image_distance_matrix
+    from sitator_tpu_torch.ops import correlation, scattering
+    from scipy.stats import binom
+
+    sn, frames = ctx["sn"], ctx["frames"]
+    net, labels = ctx["out"], ctx["labels"]
+    cell = np.asarray(sn.structure.cell, np.float64)
+    F, W = labels.shape
+    mob, sta = sn.mobile_mask, sn.static_mask
+    first_cpu_math_calls_on_one_thread()
+    st = SiteTrajectory(net, labels)
+    st.set_real_traj(frames)
+    t_phase = time.perf_counter()
+
+    def step(fn):
+        """(result, seconds, peak GB) of ``fn()`` on the card."""
+        torch.cuda.reset_peak_memory_stats()
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return (out, time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated() / 1e9)
+
+    def counts_of(g, r_max, n_bins, n_frames, n_pairs):
+        """The integer counts behind a g(r), from its normalisation."""
+        shells = correlation._shell_volumes(r_max, n_bins)[0]
+        norm = n_frames * n_pairs * shells / abs(np.linalg.det(cell))
+        return np.rint(g * norm).astype(np.int64)
+
+    def held(name, got, want, near):
+        diff = int(np.abs(got - want).sum())
+        check(diff <= 2 * near, f"{name}: {diff} counts differ from the "
+              f"float64 histogram, more than twice the {near} pairs within "
+              "4 f32 ulp of a bin edge")
+        return diff
+
+    # 1. RDF: ion-ion over every frame, ion-lattice over 64, 27 images on 8
+    r_max = correlation._resolve_r_max(None, cell, False)
+    n_ion = int(mob.sum())
+    cases = [("ion-ion", dict(), F, mob, mob),
+             ("ion-lattice", dict(select_b="static"), min(64, F), mob, sta),
+             ("ion-ion exact=True", dict(exact=True), min(8, F), mob, mob)]
+    for name, kw, nf, ma, mb in cases:
+        sub = SiteTrajectory(net, labels[:nf])
+        sub.set_real_traj(frames[:nf])
+        ra, t, peak = step(lambda: RDFAnalysis(verbose=False, device=device,
+                                               **kw).run(sub))
+        ex = correlation._exclude_matrix(ma, mb)
+        n_pairs = int(ma.sum()) * int(mb.sum()) - int(ex.sum())
+        got = counts_of(ra.g_, r_max, 200, nf, n_pairs)
+        want, near = pair_hist64(frames[:nf, ma], frames[:nf, mb], ex, cell,
+                                 r_max, 200, kw.get("exact", False),
+                                 device=device)
+        diff = held(f"RDF {name}", got, want, near)
+        check(got.sum() > 0 and np.isfinite(ra.g_).all(),
+              f"RDF {name}: empty")
+        print(f"RDFAnalysis {name}: {nf} frames x {n_pairs} pairs "
+              f"({nf * n_pairs / 1e6:.1f} M pairs) in {t:.3f} s, peak "
+              f"{peak:.2f} GB; {int(got.sum())} counts in range, {diff} "
+              f"differ from float64 (pairs within 4 f32 ulp of an edge: "
+              f"{near}); first peak at {ra.r_[np.argmax(ra.g_)]:.2f} A",
+              flush=True)
+    # card against CPU on 2 frames: the same IEEE steps, so the same counts
+    ex = correlation._exclude_matrix(mob, sta)
+    two = [correlation._pair_hist(frames[:2, mob], frames[:2, sta], ex,
+                                  cell, r_max, 200, False, device=d)
+           for d in (device, "cpu")]
+    check(np.array_equal(two[0], two[1]), "RDF ion-lattice on 2 frames: "
+          f"card and CPU differ by {np.abs(two[0] - two[1]).sum()} counts")
+    print("RDF ion-lattice on 2 frames: card == CPU, every count",
+          flush=True)
+
+    # 2. van Hove, ions, every origin; card against CPU on 6 origins
+    lags = [lag for lag in (1, 4, 16, 64, 256) if lag < F]
+    vh, t, peak = step(lambda: VanHoveAnalysis(
+        lags=lags, origin_stride=1, verbose=False, device=device).run(st))
+    n_orig = F - max(lags)
+    check(vh.G_self_.shape == vh.G_distinct_.shape == (len(lags), 200)
+          and np.isfinite(vh.G_distinct_).all(), "VanHoveAnalysis: shapes "
+          f"{vh.G_self_.shape}, {vh.G_distinct_.shape}")
+    # the self part's normalisation: a density of the (F - lag) * ions
+    # displacements, so density * dr * their number is a count of them
+    # (the ions hop to any free site: long lags leave some beyond r_max)
+    dr = vh.r_[1] - vh.r_[0]
+    n_disp = (F - np.asarray(lags)) * n_ion
+    c = vh.G_self_ * dr * n_disp[:, None]
+    mass = c.sum(axis=1) / n_disp
+    check(np.abs(c - np.rint(c)).max() <= 1e-6 * n_disp.max()
+          and (mass <= 1 + 1e-9).all() and mass[0] >= 0.9,
+          f"VanHoveAnalysis: G_self is not a density of the displacements "
+          f"(mass within r_max {mass})")
+    stride = max(1, n_orig // 6)
+    sub_card, sub_cpu = (correlation.van_hove_distinct(
+        frames, cell, mob, lags, origin_stride=stride, device=d)[1]
+        for d in (device, "cpu"))
+    origins = np.arange(0, n_orig, stride)
+    check(np.array_equal(sub_card, sub_cpu), "van Hove on "
+          f"{len(origins)} origins: card and CPU differ")
+    print(f"VanHoveAnalysis lags {lags}, {n_orig} origins "
+          f"({n_orig * n_ion * (n_ion - 1) * len(lags) / 1e9:.2f} G pairs): "
+          f"{t:.3f} s, peak {peak:.2f} GB; card == CPU on {len(origins)} "
+          f"origins, every bin; G_self mass within "
+          f"r_max {np.round(mass, 4).tolist()}", flush=True)
+
+    # 3. scattering on a shell around the lattice's first reciprocal shell
+    a_lat = cell[0, 0] / round(cell[0, 0] / 4.0)
+    q0 = 2 * np.pi / a_lat
+    q_min, q_max = 0.92 * q0, 1.05 * q0
+    n_modes = scattering.allowed_wavevectors(cell, q_max, q_min=q_min)[0]
+    check(NQ_RANGE[0] <= len(n_modes) <= NQ_RANGE[1],
+          f"scattering: Nq = {len(n_modes)}")
+    sa, t, peak = step(lambda: ScatteringAnalysis(
+        q_max=q_max, q_min=q_min, n_shells=24, verbose=False,
+        device=device).run(st))
+    check(np.isfinite(sa.F_[sa.n_q_ > 0]).all(), "ScatteringAnalysis: NaN")
+    _, t_rho_all, _ = step(lambda: scattering.collective_density_modes(
+        frames, cell, mob, n_modes, device=device))
+    rho, t_rho, _ = step(lambda: scattering.collective_density_modes(
+        frames[:64], cell, mob, n_modes, device=device))
+    t0 = time.perf_counter()
+    rho_cpu = scattering.collective_density_modes(frames[:64], cell, mob,
+                                                  n_modes, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    e_rho = float(np.abs(rho - rho_cpu).max() / np.abs(rho_cpu).max())
+    check(e_rho <= 1e-4, f"rho_q card vs CPU {e_rho:.3g} > 1e-4 relative")
+    shell = int(np.nanargmin(np.abs(sa.q_ - q0)))
+    print(f"ScatteringAnalysis Nq = {len(n_modes)} ({q_min:.4f} < |q| <= "
+          f"{q_max:.4f}), {F} frames: {t:.3f} s, peak {peak:.2f} GB (rho_q "
+          f"alone {t_rho_all:.3f} s, the rest host float64); rho_q on "
+          f"64 frames {t_rho:.3f} s on the card, {t_cpu:.2f} s on the CPU, "
+          f"within {e_rho:.3g} of the largest |rho| (<= 1e-4); S(q) at the "
+          f"lattice's first shell (q = {sa.q_[shell]:.4f}, {sa.n_q_[shell]} "
+          f"modes) = {sa.S_q_[shell]:.3f}, shell peak "
+          f"{np.nanmax(sa.S_q_):.3f}", flush=True)
+
+    # 4. host transport engines on the streamed trajectory
+    half = mob & (np.cumsum(mob) <= n_ion // 2)
+    groups = [half, mob & ~half]
+    t0 = time.perf_counter()
+    da = DiffusionAnalysis(temperature=600.0, verbose=False).run(st)
+    t_da = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    oa = OnsagerAnalysis(groups, temperature=600.0, charges=[1.0, 1.0],
+                         verbose=False).run(st)
+    t_oa = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ca = ConductivitySpectrumAnalysis(groups, [1.0, 1.0], temperature=600.0,
+                                      verbose=False).run(st)
+    t_ca = time.perf_counter() - t0
+    check(np.isfinite([da.D_tracer_, da.D_collective_]).all()
+          and np.isfinite(oa.L_).all()
+          and np.isfinite(ca.sigma_).all(), "host transport: not finite")
+    print(f"DiffusionAnalysis {t_da:.3f} s (D_tracer {da.D_tracer_:.4g}, "
+          f"Haven {da.haven_ratio_:.3g}); OnsagerAnalysis 2 groups "
+          f"{t_oa:.3f} s; ConductivitySpectrumAnalysis {t_ca:.3f} s: finite",
+          flush=True)
+
+    # 5. kinetic Monte Carlo on the merged network
+    merged, remap = ctx["merged"], ctx["remap"]
+    lab_m = np.where(labels >= 0, remap[np.maximum(labels, 0)], -1)
+    bare = SiteNetwork(merged.structure, merged.static_mask,
+                       merged.mobile_mask)
+    bare.centers = merged.centers
+    st_m = SiteTrajectory(bare, lab_m.astype(np.int32))
+    JumpAnalysis(verbose=False, device=device).run(st_m)
+    S = bare.n_sites
+    seed, n_kmc = 29, 10000
+    kmc = KineticMonteCarlo(n_walkers=W, n_frames=n_kmc, seed=seed,
+                            verbose=False, device=device)
+    out, t_kmc, peak = step(lambda: kmc.run(bare))
+    P = kmc.transition_matrix_
+    lab = out.traj
+    check(lab.shape == (n_kmc, W), f"KMC labels {lab.shape}")
+    # (a) 64 frames on the card; its noise, drawn again from the same
+    # seeded generator, replayed on the CPU through the noise-driven walk
+    check(kmc_ops._noise_block(W, S) >= 63, "KMC: 63 steps are not one "
+          "noise block")
+    s0 = lab[0]
+    _, t_walk, _ = step(lambda: KineticMonteCarlo._walk(P, s0, n_kmc, seed,
+                                                        device=device))
+    short = KineticMonteCarlo._walk(P, s0, 64, seed, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    noise = kmc_ops._gumbel(gen, (63, W, S), torch.device(device))
+    logP = kmc_ops._log_transition(P, torch.device(device))
+    replay = kmc_ops._walk_with_noise(logP.cpu(), torch.as_tensor(s0),
+                                      noise.cpu()).numpy()
+    check(np.array_equal(replay, short), "KMC: the CPU replay of the card's "
+          f"noise differs on {(replay != short).sum()} labels")
+    lp_cpu = kmc_ops._log_transition(P, torch.device("cpu")).numpy()
+    lp = logP.cpu().numpy()
+    fin = np.isfinite(lp_cpu)
+    check(np.array_equal(fin, np.isfinite(lp)), "KMC: log P's support "
+          "differs between card and CPU")
+    ulp = int(np.abs(lp[fin].view(np.int32) - lp_cpu[fin].view(np.int32))
+              .max())
+    # (b) transition frequencies, (c) no forbidden step
+    pairs = lab[:-1].astype(np.int64) * S + lab[1:]
+    counts = np.bincount(pairs.ravel(), minlength=S * S).reshape(S, S)
+    check(counts[P == 0].sum() == 0, f"KMC: {counts[P == 0].sum()} steps "
+          "where P = 0")
+    visits = counts.sum(axis=1)
+    rows = visits >= 1000
+    n_r = np.broadcast_to(visits[:, None], P.shape)[rows]
+    k, p = counts[rows], P[rows]
+    live = p > 0
+    tail = np.minimum(binom.cdf(k[live], n_r[live], p[live]),
+                      binom.sf(k[live] - 1, n_r[live], p[live]))
+    z = np.abs(k - n_r * p) / np.sqrt(np.maximum(n_r * p * (1 - p), 1e-300))
+    check((2 * tail >= 5.733e-7).all(), "KMC: a transition frequency lies "
+          f"beyond 5 binomial sigma of P (smallest two-sided tail "
+          f"{2 * tail.min():.3g})")
+    print(f"KineticMonteCarlo {W} walkers x {n_kmc} frames on the merged "
+          f"network's {S} sites: {t_kmc:.3f} s (the walk alone {t_walk:.3f} "
+          f"s, the rest the host's chain set-up), peak {peak:.2f} GB, "
+          f"{int((lab[1:] != lab[:-1]).sum())} hops; 64-frame run replayed "
+          f"on the CPU from the card's noise: equal; log P card vs CPU within "
+          f"{ulp} ulp; {int(rows.sum())} rows with >= 1000 visits, "
+          f"{int(live.sum())} entries, every one within 5 binomial sigma "
+          f"(largest normal |z| {z[live].max():.2f}); 0 steps where P = 0",
+          flush=True)
+
+    # 6. density barriers along relaxed strings, at most 256 edges
+    n_ij = np.asarray(net.n_ij)
+    D = min_image_distance_matrix(net.centers, net.centers, cell)
+    jumped = np.triu(n_ij + n_ij.T >= 1, 1)
+    for max_d in (16.0, 14.0, 12.0, 10.0, 8.0, 6.0):
+        n_edges = int((jumped & (D <= max_d)).sum())
+        if n_edges <= 256:
+            break
+    check(0 < n_edges <= 256, f"barriers: {n_edges} edges")
+    pb, t_pb, peak = step(lambda: PathwayBarrierAnalysis(
+        600.0, path="string", min_jumps=1, max_distance=max_d, verbose=False,
+        device=device).run(st))
+    E = net.density_barrier_ij
+    done = np.zeros_like(jumped)
+    for (i, j) in pb.profiles_:
+        done[i, j] = done[j, i] = True
+    check(len(pb.paths_) == len(pb.profiles_) <= n_edges
+          and np.isfinite(E[done]).all()
+          and np.isnan(E[~done]).all(), "PathwayBarrierAnalysis: barriers "
+          "are not finite exactly where the profile is positive")
+    print(f"PathwayBarrierAnalysis(path='string', max_distance={max_d}): "
+          f"{n_edges} edges, {len(pb.profiles_)} with a positive profile, "
+          f"{t_pb:.3f} s, peak {peak:.2f} GB; median barrier "
+          f"{np.median(E[done]):.3g} eV", flush=True)
+    print(f"transport phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def one_pass(pipe, blocks):
     """Run consecutive frame blocks through a pipeline, chaining the jump
     carry.  Returns [(labels, confs, stats)] per block."""
@@ -2241,6 +2572,7 @@ def main():
     paths["streaming"], stream_fps, ctx = phase_streaming("cuda")
     paths["network"], depth_fps, net_ctx = phase_network("cuda", ctx)
     phase_descriptors("cuda", dict(ctx, **net_ctx))
+    phase_transport("cuda", dict(ctx, **net_ctx))
     del ctx, net_ctx
     paths["gather"], gather_fps, gather_stream_fps = phase_gather("cuda")
     check(not any(m == "jax" or m.startswith("jax.") for m in sys.modules),

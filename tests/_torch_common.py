@@ -62,3 +62,56 @@ def trajectories(sns, traj, real_traj=None, confidences=None):
             st.set_real_traj(np.array(real_traj))
         out.append(st)
     return tuple(out)
+
+
+def assert_same_results(want, got, rtol=1e-12, where="result"):
+    """Recursively hold ``got`` (the port's) to ``want`` (the reference's):
+    arrays and numbers to ``rtol`` (NaN where NaN), dicts by key, lists and
+    tuples by item, networks by centres and attributes, trajectories by
+    labels and network; an engine by its fitted attributes (names ending
+    in ``_``)."""
+    if isinstance(want, (ref.SiteTrajectory, port.SiteTrajectory)):
+        np.testing.assert_array_equal(got.traj, want.traj, err_msg=where)
+        assert_same_results(want.site_network, got.site_network, rtol,
+                            where + ".site_network")
+    elif isinstance(want, (ref.SiteNetwork, port.SiteNetwork)):
+        assert got.n_sites == want.n_sites, where
+        if want.centers is not None:
+            np.testing.assert_allclose(got.centers, want.centers, rtol=rtol,
+                                       err_msg=where)
+        for kind in ("site", "edge"):
+            names = getattr(want, kind + "_attributes")
+            assert sorted(getattr(got, kind + "_attributes")) == \
+                sorted(names), (where, kind)
+            for k in names:
+                get = "get_%s_attribute" % kind
+                assert_same_results(getattr(want, get)(k),
+                                    getattr(got, get)(k), rtol,
+                                    f"{where}.{k}")
+    elif isinstance(want, dict):
+        assert sorted(map(repr, got)) == sorted(map(repr, want)), where
+        for k in want:
+            assert_same_results(want[k], got[k], rtol, f"{where}[{k!r}]")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), where
+        for i, (w, g) in enumerate(zip(want, got)):
+            assert_same_results(w, g, rtol, f"{where}[{i}]")
+    elif isinstance(want, (np.ndarray, np.generic, float, int)) and \
+            not isinstance(want, bool):
+        w, g = np.asarray(want), np.asarray(got)
+        assert g.shape == w.shape, (where, g.shape, w.shape)
+        if w.dtype.kind in "fc":
+            np.testing.assert_allclose(g, w, rtol=rtol, atol=0,
+                                       equal_nan=True, err_msg=where)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=where)
+    elif hasattr(want, "__dict__") and not callable(want):
+        fitted = sorted(k for k in vars(want)
+                        if k.endswith("_") and not k.startswith("_"))
+        assert fitted == sorted(k for k in vars(got) if k.endswith("_")
+                                and not k.startswith("_")), where
+        for k in fitted:
+            assert_same_results(getattr(want, k), getattr(got, k), rtol,
+                                f"{where}.{k}")
+    else:
+        assert got == want, (where, got, want)

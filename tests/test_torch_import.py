@@ -5,8 +5,8 @@ end to end on the CPU (``LandmarkAnalysis`` → ``JumpAnalysis``,
 ``SpmdLandmarkPipeline``, ``StreamingLandmarkAnalysis`` fit and run; in a
 third, Voronoi seeds → streaming at the shipped run-ahead depth → merging →
 pathways; in a fourth, density seeds → landmark analysis → SOAP →
-``MergeSitesByDescriptors``), and no source file of the package imports
-either.  The port's own copy of the
+``MergeSitesByDescriptors``; in a fifth, every transport and kinetics
+engine), and no source file of the package imports either.  The port's own copy of the
 data model behaves as the reference's."""
 import pathlib
 import re
@@ -305,6 +305,84 @@ SEED_TO_DESCRIPTORS = GUARD + textwrap.dedent("""
     assert not bad, bad
     print("DESCRIPTORS-OK")
 """) % (DESCRIPTOR_MODULES,)
+
+
+TRANSPORT_MODULES = [
+    "ops.msd", "ops.correlation", "ops.scattering", "dynamics.diffusion",
+    "dynamics.correlation", "dynamics.onsager", "dynamics.vibrational",
+    "dynamics.kmc", "dynamics.metastable", "dynamics.markov",
+    "dynamics.uncertainty", "dynamics.tpt", "dynamics.residence",
+    "dynamics.arrhenius", "dynamics.energetics", "dynamics.vacancy",
+    "dynamics.concerted", "dynamics.balance",
+]
+
+TRANSPORT = GUARD + textwrap.dedent("""
+    import importlib
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    for name in %r:
+        importlib.import_module("sitator_tpu_torch." + name)
+    import sitator_tpu_torch.dynamics as dyn
+    from sitator_tpu_torch import SiteNetwork, SiteTrajectory
+    from sitator_tpu_torch.io import make_hopping_trajectory
+
+    md = make_hopping_trajectory(n_cells=3, a=4.0, n_ions=6, n_frames=120,
+                                 jump_rate=0.05, seed=4)
+    sn = SiteNetwork(md.structure, md.static_mask, md.mobile_mask)
+    sn.centers = md.true_sites
+    st = SiteTrajectory(sn, md.true_assignments)
+    st.set_real_traj(md.traj)
+    dyn.JumpAnalysis(verbose=False, device="cpu").run(st)
+    cpu = dict(verbose=False, device="cpu")
+    rdf = dyn.RDFAnalysis(select_b="static", n_bins=40, **cpu).run(st)
+    assert np.isfinite(rdf.g_).all() and rdf.g_.max() > 1
+    vh = dyn.VanHoveAnalysis(lags=(0, 4), n_bins=20, **cpu).run(st)
+    assert vh.G_distinct_.shape == (2, 20)
+    sa = dyn.ScatteringAnalysis(q_max=2.5, n_shells=4, **cpu).run(st)
+    assert sa.F_.shape == (4, 120)
+    quiet = dict(verbose=False)
+    da = dyn.DiffusionAnalysis(**quiet).run(st)
+    oa = dyn.OnsagerAnalysis(["mobile"], **quiet).run(st)
+    cs = dyn.ConductivitySpectrumAnalysis(["mobile"], [1.0], **quiet).run(st)
+    assert np.isfinite([da.D_tracer_, oa.L_[0, 0]]).all()
+    kmc = dyn.KineticMonteCarlo(n_walkers=8, n_frames=50, seed=1, **cpu)
+    out = kmc.run(st.site_network)
+    assert out.traj.shape == (50, 8)
+    pb = dyn.PathwayBarrierAnalysis(600.0, n_bins=16, min_jumps=2,
+                                    path="string", string_iterations=5,
+                                    **cpu).run(st)
+    assert len(pb.paths_) > 0
+    dyn.MarkovianityAnalysis(**quiet).run(st)
+    dyn.ChainUncertaintyAnalysis(n_samples=10, **cpu).run(st)
+    dyn.ConcertedJumpAnalysis(**quiet).run(st)
+    dyn.VacancyAnalysis(**quiet).run(st)
+    dyn.DetailedBalanceAnalysis(**quiet).run(st)
+    dyn.ResidenceTimeAnalysis(n_mc=10, **quiet).run(st)
+    dyn.SiteFreeEnergyAnalysis(600.0, **quiet).run(st)
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "sitator_tpu",
+                                        "sklearn"))
+    assert not bad, bad
+    print(" ".join(dyn.__all__))
+    print("TRANSPORT-OK")
+""") % (TRANSPORT_MODULES,)
+
+
+def test_transport_and_kinetics_without_jax():
+    """The transport and kinetics modules import, and each of their
+    engines runs on a small hopping trajectory, with ``jax`` and
+    ``sitator_tpu`` blocked; the port's ``dynamics`` exports the
+    reference's names in the reference's order."""
+    import sitator_tpu.dynamics as ref_dynamics
+    import sitator_tpu_torch.dynamics as port_dynamics
+    assert port_dynamics.__all__ == ref_dynamics.__all__
+    assert len(port_dynamics.__all__) == 32
+    proc = subprocess.run([sys.executable, "-c", TRANSPORT], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "TRANSPORT-OK" in proc.stdout
+    assert proc.stdout.splitlines()[-2].split() == ref_dynamics.__all__
 
 
 def test_seed_landmark_soap_descriptor_merge_without_jax():
