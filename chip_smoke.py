@@ -117,14 +117,31 @@ Phases; any failure exits non-zero before the result lines:
    binomial tail; no step where P = 0); density barriers along relaxed
    strings on at most 256 edges of the jump graph, finite exactly where
    the profile is positive;
-10. K3's own path at the bench width: the bench's sites, each with a
+10. the command line (the ``cli`` path) on 256 of the same frames,
+   written as extended XYZ (about 97 MB) and repeated to 2048 frames: the
+   native decoder's index and decode rates alone (it must build: g++),
+   then ``sitator_tpu_torch.cli.main`` in this process with the counters
+   reset first and read after: ``info``, ``convert`` to ``.npy`` with its
+   sidecar, ``analyze --streaming --out`` at the CLI's defaults (two
+   1024-frame blocks) on the ``.npy`` (memmap) and on the XYZ (the native
+   decoder on the feeder thread), seeded from the reference lattice
+   (``--structure``), so K2 in the fit and K1 in pass 2 on the bench's 9261
+   sites; eager ``analyze`` on 64 frames (K2), ``sites``, ``doctor``;
+   meanwhile ``python3 -m sitator_tpu_torch analyze --streaming`` in a
+   subprocess (exit 0, its summary line).  The networks and labels both
+   streamed runs save are held to an engine built directly with the CLI's
+   parameters on the decoded frames, its tallies to the int64 oracle; then
+   pass 2's frames/s and ``phase_times_`` from memory, memmap and XYZ in
+   1024- and 256-frame blocks (each reader twice), and the cost of padding
+   256 frames to a 1024-frame block;
+11. K3's own path at the bench width: the bench's sites, each with a
    tetrahedron of its own 4 static atoms (no vertex shared, 37,044 static
    atoms): ``SpmdLandmarkPipeline`` (route 'gather', 8 x 32 frames with the
    carry, timed, profiled) held to the dense route and the int64 oracle,
    then ``StreamingLandmarkAnalysis`` fit and pass 2 (route 'gather', 1024
    frames in 256-frame blocks, timed) held to the oracle and to the
    pipeline;
-11. one JSON line of per-kernel results, then the ``ok`` line, last.
+12. one JSON line of per-kernel results, then the ``ok`` line, last.
 
 Label comparisons are gated on the reference's top-2 margin: labels must be
 equal wherever the best and second-best cosine similarities (f32, from the
@@ -2450,6 +2467,247 @@ def phase_transport(device, ctx):
           flush=True)
 
 
+def cli(*argv):
+    """``sitator_tpu_torch.cli.main`` in this process: (rc, stdout)."""
+    import contextlib
+    import io
+    from sitator_tpu_torch import cli as port_cli
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = port_cli.main(list(argv))
+    text = out.getvalue()
+    print("  $ sitator_tpu_torch " + " ".join(
+        Path(a).name if "/" in a else a for a in argv), flush=True)
+    for line in text.splitlines():
+        print("    " + line, flush=True)
+    check(rc == 0, f"cli {argv[0]} exited {rc}")
+    return text
+
+
+def phase_cli(device, ctx):
+    """The command line end to end on the bench system's frames (9261
+    static atoms, 739 ions).  256 frames are written as extended XYZ (about
+    100 MB of text) and the file is repeated to 2048 frames (the text
+    already formatted, copied 8 times).  The native decoder is timed alone
+    (index, then the whole file decoded twice), then driven through
+    ``sitator_tpu_torch.cli.main`` in this process with the launch counters
+    reset first and read after: ``info``, ``convert`` to ``.npy`` with its
+    structure sidecar, ``analyze --streaming --out`` at the CLI's defaults
+    (two whole 1024-frame blocks) on the ``.npy`` (a memmap reader) and on
+    the XYZ itself (the native decoder on the feeder thread) — Voronoi
+    seeding, then K2 in the fit and K1 in pass 2 —, eager ``analyze`` on a
+    64-frame file (``LandmarkAnalysis``, K2), ``sites`` on the lattice
+    structure and ``doctor``; meanwhile one ``python3 -m sitator_tpu_torch
+    analyze --streaming`` on that file in a subprocess.  The seeds come
+    from the reference lattice (``--structure``), so the basis is the
+    bench's 9261 sites.  The networks and labels the two CLI runs save
+    (``--out``) must equal an engine built directly with the CLI's
+    parameters on the decoded frames in memory, and its tallies the int64
+    oracle.  Then pass 2 alone
+    on that engine's centres from memory, memmap and XYZ, in 1024-frame
+    blocks and in 256-frame blocks (the feeder decodes the next block while
+    the card works), each reader twice in the order memory, npy, xyz, xyz,
+    npy, memory, with ``phase_times_``; and 256 frames in one block of 1024
+    (a short input is padded to the block: the CLI's default on a short
+    file) against the same frames in one block of 256."""
+    import os
+    import tempfile
+    import torch
+    from sitator_tpu_torch import SiteNetwork, StreamingLandmarkAnalysis
+    from sitator_tpu_torch.io import (ArrayTrajectory, NpyTrajectory,
+                                      convert_to_npy, open_trajectory,
+                                      read_structure, write_xyz)
+    from sitator_tpu_torch.io import native
+    from sitator_tpu_torch.ops.jumps import _jump_stats_block_int64
+    from sitator_tpu_torch.voronoi import VoronoiSiteGenerator
+
+    t_phase = time.perf_counter()
+    n_written, copies = 256, 8
+    n_frames = n_written * copies
+    sn, frames = ctx["sn"], ctx["frames"][:n_written]
+    frames = np.concatenate([frames] * copies)
+    n_ions = int(sn.mobile_mask.sum())
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True)
+    check(gxx.returncode == 0, "g++ is not usable: " + gxx.stderr[-300:])
+    print(f"g++: {gxx.stdout.splitlines()[0]}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        part, xyz = tmp / "md256.xyz", str(tmp / "md.xyz")
+        npy = str(tmp / "md.npy")
+        t0 = time.perf_counter()
+        write_xyz(str(part), sn.structure, frames[:n_written])
+        t_write = time.perf_counter() - t0
+        text = part.read_bytes()
+        with open(xyz, "wb") as f:
+            for _ in range(copies):
+                f.write(text)
+        del text
+        mb = os.path.getsize(xyz) / 1e6
+        print(f"write_xyz: {n_written} frames, {mb / copies:.1f} MB in "
+              f"{t_write:.2f} s; repeated to {n_frames} frames, {mb:.1f} MB",
+              flush=True)
+
+        # the native decoder alone: build, index scan, whole-file decodes
+        t0 = time.perf_counter()
+        check(native.get_lib() is not None, "the fast-IO library does not "
+              "build (g++): the readers would fall back to Python")
+        t_lib = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r = native.FastXYZTrajectory(xyz, cache_index=False)
+        t_index = time.perf_counter() - t0
+        rates = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            decoded = r[0:n_frames]
+            rates.append(n_frames / (time.perf_counter() - t0))
+        check(np.abs(decoded - frames).max() < 1e-5,
+              "native decode differs from the frames written")
+        print(f"native XYZ decode ({r.n_threads} threads): library "
+              f"{t_lib:.2f} s, index {t_index:.3f} s "
+              f"({n_frames / t_index:.0f} frames/s, {mb / t_index:.0f} MB/s), "
+              "decode of the whole file twice: " + ", ".join(
+                  f"{x:.1f} frames/s ({x * mb / n_frames:.0f} MB/s of text)"
+                  for x in rates), flush=True)
+
+        reset_launches()
+        out = cli("info", xyz)
+        check(f"frames:  {n_frames}" in out, "info: frame count")
+        out = cli("convert", xyz, npy)
+        check("structure sidecar" in out
+              and os.path.exists(npy + ".structure.xyz"), "no sidecar")
+        check(np.array_equal(np.load(npy, mmap_mode="r"), decoded),
+              "the converted .npy differs from the native decode")
+        readers = {"npy": NpyTrajectory, "xyz": native.FastXYZTrajectory}
+        for k, src in (("npy", npy), ("xyz", xyz)):
+            check(type(open_trajectory(src)) is readers[k],
+                  f"open_trajectory({k}) gave {type(open_trajectory(src))}")
+        # the seeds come from the reference lattice (the ideal host and the
+        # ions of frame 0), as the bench's sites do: Voronoi on a thermally
+        # jittered frame splits each cube centre into 4-5 nodes (42,043 of
+        # them here)
+        lattice = str(tmp / "lattice.xyz")
+        write_xyz(lattice, sn.structure)
+        args = ["--mobile", "Li", "--structure", lattice,
+                "--cutoff-midpoint", str(MID), "--cutoff-steepness",
+                str(STEEP), "--streaming"]
+        peaks, walls = [], []
+        for src in (npy, xyz):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = cli("analyze", src, *args, "--out", src + ".r.npz")
+            walls.append(time.perf_counter() - t0)
+            peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+            check(f"streamed {n_frames} frames" in out,
+                  "analyze --streaming: no summary line")
+        # pass 2 writes the lv of a whole block to device memory before
+        # the similarity (K1's lv_tile → assign_tail): 1024 x 768 x 9344 f32
+        print("analyze --streaming at the defaults (1024-frame blocks), "
+              "seeding, fit, pass 2 and save, from the .npy and the XYZ: "
+              + ", ".join(f"{w:.2f} s" for w in walls) + "; peak device "
+              "memory " + ", ".join(f"{p:.2f} GB" for p in peaks), flush=True)
+        small = str(tmp / "md64.npy")
+        convert_to_npy(ArrayTrajectory(frames[:64], sn.structure), small)
+        # the subprocess shares the card: hand back this process's cached
+        # blocks, and stream in 64-frame blocks (1.8 GB of lv)
+        torch.cuda.empty_cache()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "sitator_tpu_torch", "analyze", small,
+             *args, "--block-frames", "64"], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            out = cli("analyze", small, *args[:-1])
+            check("final:" in out and "assigned:" in out,
+                  "eager analyze: no summary")
+            out = cli("sites", lattice, "--mobile", "Li")
+            check("Voronoi sites" in out, "sites: no summary")
+            out = cli("doctor")
+            check("healthy" in out and "backend: cuda" in out,
+                  "doctor on the card")
+        finally:
+            sub_out, sub_err = proc.communicate(timeout=300)
+        launches = read_launches()
+        check(launches["K1"] > 0 and launches["K2"] > 0,
+              f"the CLI launched {launches}")
+        check(proc.returncode == 0,
+              f"python3 -m sitator_tpu_torch exited {proc.returncode}: "
+              + sub_err[-2000:])
+        check("streamed 64 frames" in sub_out,
+              "python3 -m sitator_tpu_torch: no summary line")
+        print(f"python3 -m sitator_tpu_torch analyze --streaming (a "
+              f"subprocess on the card): exit 0, '"
+              + [ln for ln in sub_out.splitlines() if "streamed" in ln][0]
+              + "'", flush=True)
+        print(f"cli launches (info, convert, two streamed analyses, eager "
+              f"analyze, sites, doctor): {launches}", flush=True)
+
+        # what the CLI saved against an engine built directly with its
+        # parameters (cli.py defaults) on the frames in memory
+        structure = read_structure(lattice)
+        mobile = structure.species == 3   # Li, as ``--mobile Li``
+        seeded = VoronoiSiteGenerator(merge_tol=0.05).run(
+            SiteNetwork(structure, ~mobile, mobile))
+        kw = dict(cutoff_midpoint=MID, cutoff_steepness=STEEP,
+                  minimum_site_occupancy=0.01, verbose=False, device=device)
+        direct = StreamingLandmarkAnalysis(
+            block_frames=1024, store_labels=str(tmp / "direct.npy"), **kw)
+        memory = ArrayTrajectory(decoded)
+        centers = direct.fit_centers(seeded, memory)
+        want = direct.run(seeded, memory, centers=centers)
+        lab_direct = np.array(np.load(direct.store_labels))
+        oracle, _, _ = _jump_stats_block_int64(
+            lab_direct, len(centers), np.full(n_ions, -1, np.int64),
+            np.zeros(n_ions, np.int64), "persist")
+        check(np.array_equal(want.n_ij, oracle["n_ij"]),
+              "direct engine n_ij differs from the int64 oracle")
+        for src in (npy, xyz):
+            check_same_streaming(
+                f"cli {Path(src).name} vs the engine",
+                SiteNetwork.load(src + ".r.npz"), want,
+                np.load(src + ".r.npz.labels.npy"), lab_direct)
+        print(f"cli streamed runs (.npy and XYZ): {len(centers)} sites, "
+              f"{int(want.n_ij.sum())} jumps; the saved networks and labels "
+              "== the engine called directly on the frames, n_ij == int64 "
+              "oracle", flush=True)
+
+        # pass 2 alone: does the feeder keep up?
+        sources = {"memory": lambda: memory, "npy": lambda: NpyTrajectory(npy),
+                   "xyz": lambda: native.FastXYZTrajectory(xyz)}
+        for block in (1024, 256):
+            for name in ("memory", "npy", "xyz", "xyz", "npy", "memory"):
+                reader = sources[name]()
+                eng = StreamingLandmarkAnalysis(block_frames=block, **kw)
+                sync()
+                t0 = time.perf_counter()
+                got = eng.run(seeded, reader, centers=centers)
+                sync()
+                dt = time.perf_counter() - t0
+                check(np.array_equal(got.n_ij, want.n_ij),
+                      f"pass 2 from {name} in {block}-frame blocks: n_ij "
+                      "differs")
+                print(f"pass 2 from {name} ({type(reader).__name__}, "
+                      f"{n_frames // block} blocks of {block} frames, depth "
+                      f"{eng.pipeline_depth}): {n_frames / dt:.1f} frames/s "
+                      f"({dt:.3f} s); phase_times_ (s): " + json.dumps(
+                          {a: round(b, 4)
+                           for a, b in eng.phase_times_.items()}), flush=True)
+        # a short input is padded to the block: 256 frames cost a block of
+        # 1024 at the CLI's default
+        short = ArrayTrajectory(decoded[:n_written])
+        for block in (1024, n_written, 1024, n_written):
+            eng = StreamingLandmarkAnalysis(block_frames=block, **kw)
+            sync()
+            t0 = time.perf_counter()
+            eng.run(seeded, short, centers=centers)
+            sync()
+            dt = time.perf_counter() - t0
+            print(f"pass 2 on {n_written} frames from memory in one block of "
+                  f"{block}: {n_written / dt:.1f} frames/s ({dt:.3f} s)",
+                  flush=True)
+    print(f"cli phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def one_pass(pipe, blocks):
     """Run consecutive frame blocks through a pipeline, chaining the jump
     carry.  Returns [(labels, confs, stats)] per block."""
@@ -2573,6 +2831,7 @@ def main():
     paths["network"], depth_fps, net_ctx = phase_network("cuda", ctx)
     phase_descriptors("cuda", dict(ctx, **net_ctx))
     phase_transport("cuda", dict(ctx, **net_ctx))
+    paths["cli"] = phase_cli("cuda", ctx)
     del ctx, net_ctx
     paths["gather"], gather_fps, gather_stream_fps = phase_gather("cuda")
     check(not any(m == "jax" or m.startswith("jax.") for m in sys.modules),

@@ -10,7 +10,8 @@ nothing of ``sitator_tpu``; its engines are duck-typed and take either
 package's objects.
 
 Engines take an explicit ``device`` (default ``"cuda"``); on CPU tensors
-every kernel wrapper runs its plain PyTorch version.
+every kernel wrapper runs its plain PyTorch version.  The command line is
+``python -m sitator_tpu_torch`` (:mod:`sitator_tpu_torch.cli`).
 """
 from sitator_tpu_torch.core import SiteNetwork, SiteTrajectory, Structure
 from sitator_tpu_torch.dynamics import JumpAnalysis
@@ -18,5 +19,9 @@ from sitator_tpu_torch.landmark import (LandmarkAnalysis,
                                         StreamingLandmarkAnalysis)
 from sitator_tpu_torch.parallel import SpmdLandmarkPipeline
 
+# pinned to the reference package's version: the port is the same release
+__version__ = "0.7.0"
+
 __all__ = ["Structure", "SiteNetwork", "SiteTrajectory", "LandmarkAnalysis",
-           "StreamingLandmarkAnalysis", "JumpAnalysis", "SpmdLandmarkPipeline"]
+           "StreamingLandmarkAnalysis", "JumpAnalysis", "SpmdLandmarkPipeline",
+           "__version__"]

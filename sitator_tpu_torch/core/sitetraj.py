@@ -202,20 +202,18 @@ class SiteTrajectory:
                 yield f, int(ion), int(last[ion]), int(row[ion])
             last = np.where(known, row, last)
 
-    # -- plotting (not ported: ROADMAP item 12.13) ---------------------------
-    def _no_plots(self):
-        raise NotImplementedError(
-            "SiteTrajectory plots need the visualization layer, which is "
-            "not ported yet (ROADMAP item 12.13)")
-
+    # -- plotting (delegates to visualization layer) -----------------------
     def plot_frame(self, frame, **kwargs):
-        self._no_plots()
+        from sitator_tpu_torch.visualization import plot_frame
+        return plot_frame(self, frame, **kwargs)
 
     def plot_site(self, site, **kwargs):
-        self._no_plots()
+        from sitator_tpu_torch.visualization import plot_site
+        return plot_site(self, site, **kwargs)
 
     def plot_particle_trajectory(self, particle, **kwargs):
-        self._no_plots()
+        from sitator_tpu_torch.visualization import plot_particle_trajectory
+        return plot_particle_trajectory(self, particle, **kwargs)
 
     def __repr__(self):
         return (f"SiteTrajectory(n_frames={self.n_frames},"

@@ -82,6 +82,26 @@ class JumpAnalysis:
             raise ValueError("JumpAnalysis has not been run")
         return int(self._stats["n_ij"].sum())
 
+    def plot_jump_lag(self, sn=None, fig=None, ax=None, cmap="viridis"):
+        """Heatmap of the jump-lag matrix (mean residence before an i→j
+        jump)."""
+        import matplotlib.pyplot as plt
+        if self._stats is None:
+            raise ValueError("JumpAnalysis has not been run")
+        if ax is None:
+            fig, ax = plt.subplots()
+        elif fig is None:
+            fig = ax.figure
+        with np.errstate(invalid="ignore"):
+            lag = np.where(self._stats["n_ij"] > 0,
+                           self._stats["lag_sum"] /
+                           np.maximum(self._stats["n_ij"], 1), np.nan)
+        im = ax.imshow(lag, cmap=cmap)
+        fig.colorbar(im, ax=ax, label="mean residence before jump (frames)")
+        ax.set_xlabel("to site")
+        ax.set_ylabel("from site")
+        return fig
+
     def jump_lag_by_type(self, sn):
         """Mean jump lag aggregated over (from_type, to_type) pairs."""
         if sn.site_types is None:

@@ -6,8 +6,9 @@ end to end on the CPU (``LandmarkAnalysis`` → ``JumpAnalysis``,
 third, Voronoi seeds → streaming at the shipped run-ahead depth → merging →
 pathways; in a fourth, density seeds → landmark analysis → SOAP →
 ``MergeSitesByDescriptors``; in a fifth, every transport and kinetics
-engine), and no source file of the package imports either.  The port's own copy of the
-data model behaves as the reference's."""
+engine; in a sixth, the command line through ``python -m``), and no source
+file of the package imports either.  The port's own copy of the data model
+behaves as the reference's."""
 import pathlib
 import re
 import subprocess
@@ -139,12 +140,10 @@ GUARDED_SLICE = GUARD + textwrap.dedent("""
     port.JumpAnalysis(verbose=False, device="cpu").run(st)
     assert st.site_network.n_ij.sum() > 0
     st.assign_to_last_known_site()
-    try:
-        st.plot_frame(0)
-    except NotImplementedError as e:
-        assert "12.13" in str(e)
-    else:
-        raise AssertionError("plot_frame did not raise")
+    import matplotlib
+    matplotlib.use("Agg")
+    st.set_real_traj(frames)
+    assert st.plot_frame(0).axes and st.plot_site(0).axes
     sla = port.StreamingLandmarkAnalysis(
         cutoff_midpoint=4.0, cutoff_steepness=3.0, block_frames=6,
         fit_frames=8, verbose=False, device="cpu")
@@ -367,6 +366,106 @@ TRANSPORT = GUARD + textwrap.dedent("""
     print(" ".join(dyn.__all__))
     print("TRANSPORT-OK")
 """) % (TRANSPORT_MODULES,)
+
+
+CLI_MODULES = [
+    "cli", "__main__", "compat", "io.formats", "io.native",
+    "io.tensorstore_io", "io.ase_adapter", "util.timing", "util.zeo",
+    "visualization", "visualization.common", "visualization.atoms",
+    "visualization.network_plot", "visualization.kinetics",
+]
+
+CLI_WITHOUT_JAX = GUARD + textwrap.dedent("""
+    import importlib
+    import runpy
+    import matplotlib
+    matplotlib.use("Agg")
+    for name in %r:
+        importlib.import_module("sitator_tpu_torch." + name)
+    import sitator_tpu_torch.compat as compat
+    compat.install()
+    from sitator.dynamics import JumpAnalysis
+    assert JumpAnalysis.__module__ == "sitator_tpu_torch.dynamics.jump_analysis"
+    compat.uninstall()
+    from sitator_tpu_torch.io import make_hopping_trajectory, write_xyz
+    from sitator_tpu_torch.io.native import FastXYZTrajectory
+    from sitator_tpu_torch.io import open_trajectory
+
+    md = make_hopping_trajectory(n_cells=2, a=4.0, n_ions=2, n_frames=80,
+                                 jump_rate=0.05, seed=3)
+    write_xyz("md.xyz", md.structure, md.traj)
+    assert type(open_trajectory("md.xyz")) is FastXYZTrajectory
+
+    def module_main(*argv):
+        sys.argv = ["sitator_tpu_torch", "--device", "cpu", *argv]
+        try:
+            runpy.run_module("sitator_tpu_torch", run_name="__main__",
+                             alter_sys=True)
+        except SystemExit as e:
+            return e.code
+        return None
+
+    assert module_main("convert", "md.xyz", "md.npy") == 0
+    assert module_main("analyze", "md.npy", "--mobile", "Li",
+                       "--cutoff-midpoint", "4.0", "--streaming",
+                       "--block-frames", "32", "--out", "r.npz") == 0
+    import numpy as np
+    assert np.load("r.npz.labels.npy").shape == (80, 2)
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "sitator_tpu",
+                                        "sklearn"))
+    assert not bad, bad
+    print("CLI-OK")
+""") % (CLI_MODULES,)
+
+
+def test_cli_without_jax(tmp_path):
+    """``python -m sitator_tpu_torch --device cpu`` converts a text
+    trajectory (through the native decoder) and streams the converted
+    ``.npy``, with ``jax`` and ``sitator_tpu`` blocked; every module of the
+    command-line slice imports (the plots under Agg, the ``sitator``
+    shim installed and removed)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", CLI_WITHOUT_JAX],
+                          cwd=tmp_path, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "CLI-OK" in proc.stdout
+    assert "streamed 80 frames" in proc.stdout
+
+
+def test_io_exports_cover_the_reference():
+    """The port's ``io.__all__`` is the reference's, in its order, then the
+    port's own ``TrajectoryReader``; ``util``, ``visualization`` and
+    ``dynamics`` export the reference's names."""
+    import sitator_tpu.io as ref_io
+    import sitator_tpu.util as ref_util
+    import sitator_tpu.visualization as ref_viz
+    import sitator_tpu_torch.io as port_io
+    import sitator_tpu_torch.util as port_util
+    import sitator_tpu_torch.visualization as port_viz
+    assert port_io.__all__ == ref_io.__all__ + ["TrajectoryReader"]
+    for name in port_io.__all__:
+        assert getattr(port_io, name).__module__.startswith(
+            "sitator_tpu_torch."), name
+    assert port_util.__all__ == ref_util.__all__
+    assert port_viz.__all__ == ref_viz.__all__
+    import sitator_tpu
+    import sitator_tpu_torch
+    assert sitator_tpu_torch.__version__ == sitator_tpu.__version__
+
+
+def test_native_sources_ship_with_the_package():
+    """The fast-IO decoders' sources are package data (the library is built
+    from them at first use), and the reference's artefact is never there."""
+    native = ROOT / "sitator_tpu_torch" / "io" / "native"
+    assert sorted(p.name for p in native.iterdir()
+                  if p.suffix == ".cpp") == ["fastlmp.cpp", "fastxd.cpp",
+                                             "fastxyz.cpp"]
+    text = (ROOT / "pyproject.toml").read_text()
+    assert '"sitator_tpu_torch.io.native" = ["*.cpp"]' in text
+    assert 'sitator-tpu-torch = "sitator_tpu_torch.cli:main"' in text
 
 
 def test_transport_and_kinetics_without_jax():
