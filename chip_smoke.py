@@ -132,16 +132,31 @@ Phases; any failure exits non-zero before the result lines:
    streamed runs save are held to an engine built directly with the CLI's
    parameters on the decoded frames, its tallies to the int64 oracle; then
    pass 2's frames/s and ``phase_times_`` from memory, memmap and XYZ in
-   1024- and 256-frame blocks (each reader twice), and the cost of padding
-   256 frames to a 1024-frame block;
-11. K3's own path at the bench width: the bench's sites, each with a
+   1024- and 256-frame blocks (each reader twice), and 256 frames in one
+   block of 1024 (the CLI's default) against one of 256;
+11. frame sharding (``mesh=``) on the card, counters read by difference:
+   virtual meshes of 2 and 4 shards over the card (each shard on its own
+   stream) and the one-card ``frame_mesh()``, each against the unmeshed
+   run.  ``SpmdLandmarkPipeline`` through K1 over 8 x 32 frames with the
+   carry and a 30-frame block on 4 shards, and through K3 on 2 x 32 frames
+   without vertex sharing (labels and every jump statistic equal, whether
+   the confidences are bit-equal printed, launches == blocks x shards);
+   pass 2 through K1 over the 1024 frames in 256-frame blocks at depths 2
+   and 0 on 2 and 4 shards (labels, integers equal, floats within 1e-9), a
+   lattice exchange on 4 shards (one rollback), the host synchronisations
+   of a pass (no more a block on 4 shards); frames/s of both at each mesh
+   size, median of 5 in turns; ``graft_entry.dryrun_multichip(4)`` on the
+   card; 256 frames at ``block_frames=1024`` against 256 (time and peak
+   device memory, equal results); a real 2-card mesh when the machine has
+   two cards;
+12. K3's own path at the bench width: the bench's sites, each with a
    tetrahedron of its own 4 static atoms (no vertex shared, 37,044 static
    atoms): ``SpmdLandmarkPipeline`` (route 'gather', 8 x 32 frames with the
    carry, timed, profiled) held to the dense route and the int64 oracle,
    then ``StreamingLandmarkAnalysis`` fit and pass 2 (route 'gather', 1024
    frames in 256-frame blocks, timed) held to the oracle and to the
    pipeline;
-12. one JSON line of per-kernel results, then the ``ok`` line, last.
+13. one JSON line of per-kernel results, then the ``ok`` line, last.
 
 Label comparisons are gated on the reference's top-2 margin: labels must be
 equal wherever the best and second-best cosine similarities (f32, from the
@@ -1277,23 +1292,28 @@ def check_same_streaming(name, got, want, lab_got, lab_want):
     return worst
 
 
-def count_host_syncs(ctx, tmp, n_frames, depth):
+def count_host_syncs(ctx, tmp, n_frames, depth, **kw):
     """Host synchronisations PyTorch reports (``set_sync_debug_mode``) while
     one pass 2 over ``n_frames`` runs: blocking copies, ``.item()``,
     ``torch.cuda.synchronize``.  Waits on an event are not among them."""
+    # the two around the timed run are run_streaming's own
+    return syncs_in(lambda: run_streaming(
+        ctx, tmp, f"sync{depth}_{n_frames}", frames=ctx["frames"][:n_frames],
+        pipeline_depth=depth, **kw)) - 2
+
+
+def syncs_in(fn):
+    """The host synchronisations PyTorch reports while ``fn()`` runs."""
     import warnings
     import torch
     torch.cuda.set_sync_debug_mode("warn")
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            run_streaming(ctx, tmp, f"sync{depth}_{n_frames}",
-                          frames=ctx["frames"][:n_frames],
-                          pipeline_depth=depth)
+            fn()
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    # the two around the timed run are run_streaming's own
-    return sum("synchroniz" in str(w.message) for w in caught) - 2
+    return sum("synchroniz" in str(w.message) for w in caught)
 
 
 def profile_streaming(ctx, tmp, depth):
@@ -2508,8 +2528,8 @@ def phase_cli(device, ctx):
     blocks and in 256-frame blocks (the feeder decodes the next block while
     the card works), each reader twice in the order memory, npy, xyz, xyz,
     npy, memory, with ``phase_times_``; and 256 frames in one block of 1024
-    (a short input is padded to the block: the CLI's default on a short
-    file) against the same frames in one block of 256."""
+    (the CLI's default on a short file: the block runs on its own frames)
+    against the same frames in one block of 256."""
     import os
     import tempfile
     import torch
@@ -2691,8 +2711,8 @@ def phase_cli(device, ctx):
                       f"({dt:.3f} s); phase_times_ (s): " + json.dumps(
                           {a: round(b, 4)
                            for a, b in eng.phase_times_.items()}), flush=True)
-        # a short input is padded to the block: 256 frames cost a block of
-        # 1024 at the CLI's default
+        # a short input at the CLI's default block: 256 frames run as a
+        # block of their own
         short = ArrayTrajectory(decoded[:n_written])
         for block in (1024, n_written, 1024, n_written):
             eng = StreamingLandmarkAnalysis(block_frames=block, **kw)
@@ -2706,6 +2726,256 @@ def phase_cli(device, ctx):
                   flush=True)
     print(f"cli phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
+
+
+STAT_KEYS = ("n_ij", "lag_sum", "res_sum", "res_cnt", "occ_counts",
+             "last_sites", "last_res")
+
+
+def same_passes(name, got, want):
+    """Two passes of a pipeline (:func:`one_pass` outputs): labels and every
+    jump statistic equal.  Returns the largest confidence difference (0.0
+    when they are bit-equal)."""
+    worst = 0.0
+    for (lg, cg, sg), (lw, cw, sw) in zip(got, want, strict=True):
+        check(lg.shape == lw.shape and np.array_equal(lg, lw),
+              f"{name}: labels differ on {int((lg != lw).sum())} rows")
+        for k in STAT_KEYS:
+            check(np.array_equal(sg[k], sw[k]), f"{name}: {k} differs")
+        worst = max(worst, float(np.abs(cg - cw).max()))
+    check(worst <= CONF_ATOL[True], f"{name}: confidences differ by "
+          f"{worst:.3g}")
+    return worst
+
+
+def conf_words(err):
+    return ("confidences bit-equal" if err == 0.0 else
+            f"confidences NOT bit-equal (up to {err:.3g} apart)")
+
+
+def spread(xs):
+    """Median [min, max] of ``xs``."""
+    return f"{np.median(xs):.1f} [{min(xs):.1f}, {max(xs):.1f}]"
+
+
+def launches_since(before):
+    """Launches by kernel since ``before`` (a :func:`read_launches`)."""
+    now = read_launches()
+    return {k: now[k] - before[k] for k in now}
+
+
+def phase_mesh(device, ctx):
+    """Frame sharding (``mesh=``) at the bench width on one card: virtual
+    meshes of 2 and 4 shards over it (each shard on its own stream) and the
+    one-card ``frame_mesh()``, each held to the unmeshed run: the pipeline
+    through K1 (8 x 32 frames with the carry, and a 30-frame block on 4
+    shards) and through K3 (no vertex sharing, 2 shards), pass 2 through
+    K1 (1024 frames in 256-frame blocks at depths 2 and 0, a lattice
+    exchange on 4 shards), host synchronisations a pass, frames/s at each
+    mesh size (median of 5 in turns); ``dryrun_multichip(4)`` on the card;
+    a short input at a large ``block_frames`` against its own block size
+    (time and peak memory); a real 2-card mesh when there are two cards.
+    Returns the launch counts and the frames/s by mesh size."""
+    import tempfile
+    import torch
+    from sitator_tpu_torch import SpmdLandmarkPipeline
+    from sitator_tpu_torch.graft_entry import dryrun_multichip
+    from sitator_tpu_torch.parallel import frame_mesh
+
+    t_phase = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(f"mesh phase on {smi}", flush=True)
+    sy, sn, frames = ctx["sy"], ctx["sn"], ctx["frames"]
+    n_frames, n_ions = len(frames), sy["mobile"].shape[1]
+    centers = sy["centers"]
+    K = len(centers)
+    meshes = {1: frame_mesh(n_devices=1),
+              2: frame_mesh(devices=[device] * 2),
+              4: frame_mesh(devices=[device] * 4)}
+    pk = dict(cutoff_midpoint=MID, cutoff_steepness=STEEP,
+              cutoff_shape=CUTOFF, assignment_threshold=THR, device=device)
+    reset_launches()
+    start = read_launches()
+
+    # 1. the pipeline through K1, meshed against unmeshed
+    blocks = [frames[i:i + 32] for i in range(0, 256, 32)]
+    ref = SpmdLandmarkPipeline(sn, centers, np.ones(K, bool), **pk)
+    check(ref.route == "mxu" and ref.n_devices == 1,
+          f"default pipeline: route {ref.route}, {ref.n_devices} devices")
+    want = one_pass(ref, blocks)
+    pipes = {n: SpmdLandmarkPipeline(sn, centers, np.ones(K, bool), mesh=m,
+                                     **pk) for n, m in meshes.items()}
+    for n, pipe in pipes.items():
+        before = read_launches()
+        err = same_passes(f"pipeline on {n} shard(s)", one_pass(pipe, blocks),
+                          want)
+        k1 = launches_since(before)["K1"]
+        check(k1 == len(blocks) * n, f"pipeline on {n} shard(s): {k1} K1 "
+              f"launches for {len(blocks)} blocks")
+        print(f"pipeline (K1) on {n} shard(s) of one card: labels and every "
+              f"jump statistic == the unmeshed pipeline over {len(blocks)} x "
+              f"32 frames with the carry; {conf_words(err)}; K1 launches "
+              f"{k1} == blocks x shards", flush=True)
+    odd_ref = ref.run_block(frames[:30])
+    before = read_launches()
+    odd = pipes[4].run_block(frames[:30])
+    err = same_passes("a 30-frame block on 4 shards", [odd], [odd_ref])
+    k1 = launches_since(before)["K1"]
+    check(odd[0].shape == (30, n_ions) and k1 == 4,
+          f"30-frame block: labels {odd[0].shape}, {k1} K1 launches")
+    print(f"pipeline: a 30-frame block on 4 shards (padded to 32, the "
+          f"padding masked) == unmeshed; {conf_words(err)}", flush=True)
+    runners = {"unmeshed": ref, **pipes}
+    fps = {key: [] for key in runners}
+    for _ in range(5):
+        for key, pipe in runners.items():
+            t0 = time.perf_counter()
+            one_pass(pipe, blocks)
+            fps[key].append(256 / (time.perf_counter() - t0))
+    syncs = {key: syncs_in(lambda: one_pass(pipe, blocks))
+             for key, pipe in runners.items()}
+    check(syncs[1] <= syncs["unmeshed"], f"the one-card mesh synchronises "
+          f"more: {syncs}")
+    print("pipeline (K1, 8 x 32 bench frames, carry) frames/s, median of 5 "
+          "in turns [min, max]: " + "; ".join(
+              f"{k if k == 'unmeshed' else f'{k} shard(s)'} {spread(v)}"
+              for k, v in fps.items())
+          + f"; host synchronisations a pass {syncs} ({smi})", flush=True)
+
+    # 2. the pipeline through K3 on a basis without vertex sharing
+    ns = add_site_centres(no_sharing_bench_system(64, seed=23), device)
+    sn_ns, fr = site_network(ns), frames_of(ns)
+    Kn = len(ns["centers"])
+    ref_g = SpmdLandmarkPipeline(sn_ns, ns["centers"], np.ones(Kn, bool),
+                                 **pk)
+    mesh_g = SpmdLandmarkPipeline(sn_ns, ns["centers"], np.ones(Kn, bool),
+                                  mesh=meshes[2], **pk)
+    check(ref_g.route == mesh_g.route == "gather",
+          f"no-sharing routes {ref_g.route}, {mesh_g.route}")
+    gb = [fr[:32], fr[32:]]
+    want_g = one_pass(ref_g, gb)
+    before = read_launches()
+    err = same_passes("K3 pipeline on 2 shards", one_pass(mesh_g, gb),
+                      want_g)
+    k3 = launches_since(before)["K3"]
+    check(k3 == 4, f"K3 pipeline on 2 shards: {k3} launches for 2 blocks")
+    print(f"pipeline (K3, 2 x 32 bench frames without vertex sharing) on 2 "
+          f"shards == unmeshed: labels, every jump statistic; "
+          f"{conf_words(err)}; K3 launches {k3} == blocks x shards",
+          flush=True)
+    del ns, sn_ns, fr, ref_g, mesh_g, want_g
+
+    # 3. pass 2 through K1, meshed against unmeshed
+    with tempfile.TemporaryDirectory() as tmp:
+        base = {d: run_streaming(ctx, tmp, f"m0_d{d}", pipeline_depth=d)
+                for d in (2, 0)}
+        before = read_launches()
+        for n in (2, 4):
+            for d in (2, 0):
+                sla, out, lab, _ = run_streaming(
+                    ctx, tmp, f"m{n}_d{d}", mesh=meshes[n], pipeline_depth=d)
+                check(sla.route_ == "mxu", f"meshed pass 2 route {sla.route_}")
+                err = check_same_streaming(
+                    f"pass 2 on {n} shards at depth {d}", out, base[d][1],
+                    lab, base[d][2])
+                print(f"pass 2 (K1) on {n} shards at pipeline_depth={d} == "
+                      f"unmeshed: labels on all {lab.size} rows, every "
+                      f"integer statistic, float attributes within 1e-9 "
+                      f"(worst {err:.3g})", flush=True)
+        k1 = launches_since(before)["K1"]
+        n_blocks = n_frames // 256
+        check(k1 == n_blocks * (2 + 4) * 2, f"meshed pass 2: {k1} K1 "
+              f"launches for {n_blocks} blocks")
+        stream_fps = {n: [] for n in meshes}
+        for _ in range(5):
+            for n, m in meshes.items():
+                sec = run_streaming(ctx, tmp, f"t{n}", mesh=m)[3]
+                stream_fps[n].append(n_frames / sec)
+        ssyncs = {(n, f): count_host_syncs(ctx, tmp, f, 2, mesh=meshes[n])
+                  for n, f in ((1, 1024), (2, 1024), (4, 512), (4, 1024))}
+        check(ssyncs[4, 1024] == ssyncs[4, 512], "the meshed run-ahead loop "
+              f"synchronises the host once or more a block: {ssyncs}")
+        print(f"pass 2 (K1, {n_frames} bench frames in 256-frame blocks, "
+              "depth 2, labels spilled) frames/s, median of 5 in turns "
+              "[min, max]: " + "; ".join(
+                  f"{n} shard(s) {spread(v)}" for n, v in stream_fps.items())
+              + f"; K1 launches {k1} == blocks x shards; host "
+              f"synchronisations a pass (shards, frames): {ssyncs} ({smi})",
+              flush=True)
+
+        # a lattice exchange inside the second of four blocks, 4 shards
+        T, (a, b) = 64 + 17, (100, 101)
+        swapped = frames[:256].copy()
+        swapped[T:, [a, b]] = swapped[T:, [b, a]]
+        plain = run_streaming(ctx, tmp, "m_noswap", frames=frames[:256],
+                              block_frames=64)
+        s4, o4, l4, _ = run_streaming(ctx, tmp, "m_swap", frames=swapped,
+                                      block_frames=64, mesh=meshes[4],
+                                      dynamic_lattice_mapping=True)
+        check_same_streaming("lattice exchange on 4 shards vs the unswapped "
+                             "run", o4, plain[1], l4, plain[2])
+        check(s4.rollbacks_ == 1 and s4.lattice_mapping_[a] == b
+              and s4.lattice_mapping_[b] == a, f"lattice exchange on 4 "
+              f"shards: rollbacks {s4.rollbacks_} or another permutation")
+        print(f"lattice exchange at frame {T} of 256 on 4 shards (depth 2): "
+              f"one rollback, == the unswapped run", flush=True)
+
+        # 4. a short input at a large block_frames: only its own frames
+        short = frames[:256]
+        f4 = {}
+        for block in (1024, 256, 1024, 256):
+            torch.cuda.reset_peak_memory_stats()
+            _, out, lab, sec = run_streaming(ctx, tmp, f"f4_{block}",
+                                             frames=short,
+                                             block_frames=block)
+            f4.setdefault(block, []).append(
+                (sec, torch.cuda.max_memory_allocated() / 1e9, out, lab))
+        for sec, peak, out, lab in f4[1024]:
+            check_same_streaming("256 frames at block_frames=1024 vs 256",
+                                 out, f4[256][0][2], lab, f4[256][0][3])
+        print("256 bench frames at block_frames=1024 vs 256 (depth 2, equal "
+              "labels and tallies): " + "; ".join(
+                  f"{b}: " + ", ".join(f"{sec:.3f} s peak {peak:.2f} GB"
+                                       for sec, peak, _, _ in v)
+                  for b, v in f4.items()) + f" ({smi})", flush=True)
+        del base, f4
+
+    # 5. the reference's mesh driver, on the card
+    t0 = time.perf_counter()
+    dryrun_multichip(4, device=device)
+    print(f"dryrun_multichip(4) on {device}: {time.perf_counter() - t0:.1f} "
+          "s", flush=True)
+
+    # 6. real cards
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        real = frame_mesh(n_devices=2)
+        pipe = SpmdLandmarkPipeline(sn, centers, np.ones(K, bool), mesh=real,
+                                    **pk)
+        err = same_passes("pipeline on 2 cards", one_pass(pipe, blocks),
+                          want)
+        t0 = time.perf_counter()
+        one_pass(pipe, blocks)
+        pfps = 256 / (time.perf_counter() - t0)
+        with tempfile.TemporaryDirectory() as tmp:
+            base = run_streaming(ctx, tmp, "r1")
+            sla, out, lab, sec = run_streaming(ctx, tmp, "r2", mesh=real)
+            check_same_streaming("pass 2 on 2 cards", out, base[1], lab,
+                                 base[2])
+        print(f"real 2-card mesh: pipeline == unmeshed ({conf_words(err)}), "
+              f"{pfps:.1f} frames/s; pass 2 == unmeshed, "
+              f"{n_frames / sec:.1f} frames/s", flush=True)
+    else:
+        print(f"real multi-card mesh: not run ({n_cards} card)", flush=True)
+    launches = launches_since(start)
+    print(f"mesh phase: launches {launches}; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, {"pipeline": {k: float(np.median(v))
+                                   for k, v in fps.items()},
+                      "pass2": {k: float(np.median(v))
+                                for k, v in stream_fps.items()}}
 
 
 def one_pass(pipe, blocks):
@@ -2832,6 +3102,7 @@ def main():
     phase_descriptors("cuda", dict(ctx, **net_ctx))
     phase_transport("cuda", dict(ctx, **net_ctx))
     paths["cli"] = phase_cli("cuda", ctx)
+    paths["mesh"], mesh_fps = phase_mesh("cuda", ctx)
     del ctx, net_ctx
     paths["gather"], gather_fps, gather_stream_fps = phase_gather("cuda")
     check(not any(m == "jax" or m.startswith("jax.") for m in sys.modules),
@@ -2852,6 +3123,7 @@ def main():
     print(f"pipeline frames/s: K1 {fps:.1f}, K3 {gather_fps:.1f}; streaming "
           f"pass 2 frames/s: K1 {stream_fps:.1f} (depth 2 {depth_fps[2]:.1f}, "
           f"depth 0 {depth_fps[0]:.1f}), K3 {gather_stream_fps:.1f}; "
+          f"by mesh size (median frames/s): {json.dumps(mesh_fps)}; "
           f"total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,8 @@ from sitator_tpu_torch.core import SiteNetwork, SiteTrajectory
 from sitator_tpu_torch.landmark.cluster import get_backend
 from sitator_tpu_torch.ops import landmark as lmops
 from sitator_tpu_torch.ops.pbc import PBCCalculator
+from sitator_tpu_torch.parallel.mesh import (bind_mesh, place_frames,
+                                             run_sharded)
 from sitator_tpu_torch.util.errors import (
     InsufficientSitesError,
     MultipleOccupancyError,
@@ -52,13 +54,17 @@ class LandmarkAnalysis:
     max_mobile_per_site, multiple_occupancy_action : 'warn' | 'raise' |
         'ignore' when more ions than that share a site in a frame.
     clustering_algorithm, clustering_params : backend name and its params.
-    batch_frames : frames per device block.
+    batch_frames : frames per device block (rounded down to a multiple of
+        the mesh size, at least one frame a shard).
+    mesh : optional :class:`~sitator_tpu_torch.parallel.mesh.FrameMesh`
+        whose first device is ``device``; blocks are split into frame
+        shards, each shard's landmark vectors and drift computed on its
+        device and gathered.  As in the reference the engine keeps the
+        dense route on a mesh.
     use_fused : 'auto' (the K2 kernel on CUDA when the basis shares
         vertices) | True | False (dense route).
     device : torch device the engine runs on (default 'cuda').
 
-    ``mesh`` is accepted as ``None`` only: multi-device frame sharding is
-    not ported and any other value raises :class:`NotImplementedError`.
     The reference's ``interpret`` flag (its kernels' CPU emulation) is left
     out on purpose: on a CPU device this engine takes the plain versions.
     """
@@ -82,10 +88,7 @@ class LandmarkAnalysis:
                  use_fused="auto",
                  verbose=True,
                  device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: multi-device frame sharding is not ported yet "
-                "(ROADMAP queue 1, item 13)")
+        self.mesh, self.device = bind_mesh(mesh, device)
         self.use_fused = use_fused
         self.dynamic_lattice_mapping = bool(dynamic_lattice_mapping)
         self.cutoff_midpoint = float(cutoff_midpoint)
@@ -105,7 +108,6 @@ class LandmarkAnalysis:
         self.clustering_params = dict(clustering_params or {})
         self.batch_frames = int(batch_frames)
         self.verbose = verbose
-        self.device = torch.device(device)
         self._landmark_vectors = None
         self._landmark_dimension = None
 
@@ -123,7 +125,8 @@ class LandmarkAnalysis:
 
     def _block_fn(self, sn, static_idx, verts, vmask):
         """The per-block device step: ``(mobile, static) → (lv_n, norms,
-        drift)``, on the K2 route or the dense one."""
+        drift)`` as host arrays, on the K2 route or the dense one; over a
+        mesh of several shards once per frame shard, gathered."""
         dev = self.device
         cell = sn.structure.cell
         cell_t = torch.as_tensor(cell, dtype=torch.float32, device=dev)
@@ -134,6 +137,11 @@ class LandmarkAnalysis:
         use_fused = self.use_fused
         if use_fused == "auto":
             use_fused = dev.type == "cuda"
+        if self.mesh is not None:
+            # as in the reference: this engine keeps the dense route on a
+            # mesh (the meshed production paths are the pipeline and the
+            # streaming engine)
+            use_fused = False
         mxu_basis = None
         if use_fused:
             from sitator_tpu_torch.ops.kernel_common import kernel_cell
@@ -150,8 +158,9 @@ class LandmarkAnalysis:
             from sitator_tpu_torch.ops.landmark_mxu import mxu_landmark_blocks
             mxu_basis = basis_from_jax(mxu_basis, dev)
             kcell = kernel_cell(cell)
+            A = None
 
-            def landmark_vectors(mobile, static):
+            def landmark_vectors(mobile, static, A, cell_t, cell_inv_t):
                 return mxu_landmark_blocks(
                     mobile, static, mxu_basis, kcell,
                     midpoint=self.cutoff_midpoint,
@@ -161,20 +170,25 @@ class LandmarkAnalysis:
             A = lmops.vertex_membership_matrix(verts, vmask,
                                                len(static_idx)).to(dev)
 
-            def landmark_vectors(mobile, static):
+            def landmark_vectors(mobile, static, A, cell_t, cell_inv_t):
                 return lmops.landmark_vectors(
                     mobile, static, A, cell_t, cell_inv_t,
                     self.cutoff_midpoint, self.cutoff_steepness,
                     cutoff_shape=self.cutoff_shape)
 
-        def block_fn(mobile, static):
-            lv = lmops.peak_even(landmark_vectors(mobile, static),
-                                 self.peak_evening)
+        def local(mobile, static, A, cell_t, cell_inv_t, static_ref):
+            lv = lmops.peak_even(
+                landmark_vectors(mobile, static, A, cell_t, cell_inv_t),
+                self.peak_evening)
             lv_n, norms = lmops.normalize_landmark_vectors(lv)
             drift = lmops.static_drift_per_frame(static, static_ref, cell_t,
                                                  cell_inv_t)
-            return lv_n.cpu().numpy(), norms.cpu().numpy(), \
-                drift.cpu().numpy()
+            return lv_n, norms, drift
+
+        def block_fn(mobile, static):
+            out = run_sharded(local, self.mesh, 2, mobile, static, A,
+                              cell_t, cell_inv_t, static_ref, n_outputs=3)
+            return tuple(o.cpu().numpy() for o in out)
 
         return block_fn
 
@@ -198,6 +212,9 @@ class LandmarkAnalysis:
 
         # -- blockwise landmark computation (fixed shapes; pad last block) --
         B = min(self.batch_frames, n_frames)
+        if self.mesh is not None:
+            n_dev = self.mesh.devices.size
+            B = max(B // n_dev, 1) * n_dev  # blocks divide the mesh
         lv_bytes = 4 * n_frames * n_mobile * n_landmarks
         if lv_bytes > 4 << 30:
             logger.warning(
@@ -225,11 +242,9 @@ class LandmarkAnalysis:
             static_np = blk[:, static_idx]
             if self.dynamic_lattice_mapping:
                 static_np = static_np[:, perm]
-            mobile = torch.as_tensor(blk[:, mobile_idx], dtype=torch.float32,
-                                     device=self.device)
-            static = torch.as_tensor(static_np, dtype=torch.float32,
-                                     device=self.device)
-            lv_n, norms, drift = block_fn(mobile, static)
+            lv_n, norms, drift = block_fn(
+                place_frames(blk[:, mobile_idx], self.mesh, self.device),
+                place_frames(static_np, self.mesh, self.device))
             drift_f = drift[: hi - pos]
             n_ok = hi - pos
             if self.dynamic_lattice_mapping and (drift_f > thr).any():

@@ -32,8 +32,11 @@ Differences from the reference, none of which changes a result:
   the accumulators by copying them (tensors are folded in place here), and
   moves frames, labels and drift over two copy streams and pinned buffers
   (:class:`_Lanes`); on a CPU device the same window runs without them;
-- a multi-device ``mesh`` raises, and ``packed_retire`` (drift riding in the
-  egress columns) is not ported.
+- a block shorter than ``block_frames`` (the last one, or a short input) is
+  computed on its own frames, padded only up to a multiple of the mesh size,
+  where the reference pads every block to ``block_frames`` for its one
+  compiled shape; ``packed_retire`` (drift riding in the egress columns) is
+  not ported.
 """
 from __future__ import annotations
 
@@ -49,6 +52,10 @@ from sitator_tpu_torch.io import ArrayTrajectory, ChunkedFeeder
 from sitator_tpu_torch.ops import landmark as lmops
 from sitator_tpu_torch.ops.cluster import dotprod_fit
 from sitator_tpu_torch.ops.jumps import _jump_stats
+from sitator_tpu_torch.parallel.mesh import (ShardedFrames, bind_mesh,
+                                             gather_frames, pad_frames,
+                                             place_frames, run_sharded,
+                                             shard_frames)
 from sitator_tpu_torch.util.errors import (MultipleOccupancyError,
                                            StaticLatticeError)
 from sitator_tpu_torch.util.progress import get_progress_bar
@@ -168,64 +175,95 @@ def _snapshot(acc):
 class _Lanes:
     """Host↔device traffic of pass 2 off the compute stream.
 
-    On a CUDA device: frames go up from a ring of pinned staging slots on
-    one copy stream, labels and drift come down into pinned buffers on a
-    second one, and events order both against the compute stream (the
-    current stream), so neither direction makes the host wait for queued
-    kernels.  On a CPU device the same calls copy in place and skip the
-    streams and events, so one window logic serves both.
+    On a CUDA device: frames go up from a ring of pinned staging slots of
+    ``slot_frames`` frames on one copy stream, labels and drift come down
+    into pinned buffers on a second one, and events order both against the
+    compute stream (the current stream), so neither direction makes the
+    host wait for queued kernels.  Over a ``mesh`` of several shards each
+    shard goes up from its slice of the slot on the upload stream of its
+    own device, and its event orders its shard's stream after it.  On a CPU
+    device the same calls copy in place and skip the streams and events, so
+    one window logic serves both.
 
-    A slot is handed out again only after the upload last made from it has
-    finished (its event), and the ring is longer than the run-ahead window,
-    so a block still in flight never shares a slot."""
+    A slot is handed out again only after the uploads last made from it
+    have finished (their events), and the ring is longer than the run-ahead
+    window, so a block still in flight never shares a slot."""
 
-    def __init__(self, device, n_slots):
+    def __init__(self, device, n_slots, slot_frames, mesh=None):
         self.device = device
         self.cuda = device.type == "cuda"
+        self.slot_frames = slot_frames
+        self.mesh = mesh
         self.slots = [{} for _ in range(n_slots)]
         self.cursor = 0
         self._streams = {}
 
-    def _stream(self, name):
-        """The copy stream ``name``, created at its first use: a run that
-        never uploads or downloads through the lanes (``pipeline_depth=0``
-        without ``async_label_copy``) creates none."""
-        if name not in self._streams:
-            self._streams[name] = torch.cuda.Stream(self.device)
-        return self._streams[name]
+    def _stream(self, name, device=None):
+        """The copy stream ``name`` of ``device`` (default: the engine's),
+        created at its first use: a run that never uploads or downloads
+        through the lanes (``pipeline_depth=0`` without
+        ``async_label_copy``) creates none."""
+        key = (name, self.device if device is None else device)
+        if key not in self._streams:
+            self._streams[key] = torch.cuda.Stream(key[1])
+        return self._streams[key]
 
     def upload(self, block, columns):
         """``block[:, idx]`` for each index array of ``columns`` as float32
-        tensors on the device: gathered straight into the next slot's
-        pinned buffers, copied on the upload stream, and made visible to
-        the compute stream by an event."""
+        frames on the device (frame shards over the mesh): gathered straight
+        into the next slot's pinned buffers, copied on the upload stream,
+        and made visible to the stream that reads them by an event."""
         slot = self.slots[self.cursor]
         self.cursor = (self.cursor + 1) % len(self.slots)
-        if "uploaded" in slot:
-            slot["uploaded"].synchronize()
+        for ev in slot.pop("uploaded", ()):
+            ev.synchronize()
+        nb = block.shape[0]
         staged = []
         for i, idx in enumerate(columns):
-            shape = (block.shape[0], len(idx), 3)
+            shape = (self.slot_frames, len(idx), 3)
             buf = slot.get(i)
             if buf is None or buf.shape != shape:
                 buf = slot[i] = torch.empty(shape, dtype=torch.float32,
                                             pin_memory=self.cuda)
+            view = buf[:nb]
             if block.dtype == np.float32:
-                np.take(block, idx, axis=1, out=buf.numpy(), mode="clip")
+                np.take(block, idx, axis=1, out=view.numpy(), mode="clip")
             else:
-                buf.numpy()[...] = block[:, idx]
-            staged.append(buf)
+                view.numpy()[...] = block[:, idx]
+            staged.append(view)
         if not self.cuda:
-            return [b.clone() for b in staged]
+            out = [b.clone() for b in staged]
+            return out if self.mesh is None else [
+                shard_frames(t, self.mesh) for t in out]
+        if self.mesh is not None:
+            return [self._upload_shards(b, slot) for b in staged]
         compute = torch.cuda.current_stream(self.device)
         up = self._stream("up")
         with torch.cuda.stream(up):
             out = [b.to(self.device, non_blocking=True) for b in staged]
-            slot["uploaded"] = up.record_event()
-        compute.wait_event(slot["uploaded"])
+            slot["uploaded"] = [up.record_event()]
+        compute.wait_event(slot["uploaded"][0])
         for t in out:   # allocated on the upload stream, used on this one
             t.record_stream(compute)
         return out
+
+    def _upload_shards(self, staged, slot):
+        """Frame shards of the pinned ``staged`` block, each copied on the
+        upload stream of its shard's device; the events go with the shards
+        (:func:`~sitator_tpu_torch.parallel.mesh.shard_map_frames` orders
+        each shard's stream after its own)."""
+        mesh = self.mesh
+        m = staged.shape[0] // mesh.devices.size
+        shards, events = [], []
+        for i, dev in enumerate(mesh.devices):
+            up = self._stream("up", dev)
+            with torch.cuda.device(dev), torch.cuda.stream(up):
+                shards.append(staged[i * m:(i + 1) * m].to(
+                    dev, non_blocking=True))
+                events.append(up.record_event())
+        slot.setdefault("uploaded", []).extend(events)
+        return ShardedFrames(mesh, shards, range(0, staged.shape[0], m),
+                             events)
 
     def mark(self):
         """An event at the compute stream's present end (None on a CPU
@@ -265,37 +303,50 @@ def _assign_block(mobile, static, route, *, centers, midpoint, steepness,
                   threshold, cutoff_shape, cell, cell_inv, kcell,
                   static_ref, basis=None, verts=None, vmask=None, A=None,
                   active=None, full_mask=False, want_drift=True,
-                  egress_int16=False, egress_pack12=False):
+                  egress_int16=False, egress_pack12=False, mesh=None):
     """Assign one streamed block: (labels, confs, drift, labels_egress).
 
     ``route``: 'mxu' (unique-atom kernel K1; ``centers`` column-permuted to
     the kd order of ``basis``), 'gather' (gather kernel K3; ``verts``,
     ``vmask``) or 'dense' (log-space contraction with the membership matrix
     ``A``).  ``want_drift=False`` (guard off) returns None for the drift.
-    The egress copy of the labels is what leaves the device: int16 (any
-    practical site count fits) or the 12-bit pack on top of it; the labels
-    themselves stay int32 for the accumulators."""
-    if route == "mxu":
-        from sitator_tpu_torch.ops.landmark_mxu import mxu_assign_blocks
-        labels, confs = mxu_assign_blocks(
-            mobile, static, basis, kcell, centers, midpoint=midpoint,
-            steepness=steepness, threshold=threshold,
-            cutoff_shape=cutoff_shape)
-    elif route == "gather":
-        from sitator_tpu_torch.ops.landmark_pallas import fused_assign_blocks
-        labels, confs = fused_assign_blocks(
-            mobile, static, verts, vmask, kcell, centers, midpoint=midpoint,
-            steepness=steepness, threshold=threshold,
-            cutoff_shape=cutoff_shape, full_mask=full_mask)
-    else:
-        lv = lmops.landmark_vectors(mobile, static, A, cell, cell_inv,
-                                    midpoint, steepness,
-                                    cutoff_shape=cutoff_shape)
-        lv_n, _ = lmops.normalize_landmark_vectors(lv)
-        labels, confs = lmops.assign_to_centers(lv_n, centers, active,
-                                                threshold)
-    drift = (lmops.static_drift_per_frame(static, static_ref, cell, cell_inv)
-             if want_drift else None)
+    With ``mesh`` (several shards; ``mobile`` / ``static`` then
+    :class:`ShardedFrames`) the assignment and the drift run once per frame
+    shard and come back gathered on the mesh's first device.  The egress
+    copy of the labels is what leaves the device: int16 (any practical site
+    count fits) or the 12-bit pack on top of it; the labels themselves stay
+    int32 for the accumulators."""
+
+    def local(mobile, static, centers, basis, verts, vmask, A, active,
+              static_ref, cell, cell_inv):
+        if route == "mxu":
+            from sitator_tpu_torch.ops.landmark_mxu import mxu_assign_blocks
+            labels, confs = mxu_assign_blocks(
+                mobile, static, basis, kcell, centers, midpoint=midpoint,
+                steepness=steepness, threshold=threshold,
+                cutoff_shape=cutoff_shape)
+        elif route == "gather":
+            from sitator_tpu_torch.ops.landmark_pallas import \
+                fused_assign_blocks
+            labels, confs = fused_assign_blocks(
+                mobile, static, verts, vmask, kcell, centers,
+                midpoint=midpoint, steepness=steepness, threshold=threshold,
+                cutoff_shape=cutoff_shape, full_mask=full_mask)
+        else:
+            lv = lmops.landmark_vectors(mobile, static, A, cell, cell_inv,
+                                        midpoint, steepness,
+                                        cutoff_shape=cutoff_shape)
+            lv_n, _ = lmops.normalize_landmark_vectors(lv)
+            labels, confs = lmops.assign_to_centers(lv_n, centers, active,
+                                                    threshold)
+        drift = (lmops.static_drift_per_frame(static, static_ref, cell,
+                                              cell_inv)
+                 if want_drift else None)
+        return labels, confs, drift
+
+    labels, confs, drift = run_sharded(
+        local, mesh, 2, mobile, static, centers, basis, verts, vmask, A,
+        active, static_ref, cell, cell_inv, n_outputs=3)
     if egress_pack12:
         labels_eg = _pack12(labels)
     else:
@@ -343,7 +394,8 @@ def _accum_block(labels, confs, mobile, cell_inv, valid, carry, acc, *,
 class StreamingLandmarkAnalysis:
     """Parameters mirror :class:`LandmarkAnalysis` plus streaming controls:
 
-    block_frames : frames per streamed device block.
+    block_frames : frames per streamed device block (the last, shorter
+        block is computed on its own frames).
     fit_frames : max frames subsampled for the clustering pass.
     fit_max_samples : cap on total (frame, ion) samples in the fit — the
         binding limit for many-ion systems (the landmark-vector matrix is
@@ -393,14 +445,21 @@ class StreamingLandmarkAnalysis:
         labels right after its assignment (on the download stream, so it
         overlaps the fold) instead of at retirement; needs
         ``store_labels``.  Off by default, as in the reference.
+    mesh : optional :class:`~sitator_tpu_torch.parallel.mesh.FrameMesh`
+        whose first device is ``device``; ``block_frames`` must be a
+        multiple of its size.  Pass 2 splits each block into frame shards:
+        each shard is uploaded to its device and assigned there (K1, K3 or
+        the dense route, with its drift), the labels come back to the first
+        device, where the accumulators, the fold and the label egress stay.
+        ``fit_centers`` is not sharded (as in the reference) and runs on the
+        first device.
     device : torch device the engine runs on (default 'cuda').
 
-    Not in this port: ``mesh`` (multi-device frame sharding) raises
-    :class:`NotImplementedError`, and the reference's opt-in
-    ``packed_retire`` (drift bit-cast into trailing egress columns, one
-    fetch instead of two at retirement) is left out: a fetch here is a
-    copy on its own stream and an event wait, and the drift of a block is
-    1 KB, so there is no round trip to save.
+    Not in this port: the reference's opt-in ``packed_retire`` (drift
+    bit-cast into trailing egress columns, one fetch instead of two at
+    retirement) is left out: a fetch here is a copy on its own stream and
+    an event wait, and the drift of a block is 1 KB, so there is no round
+    trip to save.
     With int64/float64 accumulators on the device there is no epoch spill:
     ``spill_every`` changes no result, and ``exact_jump_epochs_`` is 0.
     """
@@ -418,10 +477,7 @@ class StreamingLandmarkAnalysis:
                  async_label_copy=False, pipeline_depth=2,
                  retire_group=1, egress_pack12=True, verbose=True,
                  device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: multi-device frame sharding is not ported yet "
-                "(ROADMAP queue 1, item 13)")
+        self.mesh, self.device = bind_mesh(mesh, device)
         self.cutoff_midpoint = float(cutoff_midpoint)
         self.cutoff_steepness = float(cutoff_steepness)
         self.cutoff_shape = cutoff_shape
@@ -458,7 +514,6 @@ class StreamingLandmarkAnalysis:
         self.checkpoint_path = checkpoint_path
         self.checkpoint_every = int(checkpoint_every)
         self.verbose = verbose
-        self.device = torch.device(device)
         self.n_sites_ = None
 
     def _use_fused(self):
@@ -586,6 +641,13 @@ class StreamingLandmarkAnalysis:
                   and not isinstance(trajectory, np.ndarray)
                   else ArrayTrajectory(np.asarray(trajectory)))
         n_frames = len(reader)
+        n_dev = 1 if self.mesh is None else self.mesh.devices.size
+        if self.block_frames % n_dev:
+            raise ValueError(
+                "block_frames must be a multiple of the mesh size")
+        # the mesh's shards when there are several (a one-device mesh runs
+        # the unsharded path)
+        smesh = self.mesh if n_dev > 1 else None
         if centers is None:
             centers = self.fit_centers(sn, reader)
         centers = np.asarray(centers, np.float32)
@@ -686,11 +748,11 @@ class StreamingLandmarkAnalysis:
             cutoff_shape=self.cutoff_shape, cell=cell, cell_inv=cell_inv,
             kcell=kernel_cell(cell_np), static_ref=static_ref,
             want_drift=thr_drift is not None, egress_int16=egress_int16,
-            egress_pack12=egress_pack12, **plan)
+            egress_pack12=egress_pack12, mesh=smesh, **plan)
 
         W = max(0, self.pipeline_depth)
         G = self.retire_group if W else 1
-        lanes = _Lanes(dev, W + G + 1 if W else 0)
+        lanes = _Lanes(dev, W + G + 1 if W else 0, B, smesh)
         frame_ids = torch.arange(B, device=dev)
         self.rollbacks_ = 0
 
@@ -713,13 +775,26 @@ class StreamingLandmarkAnalysis:
             with ph("labels_memmap_write"):
                 labels_out[lo + a:lo + b] = lab[a:b]
 
+        def valid_frames(n, a, b):
+            """The mask of frames [a, b) of an ``n``-frame block."""
+            ids = frame_ids[:n]
+            return (ids >= a) & (ids < b)
+
+        def full(frames):
+            """A block's frames whole on the device: gathered from their
+            shards over the mesh."""
+            if isinstance(frames, ShardedFrames):
+                return gather_frames(frames, dev)
+            return frames
+
         def fold(a, b, labels, confs, mobile):
-            """Fold frames [a, b) of one block's assignment."""
+            """Fold frames [a, b) of one block's assignment (``mobile``: the
+            block's ion frames, whole)."""
             nonlocal carry
             with ph("dispatch_fold"):
                 carry = _accum_block(
                     labels, confs, mobile, cell_inv,
-                    (frame_ids >= a) & (frame_ids < b), carry, acc,
+                    valid_frames(labels.shape[0], a, b), carry, acc,
                     n_sites=K, max_mobile=self.max_mobile_per_site)
 
         def static_columns():
@@ -728,8 +803,7 @@ class StreamingLandmarkAnalysis:
 
         def upload_static(block):
             with ph("upload"):
-                return torch.as_tensor(block[:, static_columns()],
-                                       dtype=torch.float32, device=dev)
+                return place_frames(block[:, static_columns()], smesh, dev)
 
         def assign(mobile, static):
             """One block's assignment and the box its egress labels are
@@ -748,6 +822,7 @@ class StreamingLandmarkAnalysis:
             its host drift: valid only while ``perm`` is unchanged since it
             was made."""
             nonlocal perm, n_remaps
+            mobile_full = full(mobile)
             processed = 0
             last_remap = (-1, 0)
             need_assign = pre is None
@@ -779,7 +854,7 @@ class StreamingLandmarkAnalysis:
                                 frame=lo + processed + int(off[0]))
                         stop = processed + int(off[0])
                 if stop > processed:
-                    fold(processed, stop, labels, confs, mobile)
+                    fold(processed, stop, labels, confs, mobile_full)
                     write_labels(lo, processed, stop, box)
                 if stop < nb:
                     # a few remap attempts are allowed at one frame; any
@@ -807,7 +882,7 @@ class StreamingLandmarkAnalysis:
                         # the f32 device drift grazed the threshold but the
                         # f64 check finds no offender: accept the frame;
                         # the assignment stays valid (perm unchanged)
-                        fold(stop, stop + 1, labels, confs, mobile)
+                        fold(stop, stop + 1, labels, confs, mobile_full)
                         write_labels(lo, stop, stop + 1, box)
                         processed = stop + 1
                         continue
@@ -851,7 +926,7 @@ class StreamingLandmarkAnalysis:
                     snap = (carry, _snapshot(acc))
             (labels, confs, drift, _), box = assign(mobile, static)
             assigned = lanes.mark()
-            fold(0, nb, labels, confs, mobile)
+            fold(0, nb, labels, confs, full(mobile))
             window.append(dict(lo=lo, nb=nb, block=block, mobile=mobile,
                                labels=labels, confs=confs, drift=drift,
                                box=box, snap=snap, assigned=assigned))
@@ -917,13 +992,12 @@ class StreamingLandmarkAnalysis:
         _setup.__exit__()
         for lo, block in _timed_iter(feeder, pt, "feeder"):
             nb = len(block)
-            if nb < B:  # pad to the block shape (frames masked out)
-                from sitator_tpu_torch.parallel.mesh import pad_frames
-                block, _ = pad_frames(block, B)
+            # a short block runs on its own frames, padded only up to a
+            # multiple of the mesh size (the padding is masked out)
+            block, _ = pad_frames(block, n_dev)
             if W == 0:
                 with ph("upload"):
-                    mobile = torch.as_tensor(block[:, mobile_idx],
-                                             dtype=torch.float32, device=dev)
+                    mobile = place_frames(block[:, mobile_idx], smesh, dev)
                 process_block(lo, block, nb, mobile)
             else:
                 dispatch(lo, block, nb)

@@ -327,12 +327,22 @@ def membership_lists(A):
 
 def _members(basis, A):
     """:func:`membership_lists` of the basis on ``A``'s device, made once
-    per basis and device and kept in the basis dict (key ``members``)."""
-    cached = basis.get("members")
-    if cached is None or cached[0].device != A.device:
-        cached = membership_lists(A)
-        basis["members"] = cached
-    return cached
+    per basis and device and kept in the basis dict (key ``members``, a
+    dict by device: the shards of a frame mesh on several cards each read
+    their own)."""
+    by_dev = basis.setdefault("members", {})
+    cached = by_dev.get(A.device)
+    if cached is None:
+        lists = membership_lists(A)
+        made = (torch.cuda.current_stream(A.device).record_event()
+                if A.is_cuda else None)
+        cached = by_dev[A.device] = (lists, made)
+    lists, made = cached
+    if made is not None:
+        # the shards of a frame mesh read the lists from streams of their
+        # own: each waits for the stream that wrote them (no host wait)
+        torch.cuda.current_stream(A.device).wait_event(made)
+    return lists
 
 
 def _cell_on(basis, cell, device):
@@ -341,15 +351,15 @@ def _cell_on(basis, cell, device):
     dict (key ``cell_dev``).  The per-block path must not make them: a
     host→device copy from pageable memory waits for the stream, and
     ``torch.linalg.inv`` reads its error flag back on the host."""
+    by_dev = basis.setdefault("cell_dev", {})
     key = (str(device), cell.tobytes())
-    cached = basis.get("cell_dev")
-    if cached is None or cached[0] != key:
+    cached = by_dev.get(key)
+    if cached is None:
         cm = torch.from_numpy(cell).to(device)
         if cm.ndim == 1:
             cm = torch.diag(cm)
-        cached = (key, cm, torch.linalg.inv(cm))
-        basis["cell_dev"] = cached
-    return cached[1:]
+        cached = by_dev[key] = (cm, torch.linalg.inv(cm))
+    return cached
 
 
 def _basis_tensors(basis, device):

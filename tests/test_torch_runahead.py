@@ -300,12 +300,13 @@ def test_snapshot_only_with_drift_guard(md_system, centers, tmp_path):
 def test_lanes_on_cpu_copy_out_of_the_staging_ring():
     """On a CPU device an upload is a copy, so rewriting a slot later does
     not reach a tensor handed out earlier; downloads hand the tensor
-    through."""
-    lanes = tst._Lanes(torch.device("cpu"), 2)
+    through.  A block shorter than the slots goes up as its own frames."""
+    lanes = tst._Lanes(torch.device("cpu"), 2, 4)
     rng = np.random.default_rng(0)
     blocks = [rng.normal(size=(4, 6, 3)).astype(np.float32)
               for _ in range(3)]
     blocks.append(rng.normal(size=(4, 6, 3)))          # float64 source
+    blocks.append(rng.normal(size=(3, 6, 3)).astype(np.float32))  # short
     idx = (np.array([0, 2]), np.array([5, 1, 3]))
     ups = [lanes.upload(b, idx) for b in blocks]
     for b, (mob, sta) in zip(blocks, ups):

@@ -196,9 +196,11 @@ def test_pipeline_gather_route_chained_blocks():
 
 @pytest.mark.parametrize("engine", ["landmark", "pipeline", "streaming"])
 def test_engines_accept_mesh_none_and_refuse_a_mesh(system, engine):
-    """``mesh=None`` is what a reference script passes on one device: every
-    engine takes it, and raises ``NotImplementedError`` naming the queued
-    multi-device item for a mesh.  ``interpret`` stays out of the port."""
+    """``mesh=None`` is what a reference script passes on one device, and
+    every engine takes it; every engine takes the port's frame meshes too,
+    one device or eight shards.  A mesh of the reference's (a JAX mesh) is
+    refused with a ``TypeError``, and so is a mesh whose first device is
+    not the engine's.  ``interpret`` stays out of the port."""
     frames, seeds = system
     n_landmarks = int(seeds.static_mask.sum())
     if engine == "pipeline":
@@ -214,9 +216,17 @@ def test_engines_accept_mesh_none_and_refuse_a_mesh(system, engine):
         def make(**kw):
             return cls(cutoff_midpoint=4.0, cutoff_steepness=3.0,
                        verbose=False, device="cpu", **kw)
+    from sitator_tpu_torch.parallel import frame_mesh as port_frame_mesh
     assert make(mesh=None) is not None
-    with pytest.raises(NotImplementedError, match="item 13"):
+    for n in (1, 8):
+        mesh = port_frame_mesh(devices=["cpu"] * n)
+        eng = make(mesh=mesh)
+        assert eng.mesh is mesh and eng.mesh.devices.size == n
+        assert eng.device == torch.device("cpu")
+    with pytest.raises(TypeError, match="FrameMesh"):
         make(mesh=frame_mesh(n_devices=1))
+    with pytest.raises(ValueError, match="first device"):
+        make(mesh=port_frame_mesh(devices=["meta"] * 2))
     with pytest.raises(TypeError, match="interpret"):
         make(interpret=True)
     if engine == "landmark":

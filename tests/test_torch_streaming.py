@@ -405,10 +405,11 @@ def test_pack12_words_match_reference():
 @pytest.mark.parametrize("kw", [dict(mesh=object()), dict(pipeline_depth=2),
                                 dict(async_label_copy=True)])
 def test_not_ported_arguments_raise(kw):
-    """``mesh`` raises; the run-ahead arguments, which raised until the
-    dispatcher was ported, are accepted and kept."""
+    """A ``mesh`` that is not a frame mesh raises (frame meshes are taken:
+    ``tests/test_torch_mesh.py``); the run-ahead arguments, which raised
+    until the dispatcher was ported, are accepted and kept."""
     if "mesh" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(TypeError, match="FrameMesh"):
             port.StreamingLandmarkAnalysis(device="cpu", **kw)
         return
     eng = port.StreamingLandmarkAnalysis(device="cpu", **kw)
