@@ -149,14 +149,24 @@ Phases; any failure exits non-zero before the result lines:
    card; 256 frames at ``block_frames=1024`` against 256 (time and peak
    device memory, equal results); a real 2-card mesh when the machine has
    two cards;
-12. K3's own path at the bench width: the bench's sites, each with a
+12. frame sharding across processes (``phase_multiprocess``): 2 ranks in a
+   gloo group on the one card, each a fresh interpreter with a one-shard
+   ``frame_mesh``, run the step through K1 over the pipeline's 8 x 32
+   frames with the carry (16 frames a rank a block, placed by
+   ``shard_frames_local``) and through K3 over 2 x 32 frames of K3's
+   system; with two or more cards also an NCCL group, rank r on cuda:r (4
+   ranks with four cards).  Every rank's labels, confidences and tallies
+   bit-equal to the unmeshed pipeline run here, launches == blocks x
+   global shards, frames/s against the unmeshed pipeline; a rank that
+   fails, hangs past 300 s or imports jax fails the phase;
+13. K3's own path at the bench width: the bench's sites, each with a
    tetrahedron of its own 4 static atoms (no vertex shared, 37,044 static
    atoms): ``SpmdLandmarkPipeline`` (route 'gather', 8 x 32 frames with the
    carry, timed, profiled) held to the dense route and the int64 oracle,
    then ``StreamingLandmarkAnalysis`` fit and pass 2 (route 'gather', 1024
    frames in 256-frame blocks, timed) held to the oracle and to the
    pipeline;
-13. one JSON line of per-kernel results, then the ``ok`` line, last.
+14. one JSON line of per-kernel results, then the ``ok`` line, last.
 
 Label comparisons are gated on the reference's top-2 margin: labels must be
 equal wherever the best and second-best cosine similarities (f32, from the
@@ -2978,6 +2988,290 @@ def phase_mesh(device, ctx):
                                 for k, v in stream_fps.items()}}
 
 
+MP_DEADLINE = 300      # seconds a group of ranks may run before it is killed
+
+
+def mp_system(sy, frames):
+    """The arrays a rank rebuilds a system from (:func:`mp_load`)."""
+    return dict(static_ref=sy["static_ref"], site_pos=sy["site_pos"],
+                cell=sy["cell"], verts=sy["verts"],
+                mobile=sy["mobile"][:1], centers=sy["centers"],
+                frames=frames)
+
+
+def mp_load(path, device):
+    """A rank's system: its network, the K1 and K3 arguments the unmeshed
+    ``SpmdLandmarkPipeline`` gives its route on ``device``, and the
+    frames."""
+    import torch
+    from sitator_tpu_torch.ops import landmark_mxu as mx
+    from sitator_tpu_torch.ops.kernel_common import kernel_cell
+    with np.load(path) as d:
+        sy = {k: d[k] for k in d.files}
+    sn = site_network(sy)
+    verts, vmask = sn.padded_vertices()
+    static_idx = np.flatnonzero(sn.static_mask)
+    K = len(sy["centers"])
+    basis = mx.prepare_engine_basis(
+        verts, vmask, sn.centers, sn.structure.cell, midpoint=MID,
+        steepness=STEEP, cutoff_shape=CUTOFF,
+        static_ref=sn.structure.positions[static_idx], drift_budget=3.0)
+    a = dict(kcell=kernel_cell(sn.structure.cell), n_sites=K,
+             active_idx=torch.arange(K, dtype=torch.int32, device=device),
+             centers=torch.as_tensor(sy["centers"], device=device),
+             verts=torch.as_tensor(verts, device=device),
+             vmask=torch.as_tensor(vmask, device=device),
+             full_mask=bool(vmask.all()))
+    if basis is not None:
+        a["basis"] = mx.basis_from_jax(basis, device)
+        a["perm"] = torch.as_tensor(mx.permute_centers(sy["centers"], basis),
+                                    device=device)
+    return (sy["frames"], np.flatnonzero(sn.mobile_mask), static_idx), a
+
+
+def mp_pass(rank, world, mesh, system, route):
+    """One pass of the system's 32-frame blocks through ``route``'s step
+    across the ranks, the carry chained: each rank places its 32 / world
+    frames of a block with ``shard_frames_local``.  Returns [(labels,
+    confs, stats)] per block, on every rank the whole block's."""
+    from sitator_tpu_torch.parallel import shard_frames_local
+    from sitator_tpu_torch.parallel.pipeline import (fused_analysis_step,
+                                                     mxu_analysis_step)
+    (frames, mobile_idx, static_idx), a = system
+    kw = dict(midpoint=MID, steepness=STEEP, threshold=THR,
+              cutoff_shape=CUTOFF, active_idx=a["active_idx"],
+              n_sites=a["n_sites"])
+    slab = 32 // world
+    carry, out = None, []
+    for lo in range(0, len(frames), 32):
+        mine = frames[lo + rank * slab:lo + (rank + 1) * slab]
+        mob = shard_frames_local(
+            np.ascontiguousarray(mine[:, mobile_idx], np.float32), mesh)
+        sta = shard_frames_local(
+            np.ascontiguousarray(mine[:, static_idx], np.float32), mesh)
+        if route == "mxu":
+            labels, confs, stats = mxu_analysis_step(
+                mesh, mob, sta, a["basis"], a["kcell"], a["perm"],
+                carry=carry, **kw)
+        else:
+            labels, confs, stats = fused_analysis_step(
+                mesh, mob, sta, a["verts"], a["vmask"], a["kcell"],
+                a["centers"], full_mask=a["full_mask"], carry=carry, **kw)
+        carry = (stats["last_sites"], stats["last_res"])
+        out.append((labels.cpu().numpy(), confs.cpu().numpy(),
+                    {k: v.cpu().numpy() for k, v in stats.items()}))
+    return out
+
+
+def mp_worker(rank, world, backend, tmp):
+    """One rank of :func:`phase_multiprocess`: joins the group (``backend``
+    through the file ``tmp/rendezvous``; under gloo every rank on cuda:0,
+    under NCCL rank r on cuda:r), builds the frame mesh of one shard a rank,
+    runs K1's system (``tmp/k1.npz``) and K3's (``tmp/k3.npz``) through
+    their steps, timed five times, and writes its results, launches and
+    seconds to ``tmp/rank{rank}.npz``.  Fails if jax or sitator_tpu was
+    imported."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from sitator_tpu_torch.parallel import frame_mesh
+    tmp = Path(tmp)
+    device = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False     # as in phase_device
+    dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    out = {}
+    try:
+        mesh = frame_mesh(devices=[device])
+        check(mesh.devices.size == world and mesh.local == [rank],
+              f"rank {rank}: mesh {mesh}, local {mesh.local}")
+        for route, name in (("mxu", "k1"), ("gather", "k3")):
+            system = mp_load(tmp / f"{name}.npz", device)
+            reset_launches()
+            runs = mp_pass(rank, world, mesh, system, route)
+            out[f"{name}_launches"] = read_launches()["K1" if route == "mxu"
+                                                      else "K3"]
+            for b, (labels, confs, stats) in enumerate(runs):
+                out[f"{name}_{b}_labels"], out[f"{name}_{b}_confs"] = (
+                    labels, confs)
+                for k in STAT_KEYS:
+                    out[f"{name}_{b}_{k}"] = stats[k]
+            seconds = []
+            for _ in range(5):
+                dist.barrier()
+                sync()
+                t0 = time.perf_counter()
+                mp_pass(rank, world, mesh, system, route)
+                sync()
+                seconds.append(time.perf_counter() - t0)
+            out[f"{name}_seconds"] = np.array(seconds)
+            del system
+    finally:
+        dist.destroy_process_group()
+    check(not any(m.split(".")[0] in ("jax", "sitator_tpu")
+                  for m in sys.modules), "a rank imported jax or sitator_tpu")
+    np.savez(tmp / f"rank{rank}.npz", **out)
+
+
+def run_group(tmp, world, backend):
+    """Start ``world`` ranks of :func:`mp_worker`, each a fresh interpreter;
+    wait until all end, one fails or :data:`MP_DEADLINE` passes, then kill
+    what still runs.  Fails unless every rank exits 0.  Returns each rank's
+    results."""
+    import os
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", NCCL_SOCKET_IFNAME="lo")
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "chip_smoke.mp_worker(int(sys.argv[2]), int(sys.argv[3]), "
+            "*sys.argv[4:6])")
+    logs = [Path(tmp) / f"rank{r}.log" for r in range(world)]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for r in range(world):
+            with open(logs[r], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", code, str(ROOT), str(r),
+                     str(world), backend, str(tmp)],
+                    cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT))
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) \
+                    or time.perf_counter() - t0 > MP_DEADLINE:
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for p in procs:
+            p.wait()
+    rcs = [p.returncode for p in procs]
+    check(rcs == [0] * world, f"{backend} ranks exited {rcs} after "
+          f"{time.perf_counter() - t0:.1f} s:\n" + "\n".join(
+              f"--- rank {r}\n{log.read_text()[-3000:]}"
+              for r, log in enumerate(logs)))
+    ranks = []
+    for r in range(world):
+        with np.load(Path(tmp) / f"rank{r}.npz") as d:
+            ranks.append({k: d[k] for k in d.files})
+    return ranks, time.perf_counter() - t0
+
+
+def check_group(label, ranks, name, want, n_shards):
+    """Every rank's blocks bit-equal to the unmeshed pipeline's ``want``
+    (labels, confidences, every tally), and the kernel's launches ==
+    blocks x global shards.  Returns the launches and the pass's frames/s
+    over the five timed runs (the slowest rank's time each)."""
+    for r, got in enumerate(ranks):
+        for b, (lw, cw, sw) in enumerate(want):
+            check(np.array_equal(got[f"{name}_{b}_labels"], lw),
+                  f"{label}: rank {r}, block {b}: labels differ on "
+                  f"{int((got[f'{name}_{b}_labels'] != lw).sum())} rows")
+            check(np.array_equal(got[f"{name}_{b}_confs"], cw),
+                  f"{label}: rank {r}, block {b}: confidences differ by "
+                  f"{float(np.abs(got[f'{name}_{b}_confs'] - cw).max()):.3g}")
+            for k in STAT_KEYS:
+                check(np.array_equal(got[f"{name}_{b}_{k}"], sw[k]),
+                      f"{label}: rank {r}, block {b}: {k} differs")
+    launches = sum(int(got[f"{name}_launches"]) for got in ranks)
+    check(launches == len(want) * n_shards, f"{label}: {launches} launches "
+          f"for {len(want)} blocks x {n_shards} shards")
+    n_frames = 32 * len(want)
+    secs = np.max([got[f"{name}_seconds"] for got in ranks], axis=0)
+    return launches, [n_frames / s for s in secs]
+
+
+def phase_multiprocess(device, ctx):
+    """The multi-process frame mesh on the card: 2 ranks under gloo, each a
+    fresh process on cuda:0 with a one-shard mesh (2 global shards), run
+    the step through K1 over the bench pipeline's 8 x 32 frames with the
+    carry (each block split 16/16 by ``shard_frames_local``) and through
+    K3 on the no-sharing bench system's 2 x 32 frames; with two or three
+    cards the same under NCCL, 2 ranks, rank r on cuda:r, with four or more
+    4 ranks.  Each rank's labels, confidences and
+    tallies must be bit-equal to the unmeshed ``SpmdLandmarkPipeline`` run
+    here on the same frames, and K1/K3 launches == blocks x global shards.
+    Returns the launch counts and the frames/s of both against the
+    unmeshed pipeline's."""
+    import tempfile
+    import torch
+    from sitator_tpu_torch import SpmdLandmarkPipeline
+
+    t_phase = time.perf_counter()
+    smi = "; ".join(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines())
+    print(f"multi-process phase on {smi}", flush=True)
+    pk = dict(cutoff_midpoint=MID, cutoff_steepness=STEEP,
+              cutoff_shape=CUTOFF, assignment_threshold=THR, device=device)
+    sy, frames = ctx["sy"], ctx["frames"][:256]
+    K = len(sy["centers"])
+    ref = SpmdLandmarkPipeline(ctx["sn"], sy["centers"], np.ones(K, bool),
+                               **pk)
+    check(ref.route == "mxu", f"bench pipeline route {ref.route}")
+    blocks = [frames[i:i + 32] for i in range(0, 256, 32)]
+    want = one_pass(ref, blocks)
+    unmeshed = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        one_pass(ref, blocks)
+        unmeshed.append(256 / (time.perf_counter() - t0))
+    ns = add_site_centres(no_sharing_bench_system(64, seed=23), device)
+    ns_frames = frames_of(ns)
+    ref_g = SpmdLandmarkPipeline(site_network(ns), ns["centers"],
+                                 np.ones(len(ns["centers"]), bool), **pk)
+    check(ref_g.route == "gather", f"no-sharing route {ref_g.route}")
+    gb = [ns_frames[:32], ns_frames[32:]]
+    want_g = one_pass(ref_g, gb)
+    unmeshed_g = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        one_pass(ref_g, gb)
+        unmeshed_g.append(64 / (time.perf_counter() - t0))
+    del ref, ref_g
+    torch.cuda.empty_cache()
+    launches = dict.fromkeys(KERNELS, 0)
+    fps = {"K1": {"unmeshed": float(np.median(unmeshed))},
+           "K3": {"unmeshed": float(np.median(unmeshed_g))}}
+    n_cards = torch.cuda.device_count()
+    groups = [("gloo", 2, "2 ranks on one card (gloo)")]
+    if n_cards >= 2:
+        world = 4 if n_cards >= 4 else 2
+        groups.append(("nccl", world, f"{world} ranks on {world} cards "
+                       "(NCCL)"))
+    for backend, world, label in groups:
+        with tempfile.TemporaryDirectory() as tmp:
+            np.savez(Path(tmp) / "k1.npz", **mp_system(sy, frames))
+            np.savez(Path(tmp) / "k3.npz", **mp_system(ns, ns_frames))
+            ranks, sec = run_group(tmp, world, backend)
+        k1, k1_fps = check_group(f"K1 step, {label}", ranks, "k1", want,
+                                 world)
+        k3, k3_fps = check_group(f"K3 step, {label}", ranks, "k3", want_g,
+                                 world)
+        launches["K1"] += k1
+        launches["K3"] += k3
+        fps["K1"][backend] = float(np.median(k1_fps))
+        fps["K3"][backend] = float(np.median(k3_fps))
+        print(f"{label}: the step through K1 (8 x 32 bench frames, carry, "
+              f"{32 // world} frames a rank a block by shard_frames_local) "
+              "and through "
+              f"K3 (2 x 32 frames without vertex sharing) == the unmeshed "
+              f"pipeline on every rank: labels, confidences and every jump "
+              f"statistic bit-equal; launches K1 {k1}, K3 {k3} == blocks x "
+              f"shards; frames/s, median of 5 [min, max]: K1 "
+              f"{spread(k1_fps)}, K3 {spread(k3_fps)}; the unmeshed "
+              f"pipeline (this process, before the ranks): K1 "
+              f"{spread(unmeshed)}, K3 {spread(unmeshed_g)}; the group "
+              f"{sec:.1f} s ({smi})", flush=True)
+    if len(groups) == 1:
+        print(f"NCCL group: not run ({n_cards} card)", flush=True)
+    print(f"multi-process phase: launches {launches}; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, fps
+
+
 def one_pass(pipe, blocks):
     """Run consecutive frame blocks through a pipeline, chaining the jump
     carry.  Returns [(labels, confs, stats)] per block."""
@@ -3103,6 +3397,7 @@ def main():
     phase_transport("cuda", dict(ctx, **net_ctx))
     paths["cli"] = phase_cli("cuda", ctx)
     paths["mesh"], mesh_fps = phase_mesh("cuda", ctx)
+    paths["multiprocess"], mp_fps = phase_multiprocess("cuda", ctx)
     del ctx, net_ctx
     paths["gather"], gather_fps, gather_stream_fps = phase_gather("cuda")
     check(not any(m == "jax" or m.startswith("jax.") for m in sys.modules),
@@ -3124,6 +3419,8 @@ def main():
           f"pass 2 frames/s: K1 {stream_fps:.1f} (depth 2 {depth_fps[2]:.1f}, "
           f"depth 0 {depth_fps[0]:.1f}), K3 {gather_stream_fps:.1f}; "
           f"by mesh size (median frames/s): {json.dumps(mesh_fps)}; "
+          f"across processes (median frames/s): "
+          f"{json.dumps(mp_fps)}; "
           f"total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -36,7 +36,11 @@ Differences from the reference, none of which changes a result:
   computed on its own frames, padded only up to a multiple of the mesh size,
   where the reference pads every block to ``block_frames`` for its one
   compiled shape; ``packed_retire`` (drift riding in the egress columns) is
-  not ported.
+  not ported;
+- a mesh that spans processes is refused when the engine is built, where
+  the reference's engine takes a pod's mesh and fails when it fetches its
+  labels; across processes the analysis steps of
+  :mod:`sitator_tpu_torch.parallel.pipeline` run on every rank.
 """
 from __future__ import annotations
 

@@ -10,6 +10,13 @@ the dense assignment) runs once per frame shard through
 :func:`~sitator_tpu_torch.parallel.mesh.shard_map_frames`; labels and
 confidences are gathered on the mesh's first device, where the label remap
 and the jump statistics run once over the whole block.
+
+Across processes (a mesh that spans the ranks of a process group) each rank
+calls the step on the same block: it runs the kernel on its own shards, the
+gather all-gathers the labels and confidences onto its first device, and
+the statistics, computed on every rank from the same labels and the same
+carry, come out equal on every rank, as the reference's replicated
+``psum`` output does.  :class:`SpmdLandmarkPipeline` stays in one process.
 """
 from __future__ import annotations
 
@@ -19,8 +26,8 @@ import torch
 from sitator_tpu_torch.ops import landmark as lmops
 from sitator_tpu_torch.ops.jumps import (JumpStats, _jump_stats,
                                          _jump_stats_parallel)
-from sitator_tpu_torch.parallel.mesh import (FrameMesh, bind_mesh,
-                                             frame_mesh, pad_frames,
+from sitator_tpu_torch.parallel.mesh import (FrameMesh, ShardedFrames,
+                                             _cards, bind_mesh, pad_frames,
                                              place_frames, run_sharded)
 
 __all__ = ["SpmdLandmarkPipeline", "analysis_step", "fused_analysis_step",
@@ -36,7 +43,9 @@ def mxu_analysis_step(mesh, mobile, static, basis, cell, centers_perm, *,
     of ``mesh`` (None: the one device of the inputs).  ``mobile`` /
     ``static`` are tensors or :class:`ShardedFrames`; ``basis`` from
     ``prepare_mxu_basis`` (tensors), ``centers_perm`` with kd-ordered
-    columns.  Returns (labels, confs, stats) on the mesh's first device."""
+    columns.  Returns (labels, confs, stats) on the mesh's first device
+    (across processes: on every rank's first device, the same on every
+    rank)."""
     from sitator_tpu_torch.ops.landmark_mxu import mxu_assign_blocks
 
     def local(mobile, static, basis, cell, centers_perm):
@@ -139,12 +148,22 @@ def analysis_step(mobile, static, A, cell, cell_inv, centers, active,
                   cutoff_shape="logistic", valid=None, carry=None):
     """The dense analysis step: ``mobile (F, M, 3)``, ``static (F, N, 3)``,
     ``A (N, S)``, ``centers (K, S)``, ``active (K,)``.  Returns (labels
-    (F, M), confs (F, M), jump statistics over ``n_sites``)."""
-    labels, confs = _dense_assign(
-        mobile, static, A, cell, cell_inv, centers, active,
-        midpoint=cutoff_midpoint, steepness=cutoff_steepness,
-        threshold=assignment_threshold, peak_evening=peak_evening,
-        matmul_dtype=matmul_dtype, cutoff_shape=cutoff_shape)
+    (F, M), confs (F, M), jump statistics over ``n_sites``).  As in the
+    reference, the placement of the frames selects the mesh: tensors run
+    on their device, :class:`ShardedFrames` once per shard of their mesh,
+    gathered as in :func:`mxu_analysis_step`."""
+    mesh = next((a.mesh for a in (mobile, static)
+                 if isinstance(a, ShardedFrames)), None)
+
+    def local(mobile, static, A, cell, cell_inv, centers, active):
+        return _dense_assign(
+            mobile, static, A, cell, cell_inv, centers, active,
+            midpoint=cutoff_midpoint, steepness=cutoff_steepness,
+            threshold=assignment_threshold, peak_evening=peak_evening,
+            matmul_dtype=matmul_dtype, cutoff_shape=cutoff_shape)
+
+    labels, confs = run_sharded(local, mesh, 2, mobile, static, A, cell,
+                                cell_inv, centers, active)
     labels, stats = _block_stats(labels, n_sites, valid, carry)
     return labels, confs, stats
 
@@ -158,13 +177,13 @@ class SpmdLandmarkPipeline:
     seed_sn : SiteNetwork with vertices — the landmark basis.
     centers : (K, S_landmark) fitted cluster centres (unit rows).
     active : (K,) bool — live clusters; labels use the fitted indexing.
-    mesh : a :class:`~sitator_tpu_torch.parallel.mesh.FrameMesh`.  None
-        builds one: ``frame_mesh()`` (every visible card) for
-        ``device="cuda"``, else a mesh of ``device`` alone.  Its first
-        device must be ``device``.  Blocks are padded to a multiple of the
-        mesh size (padding frames are masked out of the statistics) and
-        each frame shard runs the route's kernel; a one-device mesh calls
-        the step directly.
+    mesh : a :class:`~sitator_tpu_torch.parallel.mesh.FrameMesh` of this
+        process's devices (one that spans processes raises).  None builds
+        one: every visible card for ``device="cuda"``, else a mesh of
+        ``device`` alone.  Its first device must be ``device``.  Blocks
+        are padded to a multiple of the mesh size (padding frames are
+        masked out of the statistics) and each frame shard runs the
+        route's kernel; a one-device mesh calls the step directly.
     use_fused : 'auto' (the kernels on CUDA) | True | False (dense step).
     static_drift_budget : Å static atoms may drift from the seed structure;
         the tile-preshift bound budgets for it (None disables preshift).
@@ -182,8 +201,8 @@ class SpmdLandmarkPipeline:
         from sitator_tpu_torch.ops.kernel_common import kernel_cell
         if mesh is None:
             d = torch.device(device)
-            mesh = (frame_mesh() if d.type == "cuda" and d.index is None
-                    else FrameMesh([d]))
+            mesh = FrameMesh(_cards() if d.type == "cuda"
+                             and d.index is None else [d])
         self.mesh, self.device = bind_mesh(mesh, device)
         dev = self.device
         self.n_devices = self.mesh.devices.size
@@ -289,19 +308,12 @@ class SpmdLandmarkPipeline:
                 active_idx=self._active_idx_t, n_sites=self.n_sites,
                 full_mask=self._full_mask, **kw)
         else:
-            def local(mobile, static, A, cell, cell_inv, centers, active):
-                return _dense_assign(
-                    mobile, static, A, cell, cell_inv, centers, active,
-                    midpoint=self.cutoff_midpoint,
-                    steepness=self.cutoff_steepness,
-                    threshold=self.assignment_threshold,
-                    peak_evening=self.peak_evening,
-                    cutoff_shape=self.cutoff_shape)
-
-            labels, confs = run_sharded(
-                local, self.mesh, 2, mobile, static, self.A, self.cell,
-                self.cell_inv, self.centers, self.active)
-            labels, stats = _block_stats(labels, self.n_sites, valid, carry)
+            labels, confs, stats = analysis_step(
+                mobile, static, self.A, self.cell, self.cell_inv,
+                self.centers, self.active, self.cutoff_midpoint,
+                self.cutoff_steepness, self.assignment_threshold,
+                self.n_sites, self.peak_evening,
+                cutoff_shape=self.cutoff_shape, valid=valid, carry=carry)
         return (labels[:n_valid].cpu().numpy(),
                 confs[:n_valid].cpu().numpy(),
                 JumpStats({k: v.cpu().numpy() for k, v in stats.items()}))
