@@ -5,6 +5,9 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py cards`` runs only phases 1, 2 and 6 (the context)
+and the real-card mesh of phase 11, for a machine with several cards.
+
 Phases; any failure exits non-zero before the result lines:
 
 1. device: the card's name and power limit (``nvidia-smi``), the CUDA and
@@ -147,8 +150,20 @@ Phases; any failure exits non-zero before the result lines:
    of a pass (no more a block on 4 shards); frames/s of both at each mesh
    size, median of 5 in turns; ``graft_entry.dryrun_multichip(4)`` on the
    card; 256 frames at ``block_frames=1024`` against 256 (time and peak
-   device memory, equal results); a real 2-card mesh when the machine has
-   two cards;
+   device memory, equal results); then (``phase_cards``) the mesh on 2 and
+   4 real cards, where the machine has them, held to the unmeshed run of
+   the same process in the same way (confidences bit-equal), launches
+   counted per card (== blocks x the card's shards, by the wrappers'
+   ``launches_by_card`` and by the profiler's kernels on each card): the
+   pipeline through K1 and K3, pass 2 through K1 at depths 2 and 0, a
+   lattice exchange with its rollback, ``LandmarkAnalysis`` on 16 frames,
+   a replicated argument written in place between two sharded calls;
+   frames/s on 1, 2 and 4 cards against the unmeshed run (median of 5 in
+   turns), device time by kernel per card for one pass of each engine;
+   then ``LandmarkAnalysis`` (K2), the pipeline and pass 2 (K1) on the
+   last card alone (``device="cuda:N"``), held to card 0.  Every step
+   runs, a fault is printed as it is found, and the phase fails after the
+   last step if any step failed;
 12. frame sharding across processes (``phase_multiprocess``): 2 ranks in a
    gloo group on the one card, each a fresh interpreter with a one-shard
    ``frame_mesh``, run the step through K1 over the pipeline's 8 x 32
@@ -868,6 +883,9 @@ def reset_launches():
     mx.mxu_assign_blocks.skew_launches = 0
     mx.mxu_landmark_blocks.launches = 0
     lp.fused_assign_blocks.launches = 0
+    for fn in (mx.mxu_assign_blocks, mx.mxu_landmark_blocks,
+               lp.fused_assign_blocks):
+        fn.launches_by_card.clear()
 
 
 def read_launches():
@@ -879,6 +897,17 @@ def read_launches():
                 K2=mx.mxu_landmark_blocks.launches,
                 K3=lp.fused_assign_blocks.launches,
                 K1s=mx.mxu_assign_blocks.skew_launches)
+
+
+def read_launches_by_card():
+    """K1's, K2's and K3's launches by card index, after every card has
+    synchronised."""
+    from sitator_tpu_torch.ops import landmark_mxu as mx
+    from sitator_tpu_torch.ops import landmark_pallas as lp
+    sync_cards()
+    return dict(K1=dict(mx.mxu_assign_blocks.launches_by_card),
+                K2=dict(mx.mxu_landmark_blocks.launches_by_card),
+                K3=dict(lp.fused_assign_blocks.launches_by_card))
 
 
 def phase_slice(device):
@@ -2784,8 +2813,8 @@ def phase_mesh(device, ctx):
     exchange on 4 shards), host synchronisations a pass, frames/s at each
     mesh size (median of 5 in turns); ``dryrun_multichip(4)`` on the card;
     a short input at a large ``block_frames`` against its own block size
-    (time and peak memory); a real 2-card mesh when there are two cards.
-    Returns the launch counts and the frames/s by mesh size."""
+    (time and peak memory).  Real cards: :func:`phase_cards`.  Returns the
+    launch counts and the frames/s by mesh size."""
     import tempfile
     import torch
     from sitator_tpu_torch import SpmdLandmarkPipeline
@@ -2958,27 +2987,6 @@ def phase_mesh(device, ctx):
     print(f"dryrun_multichip(4) on {device}: {time.perf_counter() - t0:.1f} "
           "s", flush=True)
 
-    # 6. real cards
-    n_cards = torch.cuda.device_count()
-    if n_cards >= 2:
-        real = frame_mesh(n_devices=2)
-        pipe = SpmdLandmarkPipeline(sn, centers, np.ones(K, bool), mesh=real,
-                                    **pk)
-        err = same_passes("pipeline on 2 cards", one_pass(pipe, blocks),
-                          want)
-        t0 = time.perf_counter()
-        one_pass(pipe, blocks)
-        pfps = 256 / (time.perf_counter() - t0)
-        with tempfile.TemporaryDirectory() as tmp:
-            base = run_streaming(ctx, tmp, "r1")
-            sla, out, lab, sec = run_streaming(ctx, tmp, "r2", mesh=real)
-            check_same_streaming("pass 2 on 2 cards", out, base[1], lab,
-                                 base[2])
-        print(f"real 2-card mesh: pipeline == unmeshed ({conf_words(err)}), "
-              f"{pfps:.1f} frames/s; pass 2 == unmeshed, "
-              f"{n_frames / sec:.1f} frames/s", flush=True)
-    else:
-        print(f"real multi-card mesh: not run ({n_cards} card)", flush=True)
     launches = launches_since(start)
     print(f"mesh phase: launches {launches}; "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -2986,6 +2994,402 @@ def phase_mesh(device, ctx):
                                    for k, v in fps.items()},
                       "pass2": {k: float(np.median(v))
                                 for k, v in stream_fps.items()}}
+
+
+def card_names():
+    """``nvidia-smi``'s name and power limit of every card, one a line."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()
+
+
+def sync_cards():
+    """Wait for every card."""
+    import torch
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(d)
+
+
+def per_card(mesh, n):
+    """``n`` for each of ``mesh``'s shards, summed by card index."""
+    out = {}
+    for d in mesh.devices:
+        out[d.index] = out.get(d.index, 0) + n
+    return out
+
+
+def card_launches_since(before, key):
+    """``key``'s launches by card since ``before`` (a
+    :func:`read_launches_by_card`), cards without one left out."""
+    now = read_launches_by_card()[key]
+    got = {d: now.get(d, 0) - before[key].get(d, 0) for d in now}
+    return {d: n for d, n in sorted(got.items()) if n}
+
+
+def kernel_name(name):
+    """A device event's name cut to its kernel (``lv_tile_kernel``, ...) or
+    copy."""
+    import re
+    m = re.search(r"(\w+_kernel)", name)
+    return m.group(1) if m else name[:40]
+
+
+def device_time_by_card(fn):
+    """``fn()`` under ``torch.profiler``: returns ``(fn's result, {card:
+    {kernel or copy: [ms, count]}})`` from the device's own events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sync_cards()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        sync_cards()
+    cards = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and e.device_time_total > 0:
+            slot = cards.setdefault(e.device_index, {}).setdefault(
+                kernel_name(e.name), [0.0, 0])
+            slot[0] += e.device_time_total / 1e3
+            slot[1] += 1
+    return out, cards
+
+
+def print_cards(label, cards, n_top=6):
+    for d, by in sorted(cards.items()):
+        total = sum(ms for ms, _ in by.values())
+        top = sorted(by.items(), key=lambda kv: -kv[1][0])[:n_top]
+        print(f"{label}, card {d}: device {total:.3f} ms; " + "; ".join(
+            f"{k} {ms:.3f} ms x{n}" for k, (ms, n) in top), flush=True)
+
+
+def kernel_counts(cards, kernel):
+    """How many ``kernel`` events each card ran (cards with none left
+    out)."""
+    return {d: by[kernel][1] for d, by in sorted(cards.items())
+            if kernel in by}
+
+
+def phase_cards(ctx):
+    """The engines' ``mesh=`` on 2 and 4 real cards (``frame_mesh(
+    n_devices=n)``), where the machine has them, each held to the
+    unmeshed run of this process (card 0): the pipeline through K1 (8 x 32
+    bench frames, carry) and K3 (2 x 32 frames without vertex sharing),
+    pass 2 through K1 at depths 2 and 0, one lattice exchange with its
+    rollback, ``LandmarkAnalysis`` on 16 frames (the dense route on a mesh,
+    held to the unmeshed dense route); labels and every tally equal,
+    confidences bit-equal, pass 2's floats within 1e-9; launches per card
+    == blocks x the card's shards, by the wrappers' counters and by the
+    kernels the profiler saw on each card.  A replicated argument written
+    in place between two sharded calls must reach every card.  Then
+    frames/s on 1, 2 and 4 cards against the unmeshed run (median of 5 in
+    turns), device time by kernel per card for one pass of the pipeline and
+    of pass 2 on the largest mesh, and ``LandmarkAnalysis`` (K2), the
+    pipeline and pass 2 (K1) on the last card alone, held to card 0.  Every
+    step runs; a fault is printed when it is found, and the phase fails
+    after the last step if any was.  Returns the launch counts and the frames/s
+    (empty with one card)."""
+    import tempfile
+    import torch
+    from sitator_tpu_torch import LandmarkAnalysis, SpmdLandmarkPipeline
+    from sitator_tpu_torch.parallel import frame_mesh
+    from sitator_tpu_torch.parallel.mesh import (gather_frames,
+                                                 shard_map_frames)
+
+    n_cards = torch.cuda.device_count()
+    start = read_launches()
+    if n_cards < 2:
+        print(f"real multi-card mesh: not run ({n_cards} card)", flush=True)
+        return launches_since(start), {}
+    t_phase = time.perf_counter()
+    for d, line in enumerate(card_names()):
+        print(f"card {d}: {line}", flush=True)
+    print("peer access from card 0: " + ", ".join(
+        f"card {i} {torch.cuda.can_device_access_peer(0, i)}"
+        for i in range(1, n_cards)), flush=True)
+    sizes = [n for n in (2, 4) if n <= n_cards]
+    meshes = {n: frame_mesh(n_devices=n) for n in sizes}
+    sy, sn, frames = ctx["sy"], ctx["sn"], ctx["frames"]
+    n_frames = len(frames)
+    centers = sy["centers"]
+    K = len(centers)
+    pk = dict(cutoff_midpoint=MID, cutoff_steepness=STEEP,
+              cutoff_shape=CUTOFF, assignment_threshold=THR)
+    blocks = [frames[i:i + 32] for i in range(0, 256, 32)]
+    faults = []
+
+    def step(name, fn):
+        """``fn()``; a failure is recorded and printed and the phase goes
+        on, so that one call shows every fault."""
+        try:
+            return fn()
+        except Exception as e:       # noqa: BLE001 -- every fault is kept
+            faults.append(f"{name}: {type(e).__name__}: {e}")
+            print(f"FAULT {faults[-1]}", flush=True)
+            return None
+
+    def held_per_card(name, key, before, mesh, n, cards=None, kernel=None):
+        """``key``'s launches since ``before`` on each card == ``n`` a
+        shard, and the profiler's ``kernel`` events likewise where
+        ``cards`` is given."""
+        got, want = card_launches_since(before, key), per_card(mesh, n)
+        check(got == want, f"{name}: {key} launches by card {got}, "
+              f"expected {want}")
+        if cards is not None:
+            seen = kernel_counts(cards, kernel)
+            check(seen == want, f"{name}: {kernel} ran on the cards "
+                  f"{seen}, expected {want}")
+        return got
+
+    ref = SpmdLandmarkPipeline(sn, centers, np.ones(K, bool), device="cuda",
+                               **pk)
+    want = one_pass(ref, blocks)
+    ns = add_site_centres(no_sharing_bench_system(64, seed=23), "cuda")
+    sn_ns, fr_ns = site_network(ns), frames_of(ns)
+    Kn = len(ns["centers"])
+    gb = [fr_ns[:32], fr_ns[32:]]
+    ref_g = SpmdLandmarkPipeline(sn_ns, ns["centers"], np.ones(Kn, bool),
+                                 device="cuda", **pk)
+    want_g = one_pass(ref_g, gb)
+    lk = dict(cutoff_midpoint=MID, cutoff_steepness=STEEP,
+              cutoff_shape=CUTOFF, verbose=False,
+              clustering_params={"k_max": 1024})
+    la_ref = LandmarkAnalysis(use_fused=False, device="cuda", **lk)
+    st_ref = la_ref.run(sn, frames[:16])
+
+    for n, mesh in meshes.items():
+        where = f"{n} cards"
+
+        def pipeline_k1():
+            pipe = SpmdLandmarkPipeline(sn, centers, np.ones(K, bool),
+                                        mesh=mesh, device="cuda", **pk)
+            before = read_launches_by_card()
+            got, cards = device_time_by_card(lambda: one_pass(pipe, blocks))
+            err = same_passes(f"pipeline (K1) on {where}", got, want)
+            check(err == 0.0, f"pipeline (K1) on {where}: "
+                  f"{conf_words(err)}")
+            by = held_per_card(f"pipeline (K1) on {where}", "K1", before,
+                               mesh, len(blocks), cards, "lv_tile_kernel")
+            print(f"pipeline (K1) on {where}: labels and every jump "
+                  f"statistic == the unmeshed pipeline over {len(blocks)} x "
+                  f"32 frames with the carry; {conf_words(err)}; K1 "
+                  f"launches by card {by} == blocks x shards (lv_tile_kernel "
+                  f"on each card by the profiler the same)", flush=True)
+            print_cards(f"device time of one pipeline pass on {where} (8 x "
+                        "32 frames, ms a pass)", cards)
+
+        def pipeline_k3():
+            pipe = SpmdLandmarkPipeline(sn_ns, ns["centers"],
+                                        np.ones(Kn, bool), mesh=mesh,
+                                        device="cuda", **pk)
+            check(pipe.route == "gather", f"no-sharing route {pipe.route}")
+            before = read_launches_by_card()
+            got, cards = device_time_by_card(lambda: one_pass(pipe, gb))
+            err = same_passes(f"pipeline (K3) on {where}", got, want_g)
+            check(err == 0.0, f"pipeline (K3) on {where}: "
+                  f"{conf_words(err)}")
+            by = held_per_card(f"pipeline (K3) on {where}", "K3", before,
+                               mesh, len(gb), cards, "lv_gather_kernel")
+            print(f"pipeline (K3, 2 x 32 frames without vertex sharing, "
+                  f"carry) on {where} == unmeshed: labels, every jump "
+                  f"statistic; {conf_words(err)}; K3 launches by card {by} "
+                  "== blocks x shards (lv_gather_kernel by the profiler the "
+                  "same)", flush=True)
+
+        def pass2(tmp, base, depth):
+            before = read_launches_by_card()
+            sla, out, lab, _ = run_streaming(
+                ctx, tmp, f"c{n}_d{depth}", mesh=mesh, pipeline_depth=depth)
+            check(sla.route_ == "mxu", f"pass 2 route {sla.route_}")
+            err = check_same_streaming(
+                f"pass 2 on {where} at depth {depth}", out, base[depth][1],
+                lab, base[depth][2])
+            by = held_per_card(f"pass 2 on {where} at depth {depth}", "K1",
+                               before, mesh, n_frames // 256)
+            print(f"pass 2 (K1, {n_frames} frames in 256-frame blocks) on "
+                  f"{where} at pipeline_depth={depth} == unmeshed: labels on "
+                  f"all {lab.size} rows, every integer statistic, floats "
+                  f"within 1e-9 (worst {err:.3g}); K1 launches by card {by} "
+                  "== blocks x shards", flush=True)
+
+        def exchange(tmp, plain):
+            T, (a, b) = 64 + 17, (100, 101)
+            swapped = frames[:256].copy()
+            swapped[T:, [a, b]] = swapped[T:, [b, a]]
+            sla, out, lab, _ = run_streaming(
+                ctx, tmp, f"x{n}", frames=swapped, block_frames=64,
+                mesh=mesh, dynamic_lattice_mapping=True)
+            check_same_streaming(f"lattice exchange on {where} vs the "
+                                 "unswapped run", out, plain[1], lab,
+                                 plain[2])
+            check(sla.rollbacks_ == 1 and sla.lattice_mapping_[a] == b
+                  and sla.lattice_mapping_[b] == a, f"lattice exchange on "
+                  f"{where}: rollbacks {sla.rollbacks_} or another "
+                  "permutation")
+            print(f"lattice exchange at frame {T} of 256 on {where} (depth "
+                  "2, 64-frame blocks): one rollback, == the unswapped run",
+                  flush=True)
+
+        def landmark_analysis():
+            la = LandmarkAnalysis(mesh=mesh, device="cuda", **lk)
+            st = la.run(sn, frames[:16])
+            lv_err = float(np.abs(la.landmark_vectors
+                                  - la_ref.landmark_vectors).max())
+            conf_err = float(np.abs(st.confidences
+                                    - st_ref.confidences).max())
+            check(np.array_equal(st.traj, st_ref.traj),
+                  f"LandmarkAnalysis on {where}: labels differ on "
+                  f"{int((st.traj != st_ref.traj).sum())} rows")
+            check(lv_err == 0.0 and conf_err == 0.0, f"LandmarkAnalysis "
+                  f"on {where}: landmark vectors {lv_err:.3g} and "
+                  f"confidences {conf_err:.3g} from the unmeshed run")
+            print(f"LandmarkAnalysis (16 bench frames, the dense route) on "
+                  f"{where} == unmeshed: {st.site_network.n_sites} sites, "
+                  "labels, landmark vectors and confidences bit-equal",
+                  flush=True)
+
+        def replica_written_in_place():
+            x = torch.arange(n * 8 * 3, dtype=torch.float32,
+                             device="cuda").reshape(n * 8, 3)
+            w = torch.ones(3, device="cuda")
+
+            def scaled():
+                return gather_frames(shard_map_frames(
+                    lambda v, w: (v * w,), mesh, 1, x, w, n_outputs=1)[0])
+
+            check(torch.equal(scaled(), x), "x * 1 differs from x")
+            w.mul_(3.0)
+            got = scaled()
+            stale = [d for d in range(n)
+                     if not torch.equal(got[d * 8:(d + 1) * 8],
+                                        x[d * 8:(d + 1) * 8] * 3.0)]
+            check(not stale, f"a replicated tensor written in place: the "
+                  f"shards on cards {stale} used the old copy")
+            print(f"replicated argument written in place between two "
+                  f"sharded calls on {where}: every card used the new "
+                  "values", flush=True)
+
+        step(f"pipeline K1, {where}", pipeline_k1)
+        step(f"pipeline K3, {where}", pipeline_k3)
+        with tempfile.TemporaryDirectory() as tmp:
+            base = {d: run_streaming(ctx, tmp, f"c1_d{d}", pipeline_depth=d)
+                    for d in (2, 0)}
+            for depth in (2, 0):
+                step(f"pass 2 depth {depth}, {where}",
+                     lambda: pass2(tmp, base, depth))
+            plain = run_streaming(ctx, tmp, "c_noswap", frames=frames[:256],
+                                  block_frames=64)
+            step(f"lattice exchange, {where}", lambda: exchange(tmp, plain))
+        step(f"LandmarkAnalysis, {where}", landmark_analysis)
+        step(f"replica written in place, {where}", replica_written_in_place)
+
+    # frames/s on 1, 2 and 4 cards against the unmeshed run, in turns
+    fps = {}
+
+    def speeds():
+        runners = {"unmeshed": None, 1: frame_mesh(n_devices=1), **meshes}
+        pipe_of = {k: ref if m is None else SpmdLandmarkPipeline(
+            sn, centers, np.ones(K, bool), mesh=m, device="cuda", **pk)
+            for k, m in runners.items()}
+        for key in runners:
+            fps[("pipeline", key)], fps[("pass2", key)] = [], []
+        with tempfile.TemporaryDirectory() as tmp:
+            for _ in range(5):
+                for key, m in runners.items():
+                    t0 = time.perf_counter()
+                    one_pass(pipe_of[key], blocks)
+                    fps[("pipeline", key)].append(
+                        256 / (time.perf_counter() - t0))
+                    sec = run_streaming(ctx, tmp, "speed", mesh=m)[3]
+                    fps[("pass2", key)].append(n_frames / sec)
+        for path, what in (
+                ("pipeline", "pipeline (K1, 8 x 32 frames, carry)"),
+                ("pass2", f"pass 2 (K1, {n_frames} frames in 256-frame "
+                 "blocks, depth 2, labels spilled)")):
+            print(f"{what} frames/s, median of 5 in turns [min, max]: "
+                  + "; ".join(f"{k if k == 'unmeshed' else f'{k} card(s)'} "
+                              f"{spread(v)}" for (p, k), v in fps.items()
+                              if p == path), flush=True)
+        for line in card_names():
+            print(f"  on {line}", flush=True)
+
+    def profile_pass2():
+        n = max(meshes)
+        with tempfile.TemporaryDirectory() as tmp:
+            _, cards = device_time_by_card(lambda: run_streaming(
+                ctx, tmp, "prof", mesh=meshes[n]))
+        print_cards(f"device time of one pass 2 on {n} cards ({n_frames} "
+                    "frames in 256-frame blocks, depth 2, ms a pass)", cards)
+        seen = kernel_counts(cards, "lv_tile_kernel")
+        check(seen == per_card(meshes[n], n_frames // 256),
+              f"pass 2 on {n} cards: lv_tile_kernel ran on the cards {seen}")
+
+    step("frames/s", speeds)
+    step("profile of pass 2", profile_pass2)
+
+    # the last card alone: a user's device="cuda:N", no mesh
+    last = torch.device("cuda", n_cards - 1)
+
+    def landmark_analysis_last():
+        la0 = LandmarkAnalysis(device="cuda:0", **lk)
+        st0 = la0.run(sn, frames[:16])
+        before = read_launches_by_card()
+        la = LandmarkAnalysis(device=last, **lk)
+        st, cards = device_time_by_card(lambda: la.run(sn, frames[:16]))
+        by = card_launches_since(before, "K2")
+        seen = kernel_counts(cards, "lv_tile_kernel")
+        check(by == seen == {last.index: 1}, f"LandmarkAnalysis on {last}: "
+              f"K2 launches by card {by}, lv_tile_kernel on the cards "
+              f"{seen}")
+        check(np.array_equal(la.landmark_vectors, la0.landmark_vectors)
+              and np.array_equal(st.traj, st0.traj)
+              and np.array_equal(st.confidences, st0.confidences),
+              f"LandmarkAnalysis on {last} differs from card 0")
+        print(f"LandmarkAnalysis (K2, 16 bench frames) on {last} alone: "
+              "one K2 launch, on that card (wrapper and profiler); landmark "
+              "vectors, labels and confidences bit-equal to card 0's",
+              flush=True)
+
+    def pipeline_last():
+        pipe = SpmdLandmarkPipeline(sn, centers, np.ones(K, bool),
+                                    device=last, **pk)
+        before = read_launches_by_card()
+        got, cards = device_time_by_card(lambda: one_pass(pipe, blocks[:2]))
+        err = same_passes(f"pipeline on {last}", got, want[:2])
+        check(err == 0.0, f"pipeline on {last}: {conf_words(err)}")
+        by = card_launches_since(before, "K1")
+        seen = kernel_counts(cards, "lv_tile_kernel")
+        check(by == seen == {last.index: 2}, f"pipeline on {last}: K1 "
+              f"launches by card {by}, lv_tile_kernel on the cards {seen}")
+        print(f"pipeline (K1, 2 x 32 frames) on {last} alone == card 0; "
+              "K1 on that card only (wrapper and profiler)", flush=True)
+
+    def pass2_last():
+        with tempfile.TemporaryDirectory() as tmp:
+            base = run_streaming(ctx, tmp, "on0")
+            before = read_launches_by_card()
+            (sla, out, lab, _), cards = device_time_by_card(
+                lambda: run_streaming(ctx, tmp, "onN", device=last))
+        check_same_streaming(f"pass 2 on {last}", out, base[1], lab, base[2])
+        by = card_launches_since(before, "K1")
+        seen = kernel_counts(cards, "lv_tile_kernel")
+        want_n = {last.index: n_frames // 256}
+        check(sla.route_ == "mxu" and by == seen == want_n, f"pass 2 on "
+              f"{last}: route {sla.route_}, K1 launches by card {by}, "
+              f"lv_tile_kernel on the cards {seen}")
+        print(f"pass 2 (K1, {n_frames} frames, depth 2) on {last} alone == "
+              "card 0's; K1 on that card only (wrapper and profiler)",
+              flush=True)
+
+    step(f"LandmarkAnalysis on {last}", landmark_analysis_last)
+    step(f"pipeline on {last}", pipeline_last)
+    step(f"pass 2 on {last}", pass2_last)
+    launches = launches_since(start)
+    print(f"real-card mesh phase: launches {launches}; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    check(not faults, f"{len(faults)} fault(s) on real cards: "
+          + " | ".join(faults))
+    return launches, {f"{p} {k}": float(np.median(v))
+                      for (p, k), v in fps.items()}
 
 
 MP_DEADLINE = 300      # seconds a group of ranks may run before it is killed
@@ -3387,6 +3791,18 @@ def main():
     t0 = time.perf_counter()
     phase_device()
     phase_build()
+    if sys.argv[1:] == ["cards"]:
+        _, _, ctx = phase_streaming("cuda")
+        phase_cards(ctx)
+        print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}; the one "
+              "argument is 'cards'", file=sys.stderr)
+        return 2
     res = phase_kernels("cuda")
     paths = {}
     paths["slice"], fps = phase_slice("cuda")
@@ -3397,6 +3813,7 @@ def main():
     phase_transport("cuda", dict(ctx, **net_ctx))
     paths["cli"] = phase_cli("cuda", ctx)
     paths["mesh"], mesh_fps = phase_mesh("cuda", ctx)
+    paths["cards"], cards_fps = phase_cards(ctx)
     paths["multiprocess"], mp_fps = phase_multiprocess("cuda", ctx)
     del ctx, net_ctx
     paths["gather"], gather_fps, gather_stream_fps = phase_gather("cuda")
@@ -3419,6 +3836,8 @@ def main():
           f"pass 2 frames/s: K1 {stream_fps:.1f} (depth 2 {depth_fps[2]:.1f}, "
           f"depth 0 {depth_fps[0]:.1f}), K3 {gather_stream_fps:.1f}; "
           f"by mesh size (median frames/s): {json.dumps(mesh_fps)}; "
+          "on real cards: "
+          f"{json.dumps(cards_fps) if cards_fps else 'not run'}; "
           f"across processes (median frames/s): "
           f"{json.dumps(mp_fps)}; "
           f"total {time.perf_counter() - t0:.1f} s", flush=True)

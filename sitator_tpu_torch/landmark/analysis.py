@@ -10,6 +10,7 @@ from the dense log-space contraction.
 """
 from __future__ import annotations
 
+import inspect
 import logging
 
 import numpy as np
@@ -30,6 +31,15 @@ from sitator_tpu_torch.util.errors import (
 from sitator_tpu_torch.util.progress import get_progress_bar
 
 logger = logging.getLogger(__name__)
+
+
+def _takes_device(fn):
+    """Whether a clustering backend's ``do_landmark_clustering`` takes a
+    ``device`` keyword: the port's backends do; one written to the
+    reference's contract (``landmark_vectors, clustering_params,
+    min_samples, verbose``) is called without it."""
+    params = inspect.signature(fn).parameters.values()
+    return any(p.name == "device" or p.kind is p.VAR_KEYWORD for p in params)
 
 
 class LandmarkAnalysis:
@@ -325,9 +335,11 @@ class LandmarkAnalysis:
         backend = get_backend(self.clustering_algorithm)
         min_samples = max(1, int(np.ceil(
             self.minimum_site_occupancy * n_frames)))
+        kw = dict(verbose=self.verbose)
+        if _takes_device(backend.do_landmark_clustering):
+            kw["device"] = self.device
         counts, labels, confs, centers_vec = backend.do_landmark_clustering(
-            self._landmark_vectors, self.clustering_params, min_samples,
-            verbose=self.verbose, device=self.device)
+            self._landmark_vectors, self.clustering_params, min_samples, **kw)
         n_sites = len(counts)
         if n_sites == 0:
             raise InsufficientSitesError(

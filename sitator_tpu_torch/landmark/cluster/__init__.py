@@ -2,7 +2,9 @@
 
 A backend is a module exposing ``do_landmark_clustering(landmark_vectors,
 clustering_params, min_samples, verbose, device) -> (counts, assignments,
-confidences, centers)``.  Backends: ``dotprod`` (the default) and ``mcl``.
+confidences, centers)``.  Backends: ``dotprod`` (the default) and ``mcl``;
+:func:`register_backend` adds one by name.  A backend written to the
+reference's contract, without ``device``, is called without it.
 """
 from sitator_tpu_torch.landmark.cluster import dotprod, mcl
 
@@ -21,3 +23,10 @@ def get_backend(name):
     if hasattr(name, "do_landmark_clustering"):
         return name
     raise TypeError("clustering_algorithm must be a backend name or module")
+
+
+def register_backend(name, module):
+    """Make ``module`` (anything with ``do_landmark_clustering``) the
+    backend named ``name``, for ``LandmarkAnalysis(clustering_algorithm=
+    name)``."""
+    _BACKENDS[name] = module

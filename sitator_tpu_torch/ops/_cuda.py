@@ -11,6 +11,11 @@ until a CUDA tensor reaches a kernel wrapper.
 Every launcher checks device, dtype, shape and contiguity, launches on
 PyTorch's current stream, and raises when the C entry returns a CUDA error
 (a refused launch never runs, and a later synchronise would not report it).
+A launch goes to the current device (the C entries take its stream, and
+their runtime calls act on it), so every tensor a launcher is given must
+lie on that device: the public wrappers make the inputs' card current, and
+a launcher handed a tensor of another card raises (:func:`launch_device_error`)
+instead of running on the wrong card.
 """
 from __future__ import annotations
 
@@ -142,9 +147,25 @@ def _call(name, *args):
                            f"({lib.sit_error_string(err).decode()})")
 
 
+def launch_device_error(device, current):
+    """Why a kernel cannot take a tensor on ``device`` while CUDA device
+    ``current`` (an index) is current, or None when it can.  A launch runs
+    on the current device's stream; a tensor of another card would be read
+    from there (over NVLink where peer access is on, unordered against the
+    stream that wrote it) or fault."""
+    if device.type != "cuda":
+        return f"a CUDA tensor is needed, got one on {device}"
+    if device.index != current:
+        return (f"the tensor is on {device} but cuda:{current} is the "
+                f"current device; launch under torch.cuda.device({device})")
+    return None
+
+
 def _check(t, name, dtype, shape=None):
-    if not t.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor")
+    err = launch_device_error(
+        t.device, torch.cuda.current_device() if t.is_cuda else None)
+    if err is not None:
+        raise ValueError(f"{name}: {err}")
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():
@@ -287,6 +308,8 @@ def argmax_merge(part_val, part_idx, threshold):
     """Tail stage 3: merge the per-block partials of every row in column
     order; returns (labels int32 with -1 below ``threshold``, confs)."""
     rows, n_kb = part_val.shape
+    _check(part_val, "part_val", torch.float32)
+    _check(part_idx, "part_idx", torch.int32, (rows, n_kb))
     labels = torch.empty(rows, device=part_val.device, dtype=torch.int32)
     confs = torch.empty(rows, device=part_val.device, dtype=torch.float32)
     _call("sit_argmax_merge", part_val.data_ptr(), part_idx.data_ptr(),

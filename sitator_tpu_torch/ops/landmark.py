@@ -4,7 +4,10 @@ The per-pair log-cutoff over (frame, mobile, static), the product over each
 site's vertex atoms as a matmul with the 0/1 membership matrix in log space,
 then ``exp``.  This is the ``use_fused=False`` route of every engine and the
 oracle the kernels' plain versions are checked against on small cells: its
-``(B, M, N, 3)`` intermediate makes it a small-cell tool only.
+``(B, M, N, 3)`` intermediate makes it a small-cell tool only.  On a card
+the log-space product runs in products of a fixed row count
+(:func:`contract_rows`), so a (frame, ion) row's landmark vector does not
+depend on how many frames a call, or a frame shard of a mesh, holds.
 """
 from __future__ import annotations
 
@@ -72,7 +75,36 @@ def landmark_vectors(mobile, static, A, cell, cell_inv, midpoint, steepness,
     if matmul_dtype is not None:
         logc = logc.to(matmul_dtype).float()
         A = A.to(matmul_dtype).float()
-    return torch.exp(logc @ A)
+    return torch.exp(contract_rows(logc, A, CONTRACT_ROWS if logc.is_cuda
+                                   else None))
+
+
+# rows of each log-space product on a card (a multiple of 4, so that every
+# product's first row keeps the operand's 16-byte alignment)
+CONTRACT_ROWS = 1024
+
+
+def contract_rows(logc, A, rows):
+    """``logc (..., N) @ A (N, S)``, in products of exactly ``rows`` rows
+    (the last zero-padded) when ``rows`` is given, else in one.  cuBLAS
+    picks its kernel by the row count, and its kernels sum in different
+    orders: on H100s a frame mesh of 4 cards (4 bench frames, 2956 rows, a
+    shard) moved ``LandmarkAnalysis``'s landmark vectors by up to 1.65e-17
+    from the unmeshed run (16 frames in one product).  Products of one
+    fixed row count give each row the same bits whatever the frame
+    count."""
+    if rows is None:
+        return logc @ A
+    flat = logc.reshape(-1, logc.shape[-1])
+    n = flat.shape[0]
+    out = torch.empty((n, A.shape[1]), dtype=torch.result_type(logc, A),
+                      device=logc.device)
+    for lo in range(0, n, rows):
+        part = flat[lo:lo + rows]
+        if part.shape[0] < rows:
+            part = torch.nn.functional.pad(part, (0, 0, 0, rows - len(part)))
+        out[lo:lo + rows] = (part @ A)[:n - lo]
+    return out.reshape(logc.shape[:-1] + (A.shape[1],))
 
 
 def normalize_landmark_vectors(lv, eps=1e-12):

@@ -33,6 +33,7 @@ and its plain PyTorch version on CPU tensors:
 from __future__ import annotations
 
 import logging
+from collections import Counter
 
 import numpy as np
 import torch
@@ -625,17 +626,21 @@ def mxu_landmark_blocks(mobile, static, basis, cell, *, midpoint,
     unique-atom kernel (K2).  ``mobile (B, M, 3)`` / ``static (B, N, 3)``
     float32; ``cell`` (3,) orthorhombic lengths or (3, 3) triclinic.  On
     CUDA tensors this launches the kernel; on CPU tensors it runs the plain
-    version."""
+    version.  ``.launches`` counts the launches, ``.launches_by_card`` the
+    same by the index of the card they ran on."""
     args = _lv_inputs(mobile, static, basis, cell, midpoint=midpoint,
                       steepness=steepness, cutoff_shape=cutoff_shape)
     if mobile.is_cuda:
-        lv = _mxu_lv_cuda(**args)
+        with torch.cuda.device(mobile.device):
+            lv = _mxu_lv_cuda(**args)
         mxu_landmark_blocks.launches += 1
+        mxu_landmark_blocks.launches_by_card[mobile.device.index] += 1
         return lv
     return _mxu_lv_plain(**args)
 
 
 mxu_landmark_blocks.launches = 0
+mxu_landmark_blocks.launches_by_card = Counter()
 
 
 def mxu_assign_blocks(mobile, static, basis, cell, centers_perm, *,
@@ -649,8 +654,9 @@ def mxu_assign_blocks(mobile, static, basis, cell, centers_perm, *,
     columns in kd order (:func:`permute_centers`).  Returns (labels (B, M)
     int32 with −1 below threshold, confs (B, M)).  On CUDA tensors this
     launches the kernel (counted in ``.launches`` for K1 and
-    ``.skew_launches`` for K1s); on CPU tensors it runs the plain
-    version."""
+    ``.skew_launches`` for K1s; K1's also in ``.launches_by_card``, by the
+    index of the card it ran on); on CPU tensors it runs the plain
+    version.  A launch runs on the inputs' card, whichever is current."""
     args = _assign_inputs(mobile, static, basis, cell, centers_perm,
                           midpoint=midpoint, steepness=steepness,
                           threshold=threshold, mxu_bf16=mxu_bf16,
@@ -660,13 +666,17 @@ def mxu_assign_blocks(mobile, static, basis, cell, centers_perm, *,
     if not mobile.is_cuda:
         labels, confs = _mxu_assign_plain(**args)
     elif skew:
-        labels, confs = _mxu_assign_skew_cuda(**args)
+        with torch.cuda.device(mobile.device):
+            labels, confs = _mxu_assign_skew_cuda(**args)
         mxu_assign_blocks.skew_launches += 1
     else:
-        labels, confs = _mxu_assign_cuda(**args)
+        with torch.cuda.device(mobile.device):
+            labels, confs = _mxu_assign_cuda(**args)
         mxu_assign_blocks.launches += 1
+        mxu_assign_blocks.launches_by_card[mobile.device.index] += 1
     return labels[:, :M], confs[:, :M]
 
 
 mxu_assign_blocks.launches = 0
+mxu_assign_blocks.launches_by_card = Counter()
 mxu_assign_blocks.skew_launches = 0

@@ -19,6 +19,8 @@ partition (lane-strided norm, blocked arg-max).
 """
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
 from sitator_tpu_torch.ops.kernel_common import (as_f32,
@@ -210,8 +212,9 @@ def fused_assign_blocks(mobile, static, verts, vmask, cell, centers,
     ``peak_evening='clip'`` caps every row at its second-largest value
     first; ``full_mask=True`` (every vertex slot valid) drops the per-vertex
     mask select.  Returns (labels (B, M) int32 with −1 below threshold,
-    confs (B, M)).  On CUDA tensors this launches the kernel; on CPU
-    tensors it runs the plain version.
+    confs (B, M)).  On CUDA tensors this launches the kernel on their card
+    (counted in ``.launches`` and, by the card's index, in
+    ``.launches_by_card``); on CPU tensors it runs the plain version.
     """
     args = _gather_inputs(mobile, static, verts, vmask, cell, centers,
                           midpoint=midpoint, steepness=steepness,
@@ -220,11 +223,14 @@ def fused_assign_blocks(mobile, static, verts, vmask, cell, centers,
                           peak_evening=peak_evening, full_mask=full_mask)
     M = mobile.shape[1]
     if mobile.is_cuda:
-        labels, confs = _gather_assign_cuda(**args)
+        with torch.cuda.device(mobile.device):
+            labels, confs = _gather_assign_cuda(**args)
         fused_assign_blocks.launches += 1
+        fused_assign_blocks.launches_by_card[mobile.device.index] += 1
     else:
         labels, confs = _gather_assign_plain(**args)
     return labels[:, :M], confs[:, :M]
 
 
 fused_assign_blocks.launches = 0
+fused_assign_blocks.launches_by_card = Counter()

@@ -130,20 +130,23 @@ class FrameMesh:
     def _replicated(self, x, dev):
         """``x`` as a shard on ``dev`` sees it.  A tensor on another
         accelerator is copied once and the copy kept (a dict value by
-        value); CPU tensors (host parameters such as the kernels' packed
-        cell) and everything else pass through.  The calling stream waits
-        for the copy by its event."""
+        value) until ``x`` is written in place (its version counters move:
+        then it is copied again); CPU tensors (host parameters such as the
+        kernels' packed cell) and everything else pass through.  The
+        calling stream waits for the copy by its event."""
         if not _needs_copy(x, dev):
             return x
         key = (id(x), dev)
         stream = torch.cuda.current_stream(dev)
+        version = _versions(x)
         hit = self._replicas.get(key)
-        if hit is None:
+        if hit is None or hit[3] != version:
             if len(self._replicas) >= 256:   # engines replicate a few objects
                 self._replicas.clear()
             with torch.cuda.device(dev):
                 copy = _copy_to(x, dev)
-            hit = self._replicas[key] = (x, copy, stream.record_event())
+            hit = self._replicas[key] = (x, copy, stream.record_event(),
+                                         version)
         stream.wait_event(hit[2])
         _record_stream(hit[1], stream)
         return hit[1]
@@ -155,6 +158,15 @@ def _needs_copy(x, dev):
     if isinstance(x, dict):
         return any(_needs_copy(v, dev) for v in x.values())
     return False
+
+
+def _versions(x):
+    """The version counters of ``x`` (a tensor, or a dict's tensor
+    values), which every in-place write moves; None for an inference
+    tensor, which keeps none."""
+    if torch.is_tensor(x):
+        return None if x.is_inference() else x._version
+    return tuple(_versions(v) for v in x.values() if torch.is_tensor(v))
 
 
 def _copy_to(x, dev):
@@ -402,8 +414,8 @@ def shard_map_frames(fn, mesh, n_frame_args: int, *args,
     shard of this rank): the first ``n_frame_args`` arguments are
     frame-sharded (a :class:`ShardedFrames`, or a tensor or host array that
     is split here), the rest replicated (copied once to each distinct
-    device and kept for later calls).  Returns ``n_outputs``
-    :class:`ShardedFrames`.
+    device and kept for later calls until written in place).  Returns
+    ``n_outputs`` :class:`ShardedFrames`.
 
     Each shard runs under its device and its own stream, after the work
     the caller had enqueued on that device and the events that made its

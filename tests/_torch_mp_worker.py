@@ -3,7 +3,8 @@ across the ranks of a gloo process group on the CPU.
 
 Run as ``python -m tests._torch_mp_worker RANK WORLD SHARDS RENDEZVOUS DATA
 OUT`` from the repository root, one process a rank: RANK of WORLD ranks,
-SHARDS CPU shards a rank, the group met through the file RENDEZVOUS
+SHARDS the CPU shards of each rank (comma-separated, rank order; ranks may
+hold different numbers), the group met through the file RENDEZVOUS
 (``file://``), the test system read from the ``.npz`` DATA, everything this
 rank holds written to the ``.npz`` OUT.  It imports torch, NumPy and the
 port only, and fails if ``jax`` or ``sitator_tpu`` was imported.  Every
@@ -32,19 +33,27 @@ def raised(fn, exc):
     raise RuntimeError(f"{fn} did not raise {exc.__name__}")
 
 
+def slab(n, shards, rank):
+    """This rank's contiguous slice of ``n`` frames split over the ranks'
+    ``shards`` (each rank's count, in rank order) in equal frame shards."""
+    m = n // sum(shards)
+    lo = m * sum(shards[:rank])
+    return slice(lo, lo + m * shards[rank])
+
+
 def mesh_cases(rank, world, shards, out):
     """Mesh semantics, the two placements, the gather, and the errors that
     must reach every rank."""
     from sitator_tpu_torch.parallel import mesh as tmesh
 
-    mesh = tmesh.frame_mesh(devices=["cpu"] * shards)
+    mesh = tmesh.frame_mesh(devices=["cpu"] * shards[rank])
     out["size"] = mesh.devices.size
     out["procs"] = np.array(mesh.process_indices)
     out["local"] = np.array(mesh.local)
     out["spans"] = mesh.spans_processes
     glob = np.arange(24 * 4 * 3, dtype=np.float32).reshape(24, 4, 3)
-    slab = len(glob) // world
-    a = tmesh.shard_frames_local(glob[rank * slab:(rank + 1) * slab], mesh)
+    mine = slab(len(glob), shards, rank)
+    a = tmesh.shard_frames_local(glob[mine], mesh)
     b = tmesh.shard_frames(glob, mesh)
     out["local_offsets"] = np.array(a.offsets)
     out["global_offsets"] = np.array(b.offsets)
@@ -60,11 +69,11 @@ def mesh_cases(rank, world, shards, out):
     out["asarray_error"] = raised(lambda: np.asarray(a), RuntimeError)
     # rank 0's slab is one frame longer: every rank must raise
     out["slab_error"] = raised(lambda: tmesh.shard_frames_local(
-        glob[:slab + (rank == 0)], mesh), ValueError)
-    scrambled = tmesh.frame_mesh(devices=["cpu"] * shards)
+        glob[mine.start:mine.stop + (rank == 0)], mesh), ValueError)
+    scrambled = tmesh.frame_mesh(devices=["cpu"] * shards[rank])
     scrambled.process_indices = tuple(reversed(mesh.process_indices))
     out["order_error"] = raised(lambda: tmesh.shard_frames_local(
-        glob[rank * slab:(rank + 1) * slab], scrambled), ValueError)
+        glob[mine], scrambled), ValueError)
     # the last rank names no device: every rank must raise
     out["mesh_error"] = raised(lambda: tmesh.frame_mesh(
         devices=[] if rank == world - 1 else ["cpu"]), RuntimeError)
@@ -132,7 +141,7 @@ def steps(sy):
     return dict(mxu=mxu, fused=fused, dense=dense)
 
 
-def step_cases(rank, world, mesh, sy, out):
+def step_cases(rank, shards, mesh, sy, out):
     """Each step over the two blocks, the carry chained from the first to
     the second: the first block's frames placed by ``shard_frames_local``
     (each rank its slab), the second's by ``shard_frames`` (the global
@@ -159,8 +168,7 @@ def step_cases(rank, world, mesh, sy, out):
             mob = np.ascontiguousarray(padded[:, mobile_mask], np.float32)
             sta = np.ascontiguousarray(padded[:, static_mask], np.float32)
             if b == 0:
-                slab = len(padded) // world
-                mine = slice(rank * slab, (rank + 1) * slab)
+                mine = slab(len(padded), shards, rank)
                 mob_s = tmesh.shard_frames_local(mob[mine], mesh)
                 sta_s = tmesh.shard_frames_local(sta[mine], mesh)
             else:
@@ -215,7 +223,7 @@ def main(rank, world, shards, rendezvous, data, dest):
         out = {}
         mesh = mesh_cases(rank, world, shards, out)
         sy = load_system(data)
-        step_cases(rank, world, mesh, sy, out)
+        step_cases(rank, shards, mesh, sy, out)
         engine_cases(mesh, sy, out)
     finally:
         dist.destroy_process_group()
@@ -227,5 +235,6 @@ def main(rank, world, shards, rendezvous, data, dest):
 
 
 if __name__ == "__main__":
-    r, w, s = (int(x) for x in sys.argv[1:4])
-    main(r, w, s, *sys.argv[4:7])
+    r, w = int(sys.argv[1]), int(sys.argv[2])
+    main(r, w, tuple(int(x) for x in sys.argv[3].split(",")),
+         *sys.argv[4:7])

@@ -1,14 +1,22 @@
 """The port's dot-product clustering against the JAX reference: equal
-labels and active sets, centres within 1e-5."""
+labels and active sets, centres within 1e-5; a backend registered by name
+runs ``LandmarkAnalysis`` in both packages to the same trajectory."""
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
 
+from sitator_tpu import SiteNetwork
+from sitator_tpu.io import make_hopping_trajectory
+from sitator_tpu.landmark import LandmarkAnalysis as JaxLandmarkAnalysis
 from sitator_tpu.landmark.cluster import dotprod as jdot
+from sitator_tpu.landmark.cluster import register_backend as jax_register
 from sitator_tpu.ops import cluster as jcl
-from sitator_tpu_torch.landmark.cluster import dotprod as tdot, get_backend
+from sitator_tpu.voronoi import VoronoiSiteGenerator
+from sitator_tpu_torch.landmark import LandmarkAnalysis
+from sitator_tpu_torch.landmark.cluster import (dotprod as tdot, get_backend,
+                                                register_backend)
 from sitator_tpu_torch.ops import cluster as tcl
 
 torch.set_num_threads(2)
@@ -95,3 +103,73 @@ def test_get_backend_rejects_unknown():
     with pytest.raises(TypeError):
         get_backend(3)
     assert get_backend(tdot) is tdot
+
+
+class _DominantLandmark:
+    """A module-like backend in NumPy: every sample goes to the landmark
+    it is nearest (its largest component), a site for each landmark that
+    holds at least ``min_samples`` samples; confidence = that component
+    of the unit row.  ``calls`` records the keywords it was given."""
+
+    def __init__(self, takes_device):
+        self.calls = []
+        if takes_device:
+            def do_landmark_clustering(lv, params, min_samples,
+                                       verbose=False, device=None):
+                self.calls.append({"verbose": verbose, "device": device})
+                return self._cluster(lv, params, min_samples)
+        else:
+            def do_landmark_clustering(lv, params, min_samples,
+                                       verbose=False):
+                self.calls.append({"verbose": verbose})
+                return self._cluster(lv, params, min_samples)
+        self.do_landmark_clustering = do_landmark_clustering
+
+    @staticmethod
+    def _cluster(lv, params, min_samples):
+        lv = np.asarray(lv, np.float64)
+        top = lv.argmax(1)
+        seen = lv.max(1) >= params["floor"]
+        landmarks, counts = np.unique(top[seen], return_counts=True)
+        landmarks = landmarks[counts >= min_samples]
+        counts = counts[counts >= min_samples]
+        site = np.full(lv.shape[1], -1)
+        site[landmarks] = np.arange(len(landmarks))
+        labels = np.where(seen, site[top], -1).astype(np.int32)
+        confs = np.where(labels >= 0, lv.max(1), 0.0).astype(np.float32)
+        return counts, labels, confs, np.eye(lv.shape[1])[landmarks]
+
+
+@pytest.mark.parametrize("takes_device", [False, True],
+                         ids=["reference_contract", "with_device"])
+def test_registered_backend_runs_landmark_analysis(takes_device):
+    """``register_backend`` in both packages: a module-like backend under a
+    new name drives ``LandmarkAnalysis(clustering_algorithm=name)`` in each
+    to the same trajectory, confidences within 1e-5.  The port hands
+    ``device`` only to a backend that takes it (one written to the
+    reference's contract is called as the reference calls it)."""
+    md = make_hopping_trajectory(n_cells=3, a=4.0, n_ions=4, n_frames=80,
+                                 jump_rate=0.02, seed=31)
+    seeds = VoronoiSiteGenerator(merge_tol=0.05).run(
+        SiteNetwork(md.structure, md.static_mask, md.mobile_mask))
+    frames = md.traj.astype(np.float32)
+    name = f"dominant_landmark_{takes_device}"
+    kw = dict(cutoff_midpoint=4.0, cutoff_steepness=3.0, verbose=False,
+              clustering_algorithm=name, clustering_params={"floor": 0.5})
+    ref_backend, port_backend = (_DominantLandmark(takes_device)
+                                 for _ in range(2))
+    jax_register(name, ref_backend)
+    register_backend(name, port_backend)
+    assert get_backend(name) is port_backend
+    want = JaxLandmarkAnalysis(**kw).run(seeds, frames)
+    got = LandmarkAnalysis(device="cpu", **kw).run(seeds, frames)
+    assert len(port_backend.calls) == len(ref_backend.calls) == 1
+    assert port_backend.calls[0] == (
+        {"verbose": False, "device": torch.device("cpu")} if takes_device
+        else {"verbose": False})
+    assert got.site_network.n_sites == want.site_network.n_sites > 1
+    np.testing.assert_array_equal(got.traj, want.traj)
+    assert (got.traj >= 0).mean() > 0.5
+    np.testing.assert_allclose(got.confidences, want.confidences, atol=1e-5)
+    np.testing.assert_allclose(got.site_network.centers,
+                               want.site_network.centers, atol=1e-4)

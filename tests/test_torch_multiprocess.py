@@ -5,9 +5,11 @@ single-process result on the global frames.
 
 Each rank is a fresh ``python -m tests._torch_mp_worker`` process (torch
 and the port only; it fails if ``jax`` or ``sitator_tpu`` is imported) in a
-gloo group that meets through a ``file://`` rendezvous in ``tmp_path``.  Two
-groups, each spawned once for the module: 2 ranks x 1 CPU shard, and 4 ranks
-x 2 CPU shards (8 global shards, the reference's virtual mesh size).  The
+gloo group that meets through a ``file://`` rendezvous in ``tmp_path``.
+Three groups, each spawned once for the module: 2 ranks x 1 CPU shard, 4
+ranks x 2 CPU shards (8 global shards, the reference's virtual mesh size),
+and 2 ranks holding 2 and 1 shards (the gather pads the short rank with
+zero rows, which must not reach the result).  The
 parent waits with a deadline and kills the group when it passes or when a
 rank fails, so no test outlasts its limit.
 
@@ -61,10 +63,10 @@ CONF_ATOL = {"mxu": 1e-2, "fused": 1e-5, "dense": 1e-5}
 
 
 def spawn(tmp, world, shards, data):
-    """Run one group of ``world`` ranks (``data`` one path for every rank,
-    or a path a rank).  Returns ``(return codes, logs, seconds)``; a rank
-    still running when another has failed or the deadline has passed is
-    killed."""
+    """Run one group of ``world`` ranks, each holding ``shards[r]`` CPU
+    shards (``data`` one path for every rank, or a path a rank).  Returns
+    ``(return codes, logs, seconds)``; a rank still running when another
+    has failed or the deadline has passed is killed."""
     data = data if isinstance(data, list) else [data] * world
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join(
@@ -77,7 +79,8 @@ def spawn(tmp, world, shards, data):
             with open(logs[r], "w") as log:
                 procs.append(subprocess.Popen(
                     [sys.executable, "-m", "tests._torch_mp_worker", str(r),
-                     str(world), str(shards), str(tmp / "rendezvous"),
+                     str(world), ",".join(map(str, shards)),
+                     str(tmp / "rendezvous"),
                      str(data[r]), str(tmp / f"rank{r}.npz")],
                     cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT))
         while any(p.poll() is None for p in procs):
@@ -179,11 +182,13 @@ def reference(system):
     return out
 
 
-@pytest.fixture(scope="module", params=[(2, 1), (4, 2)],
-                ids=["2ranks_x1", "4ranks_x2"])
+@pytest.fixture(scope="module", params=[(1, 1), (2, 2, 2, 2), (2, 1)],
+                ids=["2ranks_x1", "4ranks_x2", "2ranks_2and1"])
 def group(request, system, tmp_path_factory):
-    """One group run: (world, shards, [each rank's results])."""
-    world, shards = request.param
+    """One group run: (world, each rank's shard count, [each rank's
+    results])."""
+    shards = request.param
+    world = len(shards)
     tmp = tmp_path_factory.mktemp(f"mp{world}")
     rcs, logs, sec = spawn(tmp, world, shards, system[1])
     assert rcs == [0] * world and sec < LIMIT, \
@@ -203,12 +208,16 @@ def test_mesh_spans_every_rank(group):
     holds its own shards."""
     world, shards, ranks = group
     for r, got in enumerate(ranks):
-        assert int(got["size"]) == world * shards
+        assert int(got["size"]) == sum(shards)
         np.testing.assert_array_equal(got["procs"],
                                       np.repeat(np.arange(world), shards))
-        np.testing.assert_array_equal(got["local"],
-                                      np.arange(r * shards, (r + 1) * shards))
+        np.testing.assert_array_equal(got["local"], _local(shards, r))
         assert bool(got["spans"])
+
+
+def _local(shards, r):
+    """The global indices of rank ``r``'s shards."""
+    return np.arange(sum(shards[:r]), sum(shards[:r + 1]))
 
 
 def test_placements_match_the_reference(group):
@@ -222,9 +231,9 @@ def test_placements_match_the_reference(group):
     ref = jax_shard_frames(glob, jax_frame_mesh(n_devices=8))
     ref_shards = {s.index[0].start: np.asarray(s.data)
                   for s in ref.addressable_shards}
-    m = 24 // (world * shards)
+    m = 24 // sum(shards)
     for r, got in enumerate(ranks):
-        offsets = [i * m for i in range(r * shards, (r + 1) * shards)]
+        offsets = [i * m for i in _local(shards, r)]
         np.testing.assert_array_equal(got["local_offsets"], offsets)
         np.testing.assert_array_equal(got["global_offsets"], offsets)
         np.testing.assert_array_equal(got["local_shards"],
@@ -273,7 +282,7 @@ def test_step_across_ranks(group, reference, name):
     rank 0's and to the unmeshed step, and held to the reference's; K1 and
     K3 run once per local shard, blocks x global shards in all."""
     world, shards, ranks = group
-    n_dev = world * shards
+    n_dev = sum(shards)
     for b, (lo, hi) in enumerate(BLOCKS):
         key = f"{name}__{b}"
         for r, got in enumerate(ranks):
@@ -297,13 +306,13 @@ def test_step_across_ranks(group, reference, name):
         padded = hi - lo + (-(hi - lo)) % n_dev
         kernel = {"mxu": "mxu_assign_blocks",
                   "fused": "fused_assign_blocks"}.get(name)
-        for got in ranks:
+        for got, own in zip(ranks, shards):
             frames = got[f"{key}__frames"]
             if kernel is None:
                 assert frames.size == 0
             else:
-                assert list(got[f"{key}__kernels"]) == [kernel] * shards
-                assert list(frames) == [padded // n_dev] * shards
+                assert list(got[f"{key}__kernels"]) == [kernel] * own
+                assert list(frames) == [padded // n_dev] * own
 
 
 # -- in one process ---------------------------------------------------------
@@ -330,7 +339,8 @@ def test_a_failing_rank_ends_the_group(system, tmp_path):
     while rank 0 goes on to the first collective of the steps) does not
     leave rank 0 waiting out the group's 60 s timeout: the group ends
     within seconds of the failure, and the failure is reported."""
-    rcs, logs, sec = spawn(tmp_path, 2, 1, [system[1], tmp_path / "no.npz"])
+    rcs, logs, sec = spawn(tmp_path, 2, (1, 1),
+                           [system[1], tmp_path / "no.npz"])
     assert rcs[0] != 0 and rcs[1] != 0
     assert "no.npz" in logs[1]
     assert sec < 45
