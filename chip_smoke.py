@@ -21,7 +21,8 @@ Phases; any failure exits non-zero before the result lines:
    with their per-block arg-max and the merge, bit for bit against their
    plain twin on exact (dyadic) inputs with ties across block borders;
    then every kernel against its plain PyTorch version on the same inputs
-   on the card, at the bench width of ``bench.py`` (9261 static + 739
+   on the card, at the bench width of
+   ``sitator_tpu_torch/tools/bench_config.py`` (9261 static + 739
    mobile atoms, 9261 landmarks x 8 vertices, 1024 centres) with its
    random centres (a timing-only case: every row is inside the margin
    gate, so only confidences are compared and the output says so; timed,
@@ -44,7 +45,7 @@ Phases; any failure exits non-zero before the result lines:
    time by op); the pipeline on a small basis without vertex
    sharing (K3), and the dense route on the same input as its reference.
    The ions hop among 1024 sites, and the pipeline's 1024 centres are the
-   unit landmark vectors of an ion on each of them: under ``bench.py``'s
+   unit landmark vectors of an ion on each of them: under the bench's
    random centres every similarity is far below the threshold, every label
    is -1 and no jump would be recorded, at the same work per frame;
 5. the K1s path: ``mxu_assign_blocks(skew=True)`` against ``skew=False``
@@ -55,7 +56,16 @@ Phases; any failure exits non-zero before the result lines:
    spilled to a memmap, timed; its statistics against the int64 oracle on
    the spilled labels, its labels bit for bit against
    ``SpmdLandmarkPipeline`` on the same frames and centres, and the run
-   again without the memmap, counters reset first and read after;
+   again without the memmap, counters reset first and read after; then the
+   north-star tool's path (``sitator_tpu_torch.tools.northstar_run``,
+   ``phase_northstar``), counters reset first and read after: a pool of 4
+   blocks of 512 frames generated on the card, ``fit_centers`` (K2) on one
+   of them, and pass 2 (K1) over 6 blocks through its ``CycleReader``, so
+   that the pool wraps, from the card and from the same pool as host
+   arrays: labels periodic, the two runs equal (labels and integer tallies
+   exactly, float sums within 1e-12 relative), the host int64 recount
+   equal to the engine, 12 K1 launches, and no block of the card's pool
+   staged through host memory;
 7. the seed → stream → merge → network path at the bench width (K2 in
    ``fit_centers``, K1 in pass 2), counters reset first and read after:
    ``StreamingLandmarkAnalysis`` at its shipped defaults (the run-ahead
@@ -206,7 +216,7 @@ ROOT = Path(__file__).resolve().parent
 LV_RTOL, LV_ATOL = 1e-4, 1e-6        # f32 sums in another order, then exp
 CONF_ATOL = {True: 1e-2, False: 1e-5}  # bf16 / f32 similarity operands
 MARGIN = {True: 8e-3, False: 1e-5}
-MID, STEEP, THR, CUTOFF = 4.0, 3.0, 0.35, "logistic_r2"   # bench.py
+MID, STEEP, THR, CUTOFF = 4.0, 3.0, 0.35, "logistic_r2"   # the bench's
 # NVIDIA H100 SXM data-sheet peaks (dense), for the bounds
 PEAK_BF16, PEAK_F32, HBM_BPS = 989e12, 67e12, 3.35e12
 # f32 operations counted for one (ion, atom) pair: the difference and the
@@ -324,7 +334,7 @@ def lattice_system(n_c, n_ions, n_frames, n_centres, *, seed, shear=None,
     ``n_ions`` of them and, each frame with probability ``hop``, hop to a
     free one.  ``shear`` (3, 3) makes the cell triclinic.  Centres are
     filled in later (:func:`add_site_centres`); ``random_centres`` are
-    random positive unit rows as in ``bench.py``."""
+    random positive unit rows as in the bench."""
     rng = np.random.default_rng(seed)
     g = np.arange(n_c)
     grid = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
@@ -370,15 +380,15 @@ def hopping(rng, cell, host, verts, sites, n_ions, n_frames, n_centres, hop,
 
 
 def bench_system(n_frames, seed):
-    """The bench width of ``bench.build_system``: its cell, vertices and
-    1024 random centres, with ions hopping among 1024 centred sites."""
-    import bench
-    cell, verts, _, centres, _ = bench.build_system()
-    sy = lattice_system(bench.N_CELLS, bench.N_IONS, n_frames,
-                        bench.K_CENTERS, seed=seed, a=bench.A_LAT)
-    check(np.array_equal(sy["verts"], verts)
-          and np.allclose(sy["cell"], cell), "bench geometry differs")
-    sy["random_centres"] = centres
+    """The bench width of ``bench_config.build_system``: its cell, vertices
+    and 1024 random centres, with ions hopping among 1024 centred sites."""
+    from sitator_tpu_torch.tools import bench_config as bc
+    ref = bc.build_system()
+    sy = lattice_system(bc.N_CELLS, bc.N_IONS, n_frames, bc.K_CENTERS,
+                        seed=seed, a=bc.A_LAT)
+    check(np.array_equal(sy["verts"], ref.verts)
+          and np.allclose(sy["cell"], ref.cell), "bench geometry differs")
+    sy["random_centres"] = ref.centers
     return sy
 
 
@@ -825,7 +835,7 @@ def kernel_cases(sy, centers, device, *, peak_evening, n_lv_frames,
 
 def phase_kernels(device):
     """Every kernel against its plain version: at the bench width with
-    bench.py's 1024 random centres (timing and confidences only: every row
+    the bench's 1024 random centres (timing and confidences only: every row
     is inside the margin gate) and with site centres (the label check; it
     must leave rows outside the gate), then the clip case (f32 operands,
     the FMA tail) and the triclinic case at n_c = 8.  Returns the timed case's results
@@ -1291,6 +1301,109 @@ def phase_streaming(device):
           f"checks {read_launches()}", flush=True)
     return launches, fps, dict(sy=sy, sn=sn, frames=frames, centers=centers,
                                kw=kw)
+
+
+NS_POOL, NS_BLOCKS = 4, 6     # the north-star phase: pool and pass, blocks
+
+
+def phase_northstar(device):
+    """The north-star tool's path (``tools/northstar_run.py``) at the
+    bench width: a pool of ``NS_POOL`` 512-frame blocks generated on the
+    card, ``fit_centers`` (K2) on one, then pass 2 (K1, ``pipeline_depth``
+    2, labels spilled) over ``NS_BLOCKS`` blocks through ``CycleReader``,
+    so that the pool wraps, from the card's pool and from the same pool as
+    host arrays.  Returns the launch counts and both runs' frames/s."""
+    import tempfile
+    from sitator_tpu_torch.tools import northstar_run as ns
+
+    sn, sy = ns.bench_network()
+    B = ns.BLOCK_FRAMES
+    n_frames = NS_BLOCKS * B
+    t0 = time.perf_counter()
+    pool = ns.make_pool(sy, NS_POOL, B, device)
+    host_pool = [b.cpu().numpy() for b in pool]
+    t_pool = time.perf_counter() - t0
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches()
+        t0 = time.perf_counter()
+        centers = ns.fit_centers(sn, pool, sy.centers, tmp, device,
+                                 cache=False)
+        sync()
+        t_fit = time.perf_counter() - t0
+        fit_launches = read_launches()
+        for name, blocks in (("card", pool), ("host", host_pool)):
+            eng = ns.make_engine(tmp, name, block_frames=B, device=device)
+            sync()
+            t0 = time.perf_counter()
+            out = eng.run(sn, ns.CycleReader(blocks, n_frames),
+                          centers=centers)
+            sync()
+            dt = time.perf_counter() - t0
+            labels = np.array(np.load(eng.store_labels))
+            runs[name] = dict(eng=eng, out=out, labels=labels,
+                              fps=n_frames / dt)
+        launches = read_launches()
+    card, host = runs["card"], runs["host"]
+    for name, r in runs.items():
+        print(f"north-star path, {name} pool ({NS_POOL} x {B} frames, "
+              f"{NS_BLOCKS} blocks through CycleReader, depth "
+              f"{r['eng'].pipeline_depth}, labels spilled): "
+              f"{r['fps']:.1f} frames/s; phase_times_ (s): " + json.dumps(
+                  {k: round(v, 4) for k, v in r["eng"].phase_times_.items()}),
+              flush=True)
+    # (1) the pool wraps: blocks 4 and 5 are blocks 0 and 1 again
+    lab = card["labels"]
+    check(lab.shape == (n_frames, len(sy.occ)), f"labels {lab.shape}")
+    check(np.array_equal(lab[NS_POOL * B:], lab[:(NS_BLOCKS - NS_POOL) * B]),
+          "north-star: the labels of the wrapped blocks differ from the "
+          "first blocks'")
+    ns.check_periodic(lab, NS_POOL * B)
+    # (2) the card's pool against the host pool
+    check(np.array_equal(lab, host["labels"]), "north-star: card and host "
+          f"pools' labels differ on {int((lab != host['labels']).sum())} "
+          "rows")
+    for k in INT_ATTRS:
+        check(np.array_equal(getattr(card["out"], k),
+                             getattr(host["out"], k)),
+              f"north-star: {k} differs between the card and host pools")
+    fc, fh = card["eng"].final_state_, host["eng"].final_state_
+    worst = 0.0
+    for k in fc:
+        if k in ("conf", "cos", "sin"):
+            err = float(np.abs(fc[k] - fh[k]).max())
+            scale = float(np.abs(fh[k]).max())
+            check(err <= 1e-12 * scale, f"north-star: {k} sums differ by "
+                  f"{err:.3g} (> 1e-12 of {scale:.3g})")
+            worst = max(worst, err / scale if scale else 0.0)
+        else:
+            check(np.array_equal(fc[k], fh[k]),
+                  f"north-star: {k} differs between the card and host pools")
+    # (3) the host int64 recount
+    counts = ns.check_recount(lab, card["eng"], card["out"])
+    # (4) the kernels ran, on the card
+    check(card["eng"].route_ == host["eng"].route_ == "mxu",
+          f"north-star routes {card['eng'].route_}, {host['eng'].route_}")
+    check(fit_launches["K2"] >= 1, f"north-star fit launches {fit_launches}")
+    want = dict(K1=2 * NS_BLOCKS, K2=fit_launches["K2"], K3=0, K1s=0)
+    check(launches == want, f"north-star launches {launches}, want {want}")
+    # (5) no host round trip for the card's pool
+    check(card["eng"].staged_blocks_ == 0,
+          f"north-star: {card['eng'].staged_blocks_} blocks of the card's "
+          "pool went through the pinned staging slots")
+    check(host["eng"].staged_blocks_ == NS_BLOCKS,
+          f"north-star: the host pool staged {host['eng'].staged_blocks_} "
+          f"blocks, not {NS_BLOCKS}")
+    print(f"north-star path: pool made on the card in {t_pool:.2f} s, fit "
+          f"(K2) {len(centers)} centres in {t_fit:.2f} s; labels of blocks "
+          f"{NS_POOL}..{NS_BLOCKS - 1} == blocks 0..{NS_BLOCKS - NS_POOL - 1}"
+          "; card pool == host pool (labels, every integer tally and the "
+          f"carry equal, conf/cos/sin within {worst:.3g} relative); host "
+          f"int64 recount == engine ({counts['jumps']} jumps, "
+          f"{counts['assigned']} assigned); staged blocks card 0, host "
+          f"{NS_BLOCKS}; launches {launches}", flush=True)
+    del pool, host_pool
+    return launches, {k: r["fps"] for k, r in runs.items()}
 
 
 def run_streaming(ctx, tmp, name, frames=None, **kw):
@@ -3719,9 +3832,9 @@ def no_sharing_bench_system(n_frames, seed):
     9261 simple-cubic sites is the centre of a tetrahedron of its own 4
     static atoms (37,044 static atoms); 739 ions hop among 1024 centred
     sites."""
-    import bench
+    from sitator_tpu_torch.tools import bench_config as bc
     rng = np.random.default_rng(seed)
-    n_c, a = bench.N_CELLS, bench.A_LAT
+    n_c, a = bc.N_CELLS, bc.A_LAT
     g = np.stack(np.meshgrid(*(np.arange(n_c),) * 3, indexing="ij"),
                  -1).reshape(-1, 3)
     cell = np.eye(3) * a * n_c
@@ -3729,8 +3842,8 @@ def no_sharing_bench_system(n_frames, seed):
     tet = np.array([[1, 1, 1], [1, -1, -1], [-1, 1, -1], [-1, -1, 1]]) * 1.0
     host = (sites[:, None, :] + tet[None]).reshape(-1, 3)
     verts = np.arange(len(host), dtype=np.int32).reshape(len(sites), 4)
-    return hopping(rng, cell, host, verts, sites, bench.N_IONS, n_frames,
-                   bench.K_CENTERS, 0.01, sigma=0.25)
+    return hopping(rng, cell, host, verts, sites, bc.N_IONS, n_frames,
+                   bc.K_CENTERS, 0.01, sigma=0.25)
 
 
 def no_sharing_system(seed):
@@ -3777,8 +3890,7 @@ KERNELS = {
 
 
 def main():
-    if not (ROOT / "sitator_tpu_torch" / "csrc").is_dir() \
-            or not (ROOT / "bench.py").is_file():
+    if not (ROOT / "sitator_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from the root of a repository checkout",
               file=sys.stderr)
         return 1
@@ -3808,6 +3920,7 @@ def main():
     paths["slice"], fps = phase_slice("cuda")
     paths["K1s"] = phase_skew("cuda")
     paths["streaming"], stream_fps, ctx = phase_streaming("cuda")
+    paths["northstar"], ns_fps = phase_northstar("cuda")
     paths["network"], depth_fps, net_ctx = phase_network("cuda", ctx)
     phase_descriptors("cuda", dict(ctx, **net_ctx))
     phase_transport("cuda", dict(ctx, **net_ctx))
@@ -3821,6 +3934,7 @@ def main():
           "jax was imported")
     check(not any(m == "sitator_tpu" or m.startswith("sitator_tpu.")
                   for m in sys.modules), "sitator_tpu was imported")
+    check("bench" not in sys.modules, "bench was imported")
     kernels = []
     for key, meta in KERNELS.items():
         r = res[key]
@@ -3835,6 +3949,8 @@ def main():
     print(f"pipeline frames/s: K1 {fps:.1f}, K3 {gather_fps:.1f}; streaming "
           f"pass 2 frames/s: K1 {stream_fps:.1f} (depth 2 {depth_fps[2]:.1f}, "
           f"depth 0 {depth_fps[0]:.1f}), K3 {gather_stream_fps:.1f}; "
+          f"north-star path (K1, 6 x 512 frames): card pool "
+          f"{ns_fps['card']:.1f}, host pool {ns_fps['host']:.1f}; "
           f"by mesh size (median frames/s): {json.dumps(mesh_fps)}; "
           "on real cards: "
           f"{json.dumps(cards_fps) if cards_fps else 'not run'}; "

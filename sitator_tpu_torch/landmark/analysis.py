@@ -21,7 +21,7 @@ from sitator_tpu_torch.landmark.cluster import get_backend
 from sitator_tpu_torch.ops import landmark as lmops
 from sitator_tpu_torch.ops.pbc import PBCCalculator
 from sitator_tpu_torch.parallel.mesh import (bind_mesh, place_frames,
-                                             run_sharded)
+                                             run_sharded, take_columns)
 from sitator_tpu_torch.util.errors import (
     InsufficientSitesError,
     MultipleOccupancyError,
@@ -203,7 +203,12 @@ class LandmarkAnalysis:
         return block_fn
 
     def run(self, sn: SiteNetwork, frames) -> SiteTrajectory:
-        frames = np.asarray(frames)
+        """``frames (n_frames, n_atoms, 3)``: a host array, or a tensor,
+        whose blocks go to the device step from its own device (a host copy
+        is made once, for the site centres and the trajectory the result
+        carries)."""
+        if not torch.is_tensor(frames):
+            frames = np.asarray(frames)
         if frames.ndim != 3 or frames.shape[1] != sn.structure.n_atoms \
                 or frames.shape[2] != 3:
             raise ValueError("frames must be (n_frames, n_atoms, 3)")
@@ -241,6 +246,7 @@ class LandmarkAnalysis:
                                    np.float64)
         pbar = get_progress_bar(total=n_frames, enabled=self.verbose,
                                 desc="landmark vectors", unit="frame")
+        columns = {}
         pos = 0
         last_remap = (-1, 0)
         while pos < n_frames:
@@ -249,11 +255,12 @@ class LandmarkAnalysis:
             if hi - pos < B:  # pad to the block shape
                 from sitator_tpu_torch.parallel.mesh import pad_frames
                 blk, _ = pad_frames(blk, B)
-            static_np = blk[:, static_idx]
-            if self.dynamic_lattice_mapping:
-                static_np = static_np[:, perm]
+            static_np = take_columns(
+                blk, static_idx[perm] if self.dynamic_lattice_mapping
+                else static_idx, columns)
             lv_n, norms, drift = block_fn(
-                place_frames(blk[:, mobile_idx], self.mesh, self.device),
+                place_frames(take_columns(blk, mobile_idx, columns),
+                             self.mesh, self.device),
                 place_frames(static_np, self.mesh, self.device))
             drift_f = drift[: hi - pos]
             n_ok = hi - pos
@@ -284,8 +291,11 @@ class LandmarkAnalysis:
                 if len(valid):
                     max_drift = max(max_drift, float(valid.max()))
             if n_ok < hi - pos:
+                frame = frames[pos + n_ok]
+                if torch.is_tensor(frame):
+                    frame = frame.cpu().numpy()
                 new_perm = self._remap_lattice(
-                    frames[pos + n_ok, static_idx], perm, static_ref_np,
+                    frame[static_idx], perm, static_ref_np,
                     sn.structure.cell, pos + n_ok)
                 if np.array_equal(new_perm, perm):
                     # f32 device drift grazed the threshold but the f64
@@ -305,6 +315,8 @@ class LandmarkAnalysis:
             pbar.update(n_ok)
             pos += n_ok
         pbar.close()
+        if torch.is_tensor(frames):
+            frames = frames.cpu().numpy()
 
         if self.dynamic_lattice_mapping:
             if n_remaps and self.verbose:

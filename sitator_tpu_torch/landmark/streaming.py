@@ -59,7 +59,7 @@ from sitator_tpu_torch.ops.jumps import _jump_stats
 from sitator_tpu_torch.parallel.mesh import (ShardedFrames, bind_mesh,
                                              gather_frames, pad_frames,
                                              place_frames, run_sharded,
-                                             shard_frames)
+                                             shard_frames, take_columns)
 from sitator_tpu_torch.util.errors import (MultipleOccupancyError,
                                            StaticLatticeError)
 from sitator_tpu_torch.util.progress import get_progress_bar
@@ -191,7 +191,12 @@ class _Lanes:
 
     A slot is handed out again only after the uploads last made from it
     have finished (their events), and the ring is longer than the run-ahead
-    window, so a block still in flight never shares a slot."""
+    window, so a block still in flight never shares a slot.
+
+    A block that is a tensor on a device (a reader that hands out frames
+    already on the card) takes no slot: its columns are gathered where it
+    lies (:meth:`take`).  ``staged`` counts the blocks that went through
+    the slots."""
 
     def __init__(self, device, n_slots, slot_frames, mesh=None):
         self.device = device
@@ -200,6 +205,8 @@ class _Lanes:
         self.mesh = mesh
         self.slots = [{} for _ in range(n_slots)]
         self.cursor = 0
+        self.staged = 0
+        self.columns = {}       # index arrays on the devices blocks lie on
         self._streams = {}
 
     def _stream(self, name, device=None):
@@ -216,7 +223,18 @@ class _Lanes:
         """``block[:, idx]`` for each index array of ``columns`` as float32
         frames on the device (frame shards over the mesh): gathered straight
         into the next slot's pinned buffers, copied on the upload stream,
-        and made visible to the stream that reads them by an event."""
+        and made visible to the stream that reads them by an event.  A
+        tensor on a card (or any tensor, on a CPU device) takes no slot
+        (:meth:`take`): its columns are gathered on its device's current
+        stream, which orders them before the kernels that read them, then
+        moved to the engine's device by an explicit copy if it lies on
+        another card, and split over the mesh.  A CPU tensor bound for a
+        card goes through the slots as host frames."""
+        if torch.is_tensor(block):
+            if not (self.cuda and block.device.type == "cpu"):
+                return [self.take(block, idx) for idx in columns]
+            block = block.numpy()
+        self.staged += 1
         slot = self.slots[self.cursor]
         self.cursor = (self.cursor + 1) % len(self.slots)
         for ev in slot.pop("uploaded", ()):
@@ -250,6 +268,31 @@ class _Lanes:
         for t in out:   # allocated on the upload stream, used on this one
             t.record_stream(compute)
         return out
+
+    def take(self, block, idx):
+        """``block[:, idx]`` as float32 frames on the device (frame shards
+        over the mesh) with no staging slot: a tensor's columns gathered on
+        its device (:meth:`resident`), a host array's copied from pageable
+        memory."""
+        if torch.is_tensor(block):
+            self.resident(block)
+        return place_frames(take_columns(block, idx, self.columns),
+                            self.mesh, self.device)
+
+    @staticmethod
+    def resident(block):
+        """Make a tensor ``block`` on a card safe to read on that card's
+        current stream: the feeder thread's reader made it on the card's
+        default stream (a thread's current stream until it picks another),
+        so where the two differ the current stream waits for the default
+        one, and the block's memory is kept from reuse until the current
+        stream is done with it."""
+        if block.is_cuda:
+            made = torch.cuda.default_stream(block.device)
+            use = torch.cuda.current_stream(block.device)
+            if made != use:
+                use.wait_stream(made)
+                block.record_stream(use)
 
     def _upload_shards(self, staged, slot):
         """Frame shards of the pinned ``staged`` block, each copied on the
@@ -466,6 +509,15 @@ class StreamingLandmarkAnalysis:
     trip to save.
     With int64/float64 accumulators on the device there is no epoch spill:
     ``spill_every`` changes no result, and ``exact_jump_epochs_`` is 0.
+
+    A reader may hand out tensors in place of NumPy blocks: frames already
+    on the card stay there (their columns are gathered on the card, with no
+    staging slot and no host round trip), frames on another card move to
+    ``device`` by an explicit copy.  After a run, ``staged_blocks_`` counts
+    the blocks that went up through the pinned staging slots, and
+    ``final_state_`` holds the host totals of the accumulators and the
+    final jump carry (``carry_last``, ``carry_res``), as a checkpoint
+    would.
     """
 
     def __init__(self, cutoff_midpoint=3.0, cutoff_steepness=4.0,
@@ -543,7 +595,8 @@ class StreamingLandmarkAnalysis:
     # -- pass 1 --------------------------------------------------------
     def fit_centers(self, sn: SiteNetwork, reader):
         """Cluster centres ``(K, n_landmarks)`` from landmark vectors on an
-        evenly strided subsample of ``reader`` (NumPy)."""
+        evenly strided subsample of ``reader`` (NumPy blocks, or tensors,
+        which are stacked and indexed on their own device)."""
         dev = self.device
         n_frames = len(reader)
         mobile_idx = np.flatnonzero(sn.mobile_mask)
@@ -584,10 +637,16 @@ class StreamingLandmarkAnalysis:
         lvs = []
         B = 256
         sel = np.arange(0, n_frames, stride)
+        columns = {}
         for lo in range(0, len(sel), B):
-            frames = np.stack([reader[int(i):int(i) + 1][0]
-                               for i in sel[lo:lo + B]])
-            static_np = frames[:, static_idx]
+            rows = [reader[int(i):int(i) + 1][0] for i in sel[lo:lo + B]]
+            if torch.is_tensor(rows[0]):
+                frames = torch.stack(rows)
+                if self.dynamic_lattice_mapping:  # remapped on the host
+                    frames = frames.cpu().numpy()
+            else:
+                frames = np.stack(rows)
+            static_np = take_columns(frames, static_idx, columns)
             if self.dynamic_lattice_mapping:
                 static_np = static_np.copy()
                 for b in range(len(static_np)):
@@ -605,10 +664,9 @@ class StreamingLandmarkAnalysis:
                                 max_drift=worst)
                         perm = new_perm
                     static_np[b] = static_np[b][perm]
-            mobile = torch.as_tensor(frames[:, mobile_idx],
-                                     dtype=torch.float32, device=dev)
-            static = torch.as_tensor(static_np, dtype=torch.float32,
-                                     device=dev)
+            mobile = place_frames(take_columns(frames, mobile_idx, columns),
+                                  None, dev)
+            static = place_frames(static_np, None, dev)
             if fit_basis is not None:
                 lv = mxu_landmark_blocks(
                     mobile, static, fit_basis[1], kcell,
@@ -638,9 +696,57 @@ class StreamingLandmarkAnalysis:
         return centers
 
     # -- pass 2 --------------------------------------------------------
+    def _assign_setup(self, sn, centers, mesh=None):
+        """Pass 2's kernel route and the keyword arguments of
+        :func:`_assign_block` for ``centers (K, n_landmarks)`` on the
+        engine's device: K1 ('mxu') when the basis shares vertices, else K3
+        ('gather'), the dense route when the kernels are off."""
+        dev = self.device
+        K = len(centers)
+        static_idx = np.flatnonzero(sn.static_mask)
+        verts, vmask = sn.padded_vertices()
+        cell_np = sn.structure.cell
+        route = "dense"
+        plan = dict(centers=torch.as_tensor(centers, device=dev))
+        if self._use_fused():
+            route = "gather"
+            plan.update(verts=torch.as_tensor(verts, device=dev),
+                        vmask=torch.as_tensor(vmask, device=dev),
+                        full_mask=bool(np.asarray(vmask).all()))
+            basis = self._engine_basis(sn, verts, vmask, static_idx)
+            if basis is not None:
+                from sitator_tpu_torch.ops.landmark_mxu import permute_centers
+                route = "mxu"
+                plan = dict(basis=basis[1], centers=torch.as_tensor(
+                    permute_centers(centers, basis[0]), device=dev))
+        else:
+            # the dense membership matrix exists only on the dense route
+            plan.update(A=lmops.vertex_membership_matrix(
+                verts, vmask, len(static_idx)).to(dev),
+                active=torch.ones(K, dtype=torch.bool, device=dev))
+        from sitator_tpu_torch.ops.kernel_common import kernel_cell
+        # int16 egress: any practical site count fits, and site indices
+        # >= 2^15 must never wrap; the 12-bit pack on top needs K < 4096
+        egress_int16 = bool(self.egress_int16) and K < (1 << 15)
+        return route, dict(
+            midpoint=self.cutoff_midpoint, steepness=self.cutoff_steepness,
+            threshold=self.assignment_threshold,
+            cutoff_shape=self.cutoff_shape,
+            cell=torch.as_tensor(cell_np, dtype=torch.float32, device=dev),
+            cell_inv=torch.as_tensor(np.linalg.inv(cell_np),
+                                     dtype=torch.float32, device=dev),
+            kcell=kernel_cell(cell_np),
+            static_ref=torch.as_tensor(sn.structure.positions[static_idx],
+                                       dtype=torch.float32, device=dev),
+            want_drift=self.static_movement_threshold is not None,
+            egress_int16=egress_int16,
+            egress_pack12=self.egress_pack12 and egress_int16 and K < 4096,
+            mesh=mesh, **plan)
+
     def run(self, sn: SiteNetwork, trajectory, centers=None):
-        """``trajectory``: a TrajectoryReader or (F, A, 3) array.  Returns
-        an annotated SiteNetwork (the streaming result object)."""
+        """``trajectory``: a TrajectoryReader (of NumPy blocks or tensors)
+        or an (F, A, 3) array.  Returns an annotated SiteNetwork (the
+        streaming result object)."""
         reader = (trajectory if hasattr(trajectory, "__getitem__")
                   and not isinstance(trajectory, np.ndarray)
                   else ArrayTrajectory(np.asarray(trajectory)))
@@ -670,41 +776,17 @@ class StreamingLandmarkAnalysis:
         mobile_idx = np.flatnonzero(sn.mobile_mask)
         static_idx = np.flatnonzero(sn.static_mask)
         n_mobile = len(mobile_idx)
-        verts, vmask = sn.padded_vertices()
         cell_np = sn.structure.cell
-        cell = torch.as_tensor(cell_np, dtype=torch.float32, device=dev)
-        cell_inv = torch.as_tensor(np.linalg.inv(cell_np),
-                                   dtype=torch.float32, device=dev)
-        from sitator_tpu_torch.ops.kernel_common import kernel_cell
-        # kernel plan: K1 when the basis shares vertices, else K3; the dense
-        # route when the kernels are off
-        route = "dense"
-        plan = dict(centers=torch.as_tensor(centers, device=dev))
-        if self._use_fused():
-            route = "gather"
-            plan.update(verts=torch.as_tensor(verts, device=dev),
-                        vmask=torch.as_tensor(vmask, device=dev),
-                        full_mask=bool(np.asarray(vmask).all()))
-            basis = self._engine_basis(sn, verts, vmask, static_idx)
-            if basis is not None:
-                from sitator_tpu_torch.ops.landmark_mxu import permute_centers
-                route = "mxu"
-                plan = dict(basis=basis[1], centers=torch.as_tensor(
-                    permute_centers(centers, basis[0]), device=dev))
-        else:
-            # the dense membership matrix exists only on the dense route
-            plan.update(A=lmops.vertex_membership_matrix(
-                verts, vmask, len(static_idx)).to(dev),
-                active=torch.ones(K, dtype=torch.bool, device=dev))
+        route, assign_kw = self._assign_setup(sn, centers, smesh)
         self.route_ = route
+        cell_inv = assign_kw["cell_inv"]
+        egress_pack12 = assign_kw["egress_pack12"]
 
         start_lo = 0
         carry_np = (np.full((n_mobile,), -1, np.int64),
                     np.zeros((n_mobile,), np.int64))
         static_ref_np = np.asarray(sn.structure.positions[static_idx],
                                    np.float64)
-        static_ref = torch.as_tensor(static_ref_np, dtype=torch.float32,
-                                     device=dev)
         perm = np.arange(len(static_idx))
         n_remaps = 0
         host_acc = {}
@@ -742,17 +824,6 @@ class StreamingLandmarkAnalysis:
 
         B = self.block_frames
         thr_drift = self.static_movement_threshold
-        # int16 egress: any practical site count fits, and site indices
-        # >= 2^15 must never wrap; the 12-bit pack on top needs K < 4096
-        egress_int16 = bool(self.egress_int16) and K < (1 << 15)
-        egress_pack12 = self.egress_pack12 and egress_int16 and K < 4096
-        assign_kw = dict(
-            midpoint=self.cutoff_midpoint, steepness=self.cutoff_steepness,
-            threshold=self.assignment_threshold,
-            cutoff_shape=self.cutoff_shape, cell=cell, cell_inv=cell_inv,
-            kcell=kernel_cell(cell_np), static_ref=static_ref,
-            want_drift=thr_drift is not None, egress_int16=egress_int16,
-            egress_pack12=egress_pack12, mesh=smesh, **plan)
 
         W = max(0, self.pipeline_depth)
         G = self.retire_group if W else 1
@@ -807,7 +878,7 @@ class StreamingLandmarkAnalysis:
 
         def upload_static(block):
             with ph("upload"):
-                return place_frames(block[:, static_columns()], smesh, dev)
+                return lanes.take(block, static_columns())
 
         def assign(mobile, static):
             """One block's assignment and the box its egress labels are
@@ -873,9 +944,12 @@ class StreamingLandmarkAnalysis:
                         last_remap = (lo + stop, 1)
                     from sitator_tpu_torch.landmark.analysis import \
                         LandmarkAnalysis
+                    frame = block[stop]
+                    if torch.is_tensor(frame):
+                        frame = frame.cpu().numpy()
                     new_perm, worst = LandmarkAnalysis._find_lattice_mapping(
-                        block[stop, static_idx], perm, static_ref_np,
-                        cell_np, thr_drift)
+                        frame[static_idx], perm, static_ref_np, cell_np,
+                        thr_drift)
                     if new_perm is None:
                         raise StaticLatticeError(
                             f"no consistent lattice mapping at frame "
@@ -1001,7 +1075,7 @@ class StreamingLandmarkAnalysis:
             block, _ = pad_frames(block, n_dev)
             if W == 0:
                 with ph("upload"):
-                    mobile = place_frames(block[:, mobile_idx], smesh, dev)
+                    mobile = lanes.take(block, mobile_idx)
                 process_block(lo, block, nb, mobile)
             else:
                 dispatch(lo, block, nb)
@@ -1019,6 +1093,10 @@ class StreamingLandmarkAnalysis:
 
         drain()
         totals = host_totals()
+        self.final_state_ = dict(
+            totals, carry_last=carry[0].cpu().numpy(),
+            carry_res=carry[1].cpu().numpy())
+        self.staged_blocks_ = lanes.staged
         if n_remaps and self.verbose:
             logger.info("dynamic lattice mapping: %d slot→atom remaps",
                         n_remaps)

@@ -254,13 +254,33 @@ def replicated(mesh) -> FramePlacement:
 
 def pad_frames(arr, multiple):
     """Pad the leading axis to a multiple (repeating the last frame), so
-    frame shards divide evenly.  Returns (padded, n_valid)."""
+    frame shards divide evenly; a tensor is padded on its own device.
+    Returns (padded, n_valid)."""
     n = arr.shape[0]
     rem = (-n) % multiple
     if rem == 0:
         return arr, n
+    if torch.is_tensor(arr):
+        return torch.cat([arr, arr[-1:].expand((rem,) + arr.shape[1:])]), n
     pad = np.broadcast_to(arr[-1:], (rem,) + arr.shape[1:])
     return np.concatenate([arr, pad], axis=0), n
+
+
+def take_columns(arr, idx, cache):
+    """``arr[:, idx]`` for a NumPy index array ``idx``: NumPy indexing for a
+    host array; for a tensor an ``index_select`` on the tensor's own device,
+    with ``idx`` copied there once and kept in ``cache`` (a dict the caller
+    owns), so that a block costs no host round trip."""
+    if not torch.is_tensor(arr):
+        return arr[:, idx]
+    key = (arr.device, idx.tobytes())
+    t = cache.get(key)
+    if t is None:
+        if len(cache) >= 8:     # a remapped lattice makes new index arrays
+            cache.clear()
+        t = cache[key] = torch.as_tensor(idx, dtype=torch.int64,
+                                         device=arr.device)
+    return arr.index_select(1, t)
 
 
 class ShardedFrames:
@@ -574,9 +594,16 @@ def run_sharded(fn, mesh, n_frame_args, *args, n_outputs=2):
 
 
 def place_frames(arr, mesh, device):
-    """Host frames ``arr`` as float32: a tensor on ``device`` when ``mesh``
-    is None or has one device (the engines' ``device``), else frame shards
-    over it (:func:`shard_frames`)."""
+    """Frames ``arr`` (a host array, or a tensor on any device) as float32: a
+    tensor on ``device`` when ``mesh`` is None or has one device (the
+    engines' ``device``; a tensor on another device moves by an explicit
+    copy, one already there stays), else frame shards over it
+    (:func:`shard_frames`; a tensor's shards are copied device to
+    device)."""
+    if torch.is_tensor(arr):
+        if mesh is None or mesh.devices.size == 1:
+            return arr.to(device=device, dtype=torch.float32)
+        return shard_frames(arr.to(torch.float32), mesh)
     if mesh is None or mesh.devices.size == 1:
         return torch.as_tensor(arr, dtype=torch.float32, device=device)
     return shard_frames(np.ascontiguousarray(arr, np.float32), mesh)

@@ -28,7 +28,8 @@ from sitator_tpu_torch.ops.jumps import (JumpStats, _jump_stats,
                                          _jump_stats_parallel)
 from sitator_tpu_torch.parallel.mesh import (FrameMesh, ShardedFrames,
                                              _cards, bind_mesh, pad_frames,
-                                             place_frames, run_sharded)
+                                             place_frames, run_sharded,
+                                             take_columns)
 
 __all__ = ["SpmdLandmarkPipeline", "analysis_step", "fused_analysis_step",
            "mxu_analysis_step"]
@@ -218,6 +219,7 @@ class SpmdLandmarkPipeline:
 
         self.mobile_idx = np.flatnonzero(seed_sn.mobile_mask)
         self.static_idx = np.flatnonzero(seed_sn.static_mask)
+        self._columns = {}      # the two index arrays on a tensor's device
         verts, vmask = seed_sn.padded_vertices()
         self._full_mask = bool(np.asarray(vmask).all())
         rep = self.mesh.replicate
@@ -272,22 +274,26 @@ class SpmdLandmarkPipeline:
         return "mxu" if self._mxu_basis is not None else "gather"
 
     def run_block(self, frames, carry=None):
-        """Run one frame block (host array ``(B, n_atoms, 3)``); B is padded
-        to a multiple of the mesh size (padding frames are masked out of
-        the statistics exactly).  Returns (labels, confs, JumpStats) as
-        host arrays covering the original B frames.
+        """Run one frame block ``(B, n_atoms, 3)``: a host array, or a
+        tensor, which stays on its device (its columns are taken there);
+        B is padded to a multiple of the mesh size (padding frames are
+        masked out of the statistics exactly).  Returns (labels, confs,
+        JumpStats) as host arrays covering the original B frames.
 
         To chain jump statistics across consecutive blocks, pass
         ``carry=(prev_stats["last_sites"], prev_stats["last_res"])`` from
         the previous block — of this pipeline or of the reference's."""
-        frames = np.asarray(frames)
+        if not torch.is_tensor(frames):
+            frames = np.asarray(frames)
         padded, n_valid = pad_frames(frames, self.n_devices)
         valid = (None if n_valid == len(padded) else
                  torch.arange(len(padded), device=self.device) < n_valid)
-        mobile = place_frames(padded[:, self.mobile_idx], self.mesh,
-                              self.device)
-        static = place_frames(padded[:, self.static_idx], self.mesh,
-                              self.device)
+        mobile = place_frames(take_columns(padded, self.mobile_idx,
+                                           self._columns),
+                              self.mesh, self.device)
+        static = place_frames(take_columns(padded, self.static_idx,
+                                           self._columns),
+                              self.mesh, self.device)
         kw = dict(cutoff_shape=self.cutoff_shape,
                   peak_evening=self.peak_evening, valid=valid, carry=carry)
         route = self.route

@@ -505,6 +505,55 @@ def test_seed_stream_merge_pathways_without_jax():
     assert "PATHWAYS-OK" in proc.stdout
 
 
+NORTHSTAR = textwrap.dedent("""
+    import importlib.abc
+    import sys
+    import tempfile
+
+    class Blocker(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib", "sitator_tpu",
+                                      "bench"):
+                raise ImportError(f"blocked: {name}")
+            return None
+
+    sys.meta_path.insert(0, Blocker())
+    import torch
+    torch.set_num_threads(1)
+    from sitator_tpu_torch.tools import bench_config, northstar_run
+    assert bench_config.build_system().n_static == 9261
+    with tempfile.TemporaryDirectory() as tmp:
+        rc = northstar_run.main(["--small", "--device", "cpu", "--blocks",
+                                 "3", "--workdir", tmp])
+    assert rc == 0, rc
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "sitator_tpu",
+                                           "bench"))
+    assert not loaded, loaded
+    print("NORTHSTAR-OK")
+""")
+
+
+def test_northstar_tool_without_jax_or_bench():
+    """The north-star tool and the port's bench geometry import, and the
+    tool runs at ``--small`` on the CPU, with ``jax``, ``sitator_tpu``
+    and ``bench`` blocked."""
+    proc = subprocess.run([sys.executable, "-c", NORTHSTAR], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "NORTHSTAR-OK" in proc.stdout
+
+
+def test_no_source_file_imports_bench():
+    files = sorted((ROOT / "sitator_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+    offenders = [f"{p.relative_to(ROOT)}:{i}"
+                 for p in files
+                 for i, line in enumerate(p.read_text().splitlines(), 1)
+                 if re.match(r"\s*(import bench\b|from bench import)", line)]
+    assert not offenders, offenders
+
+
 def test_port_imports_nothing_of_sitator_tpu():
     proc = subprocess.run([sys.executable, "-c", GUARDED_SLICE], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
