@@ -49,8 +49,20 @@ Phases; any failure exits non-zero before the result lines:
    random centres every similarity is far below the threshold, every label
    is -1 and no jump would be recorded, at the same work per frame;
 5. the K1s path: ``mxu_assign_blocks(skew=True)`` against ``skew=False``
-   over 8 bench blocks through the public wrapper (the A/B of
-   ``tools/ab_skew.py``), counters reset first and read after;
+   over 8 bench blocks through the public wrapper, by the A/B of
+   ``sitator_tpu_torch/tools/ab_skew.py`` on the site-centre system,
+   counters reset first and read after; then the chip-measurement tools
+   (``phase_bench``), counters read by difference: ``tools/bench.py``'s
+   ``main`` (its JSON line: K1 over 8 x 32 bench frames with the
+   prefix-form jump statistics, 5 timed reps, the NumPy baseline, the
+   share of the card's bf16 peak), ``gpu_fps`` in ``fused`` (K3) and
+   ``xla`` (dense) mode with the same checksum, each mode's host
+   synchronisations and host-to-device copies in one timed rep (fewer
+   copies than blocks), the step on site centres (the modes' labels equal
+   outside the margin gate, ``n_ij`` equal to the int64 oracle),
+   ``ab_s_tile``, ``ab_centers_bf16`` and ``ab_skew`` at their defaults
+   and ``validate_preshift_streaming`` (K2 in the fit, K1 in pass 2,
+   against the dense route);
 6. ``StreamingLandmarkAnalysis`` at the bench width over 1024 frames:
    ``fit_centers`` (K2) then ``run`` (K1) in 256-frame blocks with the labels
    spilled to a memmap, timed; its statistics against the int64 oracle on
@@ -214,8 +226,6 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 
 LV_RTOL, LV_ATOL = 1e-4, 1e-6        # f32 sums in another order, then exp
-CONF_ATOL = {True: 1e-2, False: 1e-5}  # bf16 / f32 similarity operands
-MARGIN = {True: 8e-3, False: 1e-5}
 MID, STEEP, THR, CUTOFF = 4.0, 3.0, 0.35, "logistic_r2"   # the bench's
 # NVIDIA H100 SXM data-sheet peaks (dense), for the bounds
 PEAK_BF16, PEAK_F32, HBM_BPS = 989e12, 67e12, 3.35e12
@@ -263,37 +273,35 @@ def top2_margin(lv, centers, peak_evening):
     """Reference top-1 minus top-2 cosine similarity and top-1 value of
     every (frame, ion), in f32 from landmark vectors ``lv (B, M, S)`` in the
     caller's site order and unit ``centers (K, S)``; zero similarities of
-    the kernels' padded centre columns included."""
+    the kernels' padded centre columns included
+    (``tools/bench.py::margin_top1``)."""
     import torch
     from sitator_tpu_torch.ops import landmark as lmops
+    from sitator_tpu_torch.tools.bench import margin_top1
     c = torch.as_tensor(centers, device=lv.device, dtype=torch.float32)
     lv_n, _ = lmops.normalize_landmark_vectors(lmops.peak_even(
         lv, peak_evening))
-    sims = lv_n @ c.T
-    pad = (-c.shape[0]) % 128
-    if pad:
-        sims = torch.nn.functional.pad(sims, (0, pad))
-    top = sims.topk(2, dim=-1).values
-    return (top[..., 0] - top[..., 1]).cpu().numpy(), \
-        top[..., 0].cpu().numpy()
+    return margin_top1(lv_n, c)
 
 
 def compare_assign(name, got, want, margin, top1, bf16, labels="check"):
-    """Labels equal outside the margin gate; confidences within tolerance.
-    Returns the max confidence error.  ``labels='require'`` fails when the
+    """Labels equal outside the margin gate; confidences within tolerance
+    (both ``tools/bench.py``'s, ``gated`` and ``CONF_TOL``, for bf16 or f32
+    operands).  Returns the max confidence error.  ``labels='require'`` fails when the
     gate leaves no row to compare; ``labels='timing'`` marks a case kept for
     its timings, whose rows all sit inside the gate (random centres: every
     similarity is far below the threshold and the top two are close), so
     that only its confidences are compared."""
+    from sitator_tpu_torch.tools.bench import CONF_TOL, gated as gate_of
     gl, gc = (np.asarray(x.cpu()) for x in got)
     wl, wc = (np.asarray(x.cpu()) for x in want)
     check(gl.shape == wl.shape == margin.shape,
           f"{name}: shapes {gl.shape} {wl.shape} {margin.shape}")
     check(np.isfinite(gc).all(), f"{name}: non-finite confidences")
     err = float(np.abs(gc - wc).max())
-    check(err <= CONF_ATOL[bf16], f"{name}: conf error {err:.3g} > "
-          f"{CONF_ATOL[bf16]}")
-    gated = (margin <= MARGIN[bf16]) | (np.abs(top1 - THR) <= CONF_ATOL[bf16])
+    check(err <= CONF_TOL[bf16], f"{name}: conf error {err:.3g} > "
+          f"{CONF_TOL[bf16]}")
+    gated = gate_of(margin, top1, bf16)
     bad = np.argwhere((gl != wl) & ~gated)
     check(not len(bad), f"{name}: {len(bad)} labels differ outside the "
           f"margin gate (first at {bad[:1].tolist()})")
@@ -394,21 +402,11 @@ def bench_system(n_frames, seed):
 
 def add_site_centres(sy, device):
     """Fitted-like centres: the unit landmark vector of an ion sitting
-    exactly on each centred site of the reference lattice (K2 on the card,
-    its plain version on the CPU)."""
-    import torch
-    from sitator_tpu_torch.ops import landmark_mxu as mx
-    from sitator_tpu_torch.ops.kernel_common import kernel_cell
-    basis = mx.prepare_mxu_basis(sy["verts"], np.ones_like(sy["verts"], bool),
-                                 sy["site_pos"], sy["cell"], s_tile=128)
-    probes = torch.as_tensor(sy["site_pos"][sy["centred"]][None],
-                             dtype=torch.float32, device=device)
-    ref = torch.as_tensor(sy["static_ref"][None], dtype=torch.float32,
-                          device=device)
-    lv = mx.mxu_landmark_blocks(probes, ref, mx.basis_from_jax(basis, device),
-                                kernel_cell(sy["cell"]), midpoint=MID,
-                                steepness=STEEP, cutoff_shape=CUTOFF)[0]
-    sy["centers"] = (lv / lv.norm(dim=1, keepdim=True)).cpu().numpy()
+    exactly on each centred site of the reference lattice
+    (``tools/bench.py::site_centers``: K2 on the card, its plain version on
+    the CPU)."""
+    from sitator_tpu_torch.tools import bench
+    sy["centers"] = bench.site_centers(as_bench_system(sy), device)
     return sy
 
 
@@ -926,6 +924,7 @@ def phase_slice(device):
     from sitator_tpu_torch import (JumpAnalysis, LandmarkAnalysis,
                                    SpmdLandmarkPipeline)
     from sitator_tpu_torch.ops.jumps import _jump_stats_block_int64
+    from sitator_tpu_torch.tools.bench import CONF_TOL
 
     run = add_site_centres(bench_system(8 * 32, seed=11), device)
     small = lattice_system(5, 12, 24, 64, seed=9)
@@ -1023,7 +1022,7 @@ def phase_slice(device):
     check(np.isfinite(gc).all(), "K3 pipeline: non-finite confidences")
     cerr = float(np.abs(gc - rc).max())
     agree = float(np.mean(gl == rl))
-    check(cerr <= CONF_ATOL[True], f"K3 pipeline: conf error {cerr:.3g}")
+    check(cerr <= CONF_TOL[True], f"K3 pipeline: conf error {cerr:.3g}")
     check(agree >= 0.99, f"K3 pipeline vs dense: labels agree on {agree:.4f}")
     print(f"pipeline (K3, no vertex sharing): labels agree with the dense "
           f"route on {100 * agree:.2f}% ({100 * np.mean(gl >= 0):.1f}% "
@@ -1036,53 +1035,226 @@ def phase_slice(device):
     return launches, fps
 
 
+def as_bench_system(sy):
+    """``sy`` (:func:`hopping`) as the bench tools' system: its cell,
+    vertices, centres (the random ones until :func:`add_site_centres`),
+    reference lattice, sites and centred sites."""
+    from sitator_tpu_torch.tools.bench_config import BenchSystem
+    return BenchSystem(cell=sy["cell"], verts=sy["verts"], frames=None,
+                       centers=sy.get("centers", sy["random_centres"]),
+                       n_static=len(sy["static_ref"]), host=sy["static_ref"],
+                       sites=sy["site_pos"], occ=sy["centred"])
+
+
 def phase_skew(device):
-    """The K1s path: ``mxu_assign_blocks`` with ``skew=True`` and with
-    ``skew=False`` through the public wrapper over 8 bench blocks of 32
-    frames (what ``tools/ab_skew.py`` does on the TPU), labels held equal
-    outside the margin gate and confidences within tolerance.  Returns the
+    """The K1s path: the A/B of ``sitator_tpu_torch/tools/ab_skew.py``
+    (``mxu_assign_blocks`` with ``skew=False`` and ``skew=True`` over 8
+    bench blocks of 32 frames, labels held equal outside the margin gate
+    and confidences within tolerance, then 6 timed rounds in turn) on the
+    site-centre system, counters reset first and read after.  Returns the
     launch counts."""
-    import torch
-    from sitator_tpu_torch.ops import landmark_mxu as mx
-    from sitator_tpu_torch.ops.kernel_common import kernel_cell
+    from sitator_tpu_torch.tools import ab_skew, bench
 
     sy = add_site_centres(bench_system(8 * 32, seed=17), device)
-    basis = mx.prepare_engine_basis(
-        sy["verts"], np.ones_like(sy["verts"], bool), sy["site_pos"],
-        sy["cell"], midpoint=MID, steepness=STEEP, cutoff_shape=CUTOFF,
-        static_ref=sy["static_ref"], drift_budget=1.0)
-    basis = mx.basis_from_jax(basis, device)
-    centers = torch.as_tensor(mx.permute_centers(sy["centers"], basis),
-                              device=device)
-    kcell = kernel_cell(sy["cell"])
-    kw = dict(midpoint=MID, steepness=STEEP, threshold=THR,
-              cutoff_shape=CUTOFF)
-    blocks = [(torch.as_tensor(sy["mobile"][lo:lo + 32], device=device),
-               torch.as_tensor(sy["static"][lo:lo + 32], device=device))
-              for lo in range(0, 8 * 32, 32)]
-    margins = [top2_margin(mx._mxu_lv_cuda(**mx._lv_inputs(
-        mobile, static, basis, kcell, midpoint=MID, steepness=STEEP,
-        cutoff_shape=CUTOFF)), sy["centers"], "none")
-        for mobile, static in blocks]
+    blocks = bench.device_blocks(sy["static"], sy["mobile"], device)
     reset_launches()
-    runs = [(mx.mxu_assign_blocks(mobile, static, basis, kcell, centers,
-                                  skew=False, **kw),
-             mx.mxu_assign_blocks(mobile, static, basis, kcell, centers,
-                                  skew=True, **kw))
-            for mobile, static in blocks]
+    res = ab_skew.ab(as_bench_system(sy), device, centers=sy["centers"],
+                     blocks=blocks)
     launches = read_launches()
-    cat = [[torch.cat([r[i][j] for r in runs]) for j in (0, 1)]
-           for i in (0, 1)]
-    margin, top1 = (np.concatenate([m[i] for m in margins]) for i in (0, 1))
-    err = compare_assign("K1s path (8 x 32 bench frames through "
-                         "mxu_assign_blocks, skew vs not)", cat[1], cat[0],
-                         margin, top1, True)
-    print(f"K1s path: {100 * float((cat[1][0] >= 0).float().mean()):.2f}% "
-          f"assigned; max conf difference {err:.3g}; launches {launches}",
-          flush=True)
+    print(f"K1s path (ab_skew, 8 x 32 bench frames, K1 vs K1s): labels "
+          f"equal on {res['labels_compared']} ungated rows "
+          f"({res['labels_gated']} gated, {res['labels_differ_in_gate']} "
+          f"differ there); {100 * res['assigned']:.2f}% assigned; max conf "
+          f"difference {res['max_conf_diff']:.3g}; bit-equal "
+          f"{res['bitwise_equal']}; frames/s K1 {res['plain_fps']:.1f}, "
+          f"K1s {res['skew_fps']:.1f} (ratio {res['ratio']:.4f}); launches "
+          f"{launches}", flush=True)
     for k in ("K1", "K1s"):
-        check(launches[k] > 0, f"{k} was not launched on the K1s path")
+        check(launches[k] == 7 * len(blocks), f"{k} launched {launches[k]} "
+              f"times on the K1s path, not {7 * len(blocks)}")
     return launches
+
+
+def run_tool(label, module, argv=()):
+    """``module.main(argv)`` in this process with its standard output
+    captured, then printed: the JSON of its last line (after ``RESULT``
+    where the tool prints that) and its seconds.  A non-zero exit fails the
+    phase."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(list(argv))
+    seconds = time.perf_counter() - t0
+    out = buf.getvalue()
+    print(out, end="", flush=True)
+    check(rc == 0, f"{label}: exit code {rc}")
+    last = out.strip().splitlines()[-1]
+    return json.loads(last.removeprefix("RESULT ")), seconds
+
+
+def profile_rep(fn):
+    """One run of ``fn()`` under ``torch.profiler``: ``(host-to-device
+    copies by name with their counts, [(kernel or copy, device ms), ...]
+    the largest first, wall ms)``; the profiler's overhead is in the
+    wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    h2d = {e.key: e.count for e in events if "HtoD" in e.key}
+    ops = sorted(((e.key, e.self_device_time_total / 1e3) for e in events
+                  if e.self_device_time_total > 0), key=lambda x: -x[1])
+    return h2d, ops, wall
+
+
+def phase_bench(device):
+    """The chip-measurement tools (``sitator_tpu_torch/tools``) through
+    their entry points, counters reset first and read after: ``bench.main``
+    (K1 over 8 x 32 bench frames, the prefix-form jump statistics, the
+    checksum; a warm-up rep and 5 timed reps; the NumPy baseline), then
+    ``gpu_fps`` in ``fused`` (K3) and ``xla`` (the dense route) mode on the
+    same frames, with equal checksums; each mode's host synchronisations
+    and host-to-device copies in one timed rep; the same step on the
+    site-centre system, where the three modes' labels must agree outside
+    the margin gate and their ``n_ij`` equal the int64 oracle of their
+    labels (and each other where the labels agree); then ``ab_s_tile``,
+    ``ab_centers_bf16`` and ``ab_skew`` at their defaults and
+    ``validate_preshift_streaming``.  Returns the launch counts and the
+    bench's frames/s by mode."""
+    from sitator_tpu_torch.ops.jumps import _jump_stats_block_int64
+    from sitator_tpu_torch.tools import (ab_centers_bf16, ab_s_tile,
+                                         ab_skew, bench, bench_config)
+    from sitator_tpu_torch.tools import validate_preshift_streaming as vps
+
+    import torch
+    n_rep = (1 + bench.N_REPS) * bench.N_BLOCKS
+    reset_launches()
+    before = read_launches()
+    rec, seconds = run_tool("bench", bench)
+    got = launches_since(before)
+    print(f"bench.main: {seconds:.1f} s; launches {got}", flush=True)
+    check(rec["metric"] == bench.METRIC and rec["mode"] == "mxu"
+          and rec["backend"] == "cuda", f"bench record {rec}")
+    check(rec["mfu"] is not None and 0.0 < rec["mfu"] < 1.0,
+          f"bench mfu {rec['mfu']}")
+    check("W" in rec["card"] and rec["device"] in rec["card"],
+          f"bench card line {rec['card']!r}")
+    n_frames = bench.N_BLOCKS * bench.BLOCK
+    check(rec["checksum"] == -n_frames * bench_config.N_IONS,
+          f"bench checksum {rec['checksum']}: under random centres every "
+          "label is -1 and no jump is tallied")
+    check(got["K1"] == n_rep, f"bench: K1 launched {got['K1']} times, not "
+          f"once a block ({n_rep})")
+
+    system = bench_config.build_system()
+    blocks = bench.bench_blocks(system, device)
+    fps = {"mxu": rec["value"]}
+    for mode, key in (("fused", "K3"), ("xla", None)):
+        before = read_launches()
+        reps, _, checksum = bench.gpu_fps(system, mode, device,
+                                          blocks=blocks)
+        got = launches_since(before)
+        fps[mode] = float(np.median(reps))
+        print(json.dumps({"metric": bench.METRIC, "mode": mode,
+                          "value": fps[mode],
+                          "spread": [min(reps), max(reps)],
+                          "n_reps": len(reps), "checksum": checksum,
+                          "launches": got}), flush=True)
+        check(checksum == rec["checksum"], f"bench {mode}: checksum "
+              f"{checksum}, mxu {rec['checksum']}")
+        if key:
+            check(got[key] == n_rep, f"bench {mode}: {key} launched "
+                  f"{got[key]} times, not once a block ({n_rep})")
+    for mode in bench.MODES:
+        rep, _, _ = bench.bench_rep(system, mode, device, blocks=blocks)
+        rep().item()
+        n_sync = syncs_in(lambda: rep().item())
+        names, ops, wall = profile_rep(lambda: rep().item())
+        n_h2d = sum(names.values())
+        dev = sum(t for _, t in ops)
+        print(f"bench {mode}, one timed rep of {bench.N_BLOCKS} blocks: "
+              f"{n_sync} host synchronisations; {n_h2d} host-to-device "
+              f"copies {names}; under torch.profiler wall {wall:.2f} ms, "
+              f"device kernels and copies {dev:.2f} ms; by name (ms a "
+              "rep): " + "; ".join(f"{k[:60]} {t:.3f}" for k, t in ops[:8]),
+              flush=True)
+        check(n_h2d < bench.N_BLOCKS, f"bench {mode}: {n_h2d} host-to-"
+              "device copies in one rep, at least one a block")
+
+    # the same step on centres at real sites, the ions hopping among them
+    sy = add_site_centres(bench_system(n_frames, seed=19), device)
+    site_system = as_bench_system(sy)
+    site_blocks = bench.device_blocks(sy["static"], sy["mobile"], device)
+    K = len(sy["centers"])
+    n_ions = sy["mobile"].shape[1]
+    margin, top1 = bench.top2_margin(site_system, site_blocks, sy["centers"])
+    gate = bench.gated(margin, top1)
+    res = {}
+    for mode in bench.MODES:
+        assign, _ = bench.ASSIGNERS[mode](site_system, device)
+        out, total = bench.run_blocks(assign, site_blocks, K)
+        labels = torch.cat([o[0] for o in out]).cpu().numpy()
+        n_ij = [o[2]["n_ij"].cpu().numpy() for o in out]
+        for (lab, _, _), got_n in zip(out, n_ij):
+            want, _, _ = _jump_stats_block_int64(
+                lab.cpu().numpy(), K, np.full(n_ions, -1, np.int64),
+                np.zeros(n_ions, np.int64), "persist")
+            check(np.array_equal(got_n, want["n_ij"]), f"bench {mode} on "
+                  "site centres: n_ij differs from the int64 oracle")
+        res[mode] = (labels, n_ij, total.item())
+    want_l, want_n, want_sum = res["xla"]
+    for mode in ("mxu", "fused"):
+        labels, n_ij, total = res[mode]
+        bad = np.argwhere((labels != want_l) & ~gate)
+        check(not len(bad), f"bench {mode} on site centres: {len(bad)} "
+              f"labels differ from xla outside the margin gate")
+        same = np.array_equal(labels, want_l)
+        check(not same or (all(np.array_equal(a, b)
+                               for a, b in zip(n_ij, want_n))
+                           and total == want_sum),
+              f"bench {mode} on site centres: equal labels, other n_ij")
+        print(f"bench step on site centres, {mode} vs xla: labels equal on "
+              f"{int((~gate).sum())} ungated rows ({int(gate.sum())} gated, "
+              f"{int((labels != want_l).sum())} differ there); "
+              f"{100 * np.mean(labels >= 0):.2f}% assigned; n_ij "
+              f"{'equal' if same else 'each equal to its own oracle'} "
+              f"({int(sum(n.sum() for n in n_ij))} jumps); checksum {total}",
+              flush=True)
+    check(sum(n.sum() for n in want_n) > 0, "site centres: no jump")
+
+    ab = {}
+    for name, module in (("ab_s_tile", ab_s_tile),
+                         ("ab_centers_bf16", ab_centers_bf16),
+                         ("ab_skew", ab_skew)):
+        before = read_launches()
+        ab[name], seconds = run_tool(name, module)
+        print(f"{name}: {seconds:.1f} s; launches {launches_since(before)}",
+              flush=True)
+    before = read_launches()
+    val, seconds = run_tool("validate_preshift_streaming", vps)
+    got = launches_since(before)
+    print(f"validate_preshift_streaming: {seconds:.1f} s; launches {got}",
+          flush=True)
+    check(val["route_fused"] == "mxu" and got["K2"] >= 1
+          and got["K1"] == -(-vps.N_FRAMES // vps.BLOCK_FRAMES),
+          f"validate_preshift_streaming: route {val['route_fused']}, "
+          f"launches {got}")
+    launches = read_launches()
+    print(f"bench path: frames/s by mode {json.dumps(fps)}; A/B ratios: "
+          f"s_tile 256/128 {ab['ab_s_tile']['ratio_256_over_128']:.4f}, "
+          f"bf16/f32 centres {ab['ab_centers_bf16']['speedup_bf16']:.4f}, "
+          f"K1s/K1 {ab['ab_skew']['ratio']:.4f}; launches {launches}",
+          flush=True)
+    return launches, fps
 
 
 def phase_gather(device):
@@ -2895,7 +3067,8 @@ def same_passes(name, got, want):
         for k in STAT_KEYS:
             check(np.array_equal(sg[k], sw[k]), f"{name}: {k} differs")
         worst = max(worst, float(np.abs(cg - cw).max()))
-    check(worst <= CONF_ATOL[True], f"{name}: confidences differ by "
+    from sitator_tpu_torch.tools.bench import CONF_TOL
+    check(worst <= CONF_TOL[True], f"{name}: confidences differ by "
           f"{worst:.3g}")
     return worst
 
@@ -3919,6 +4092,7 @@ def main():
     paths = {}
     paths["slice"], fps = phase_slice("cuda")
     paths["K1s"] = phase_skew("cuda")
+    paths["bench"], bench_fps = phase_bench("cuda")
     paths["streaming"], stream_fps, ctx = phase_streaming("cuda")
     paths["northstar"], ns_fps = phase_northstar("cuda")
     paths["network"], depth_fps, net_ctx = phase_network("cuda", ctx)
@@ -3946,7 +4120,8 @@ def main():
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"],
                             library_ms=r["library_ms"], **extra))
-    print(f"pipeline frames/s: K1 {fps:.1f}, K3 {gather_fps:.1f}; streaming "
+    print(f"bench step frames/s (median of 5): {json.dumps(bench_fps)}; "
+          f"pipeline frames/s: K1 {fps:.1f}, K3 {gather_fps:.1f}; streaming "
           f"pass 2 frames/s: K1 {stream_fps:.1f} (depth 2 {depth_fps[2]:.1f}, "
           f"depth 0 {depth_fps[0]:.1f}), K3 {gather_stream_fps:.1f}; "
           f"north-star path (K1, 6 x 512 frames): card pool "

@@ -274,14 +274,19 @@ def sims_argmax(lv, inv_norm, centers, centers_b=None):
     (rows, SP)`` picks the kernel: bf16 rows run on the tensor cores over
     256-column blocks against ``centers_b`` (:func:`centers_bf16`, made here
     when None); f32 rows on the FMA pipes over 128-column blocks against the
-    f32 ``centers (SP, KP)``.  Returns ``(part_val, part_idx)``, ``(rows,
+    f32 ``centers (SP, KP)``, which may be None on the tensor cores when
+    ``centers_b`` is given.  Returns ``(part_val, part_idx)``, ``(rows,
     n_kb)``."""
     rows, SP = lv.shape
-    KP = centers.shape[1]
+    bf16 = lv.dtype == torch.bfloat16
+    if centers is None and not (bf16 and centers_b is not None):
+        raise ValueError("the f32 centres are needed unless bf16 rows come "
+                         "with centers_b")
+    KP = centers_b.shape[0] if centers is None else centers.shape[1]
     if KP % 128:
         raise ValueError("centers must be padded to a multiple of 128")
-    _check(centers, "centers", torch.float32, (SP, KP))
-    bf16 = lv.dtype == torch.bfloat16
+    if centers is not None:
+        _check(centers, "centers", torch.float32, (SP, KP))
     dev = lv.device
     n_kb = -(-KP // 256) if bf16 else KP // 128
     part_val = torch.empty((rows, n_kb), device=dev, dtype=torch.float32)
@@ -318,15 +323,17 @@ def argmax_merge(part_val, part_idx, threshold):
     return labels, confs
 
 
-def assign_tail(lv, centers, threshold, *, peak_clip, mxu_bf16):
+def assign_tail(lv, centers, threshold, *, peak_clip, mxu_bf16,
+                centers_b=None):
     """Cosine assignment of every row of ``lv (rows, SP)`` (clipped in
     place at its second-largest value when ``peak_clip``) to the padded
     centres ``centers (SP, KP)``: :func:`row_prep`, :func:`sims_argmax`
-    (on the tensor cores when ``mxu_bf16``), :func:`argmax_merge`.  Returns
-    (labels int32, confs float32), both ``(rows,)``."""
+    (on the tensor cores when ``mxu_bf16``, against ``centers_b`` when
+    given), :func:`argmax_merge`.  Returns (labels int32, confs float32),
+    both ``(rows,)``."""
     inv_norm, lvb = row_prep(lv, peak_clip=peak_clip, bf16_copy=mxu_bf16)
     part_val, part_idx = sims_argmax(lvb if mxu_bf16 else lv, inv_norm,
-                                     centers)
+                                     centers, centers_b)
     return argmax_merge(part_val, part_idx, threshold)
 
 

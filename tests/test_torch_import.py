@@ -544,6 +544,51 @@ def test_northstar_tool_without_jax_or_bench():
     assert "NORTHSTAR-OK" in proc.stdout
 
 
+BENCH_TOOLS = textwrap.dedent("""
+    import importlib.abc
+    import sys
+
+    class Blocker(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib", "sitator_tpu",
+                                      "bench"):
+                raise ImportError(f"blocked: {name}")
+            return None
+
+    sys.meta_path.insert(0, Blocker())
+    import torch
+    torch.set_num_threads(1)
+    from sitator_tpu_torch.tools import (ab_centers_bf16, ab_s_tile,
+                                         ab_skew, bench, bench_config,
+                                         validate_preshift_streaming)
+    sy = bench_config.build_system(n_cells=4, n_ions=6, k_centers=16)
+    centers = bench.site_centers(sy, "cpu")
+    sums = {mode: bench.gpu_fps(sy, mode, "cpu", centers=centers,
+                                blocks=bench.bench_blocks(sy, "cpu", 2, 3),
+                                reps=1)[2] for mode in bench.MODES}
+    assert len(set(sums.values())) == 1, sums
+    for tool in (bench, ab_s_tile, ab_centers_bf16, ab_skew,
+                 validate_preshift_streaming):
+        assert tool.main([]) == 1            # no card here
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "sitator_tpu",
+                                           "bench"))
+    assert not loaded, loaded
+    print("BENCH-TOOLS-OK")
+""")
+
+
+def test_bench_tools_without_jax_or_bench():
+    """The port's bench and its A/B and validation tools import, the bench
+    step runs in every mode at a small size on the CPU with equal
+    checksums, and each tool exits 1 without a card, with ``jax``,
+    ``sitator_tpu`` and the top-level ``bench`` blocked."""
+    proc = subprocess.run([sys.executable, "-c", BENCH_TOOLS], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "BENCH-TOOLS-OK" in proc.stdout
+
+
 def test_no_source_file_imports_bench():
     files = sorted((ROOT / "sitator_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py"]
