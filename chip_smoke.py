@@ -6,7 +6,8 @@ Run from the root of a checkout, with no arguments::
     python3 chip_smoke.py
 
 ``python3 chip_smoke.py cards`` runs only phases 1, 2 and 6 (the context)
-and the real-card mesh of phase 11, for a machine with several cards.
+and the real-card mesh of phase 12, for a machine with several cards;
+``python3 chip_smoke.py examples`` only phases 1, 2 and 11.
 
 Phases; any failure exits non-zero before the result lines:
 
@@ -159,7 +160,28 @@ Phases; any failure exits non-zero before the result lines:
    pass 2's frames/s and ``phase_times_`` from memory, memmap and XYZ in
    1024- and 256-frame blocks (each reader twice), and 256 frames in one
    block of 1024 (the CLI's default) against one of 256;
-11. frame sharding (``mesh=``) on the card, counters read by difference:
+11. the walkthroughs of ``sitator_tpu_torch/examples`` (the 12 scripts of
+   ``examples/`` on the port, ``phase_examples``): each runs here on the
+   card (``main(["--device", "cuda", ...])``, output captured, counters
+   reset before and read after) while the same script runs as a
+   ``--device cpu`` subprocess (one thread, four at a time, no card
+   visible); where the machine lacks a library (``sklearn``,
+   ``tensorstore``) the example itself leaves out the steps that need it
+   and names them.  For each: seconds on the card and on the CPU, the
+   engines' routes, K1, K2, K3 and K1s launches, peak device memory, the
+   first launch of K2 and of K1 at the example's shapes (a partly filled
+   site tile, ragged vertex lists, ion rows padded) held to its plain
+   version on the same inputs on the card, the reference's key lines
+   (``tests/test_examples.py``) present, and the card's lines held to the
+   CPU's by ``sitator_tpu_torch/examples/_parity.py``: the same words,
+   integers equal, floats within one unit of the last printed digit;
+   exempt are timings, device names, temporary paths (masked) and the KMC
+   closure line.  A difference in the numbers of an example whose labels
+   are spilled (``multichip_mesh``) is accepted only when every label that
+   differs lies inside the precision gate (``label_gate``).  Every example
+   runs; each fault is printed, and the phase fails after the last if any
+   was, or if K1 or K2 was not launched;
+12. frame sharding (``mesh=``) on the card, counters read by difference:
    virtual meshes of 2 and 4 shards over the card (each shard on its own
    stream) and the one-card ``frame_mesh()``, each against the unmeshed
    run.  ``SpmdLandmarkPipeline`` through K1 over 8 x 32 frames with the
@@ -186,7 +208,7 @@ Phases; any failure exits non-zero before the result lines:
    last card alone (``device="cuda:N"``), held to card 0.  Every step
    runs, a fault is printed as it is found, and the phase fails after the
    last step if any step failed;
-12. frame sharding across processes (``phase_multiprocess``): 2 ranks in a
+13. frame sharding across processes (``phase_multiprocess``): 2 ranks in a
    gloo group on the one card, each a fresh interpreter with a one-shard
    ``frame_mesh``, run the step through K1 over the pipeline's 8 x 32
    frames with the carry (16 frames a rank a block, placed by
@@ -196,14 +218,14 @@ Phases; any failure exits non-zero before the result lines:
    bit-equal to the unmeshed pipeline run here, launches == blocks x
    global shards, frames/s against the unmeshed pipeline; a rank that
    fails, hangs past 300 s or imports jax fails the phase;
-13. K3's own path at the bench width: the bench's sites, each with a
+14. K3's own path at the bench width: the bench's sites, each with a
    tetrahedron of its own 4 static atoms (no vertex shared, 37,044 static
    atoms): ``SpmdLandmarkPipeline`` (route 'gather', 8 x 32 frames with the
    carry, timed, profiled) held to the dense route and the int64 oracle,
    then ``StreamingLandmarkAnalysis`` fit and pass 2 (route 'gather', 1024
    frames in 256-frame blocks, timed) held to the oracle and to the
    pipeline;
-14. one JSON line of per-kernel results, then the ``ok`` line, last.
+15. one JSON line of per-kernel results, then the ``ok`` line, last.
 
 Label comparisons are gated on the reference's top-2 margin: labels must be
 equal wherever the best and second-best cosine similarities (f32, from the
@@ -215,6 +237,7 @@ card's f32 matmul: f32 sums of the same bf16 products in other orders.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -3052,6 +3075,361 @@ def phase_cli(device, ctx):
     return launches
 
 
+# the port's walkthroughs in the order they run on the card
+EXAMPLE_NAMES = ("landmark_walkthrough", "streaming_and_typing",
+                 "formats_and_lattice_mapping", "npt_variable_cell",
+                 "multichip_mesh", "fcc_tet_oct", "zarr_and_smeared_soap",
+                 "density_sites", "structure_screening",
+                 "diffusion_kinetics", "temperature_series",
+                 "msm_validation")
+# the reference's key lines that belong to a step an example leaves out
+# where a library cannot be imported
+KEY_NEEDS = {"site types:": "sklearn",
+             "delta vs gauss typing agreement: 100%": "sklearn"}
+# examples whose spilled labels let the phase trace a difference in their
+# integers to rows inside the precision gate: each exposes ``system()``,
+# its streaming engine's settings ``ENGINE``, the prefix of its temporary
+# directory ``TMP_PREFIX`` and its label files ``LABELS``
+LABEL_GATE = ("multichip_mesh",)
+
+
+def example_key_lines():
+    """``tests/test_examples.py``'s ``EXAMPLES`` (the reference's key lines
+    of each walkthrough), read from the file without importing it."""
+    import ast
+    tree = ast.parse((ROOT / "tests" / "test_examples.py").read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "EXAMPLES" for t in node.targets):
+            return {k.removesuffix(".py"): v
+                    for k, v in ast.literal_eval(node.value).items()}
+    raise SmokeError("EXAMPLES not found in tests/test_examples.py")
+
+
+def label_gate(mod, tmp, device):
+    """The (frame, ion) rows whose labels differ between the card's
+    single-device run of example ``mod`` (K1: bf16 similarities) and the
+    CPU's (the dense route: f32), with their f32 top-2 margins
+    (``examples/_parity.py::gate_margins``) against centres fitted by the
+    dense route on the card; ``(rows, margins, every row inside
+    tools/bench.py's gate)``."""
+    import glob
+    from sitator_tpu_torch.examples._parity import gate_margins
+    from sitator_tpu_torch.landmark import StreamingLandmarkAnalysis
+    from sitator_tpu_torch.tools.bench import gated
+    card, cpu = (glob.glob(str(tmp / side / f"{mod.TMP_PREFIX}*"
+                                / mod.LABELS.format("1dev")))
+                 for side in ("card", "cpu"))
+    check(len(card) == len(cpu) == 1, f"label files: card {card}, CPU {cpu}")
+    rows = np.argwhere(np.load(card[0]) != np.load(cpu[0]))
+    if not len(rows):
+        return rows, np.zeros(0), False
+    md, seeds = mod.system()
+    centers = StreamingLandmarkAnalysis(
+        **mod.ENGINE, use_fused=False, verbose=False,
+        device=device).fit_centers(seeds, md.traj)
+    margin, top1 = gate_margins(md, seeds, centers, rows, device,
+                                **mod.ENGINE)
+    return rows, margin, bool(gated(margin, top1).all())
+
+
+@contextlib.contextmanager
+def first_launches():
+    """While entered, the first launch of K2 (``_mxu_lv_cuda``) and of K1
+    (``_mxu_assign_cuda``) keeps a copy of its inputs and of its output in
+    the dict it yields, ``{kernel: (inputs, output)}``; every launch runs
+    and is counted as before."""
+    import threading
+    import torch
+    from sitator_tpu_torch.ops import landmark_mxu as mx
+    saved = {"K2": ("_mxu_lv_cuda", mx._mxu_lv_cuda),
+             "K1": ("_mxu_assign_cuda", mx._mxu_assign_cuda)}
+    kept, lock = {}, threading.Lock()
+
+    def copy(x):
+        if torch.is_tensor(x):
+            return x.clone()
+        if isinstance(x, (tuple, list)):
+            return type(x)(copy(v) for v in x)
+        if isinstance(x, dict):
+            return {k: copy(v) for k, v in x.items()}
+        return x
+
+    def keeping(key, fn):
+        def launch(**kw):
+            out = fn(**kw)
+            with lock:
+                if key not in kept:
+                    kept[key] = (copy(kw), copy(out))
+            return out
+        return launch
+
+    for key, (attr, fn) in saved.items():
+        setattr(mx, attr, keeping(key, fn))
+    try:
+        yield kept
+    finally:
+        for attr, fn in saved.values():
+            setattr(mx, attr, fn)
+
+
+def hold_first_launches(name, kept):
+    """The first launches kept by :func:`first_launches` against their
+    plain versions on the same inputs on the card: K2's landmark vectors to
+    the f32 tolerance (:func:`compare_lv`); K1's labels outside the margin
+    gate and its confidences to ``CONF_TOL`` (:func:`compare_assign`), the
+    margins from the plain landmark vectors of the same inputs in kd order
+    against the same padded centres.  Returns ``{kernel: max abs err}``."""
+    import torch
+    from sitator_tpu_torch.ops import landmark_mxu as mx
+    sync()
+    errs = {}
+    for key, (kw, out) in sorted(kept.items(), reverse=True):
+        n_st, UP, s_tile = kw["A"].shape
+        real = kw["kill"] <= 0
+        verts = kw["A"].sum(1).reshape(-1)[real].long().unique().tolist()
+        label = (f"{name} {key} first launch (B={kw['mob'].shape[0]}, "
+                 f"ions padded to {kw['mob'].shape[2]}, {int(real.sum())} of "
+                 f"{n_st * s_tile} site rows real in {n_st} tile(s), "
+                 f"UP={UP}, vertices a site {verts}, "
+                 f"preshift={kw['preshift']})")
+        if key == "K2":
+            errs[key] = compare_lv(label, out, mx._mxu_lv_plain(**kw))
+            continue
+        lv = mx._mxu_lv_plain(
+            **{k: kw[k] for k in ("mob", "vpu", "A", "kill", "params",
+                                  "anchors", "triclinic", "r2_cutoff",
+                                  "preshift")},
+            M=kw["mob"].shape[2], inv_order=torch.arange(
+                n_st * s_tile, device=kw["mob"].device))
+        centers = (kw["cpad"].T if kw["cpad"] is not None
+                   else kw["centers_b"].float())
+        margin, top1 = top2_margin(
+            lv, centers, "clip" if kw["peak_clip"] else "none")
+        errs[key] = compare_assign(label, out, mx._mxu_assign_plain(**kw),
+                                   margin, top1, kw["mxu_bf16"])
+    return errs
+
+
+@contextlib.contextmanager
+def engine_routes():
+    """While entered, each ``StreamingLandmarkAnalysis.run`` records its
+    ``route_`` and each ``LandmarkAnalysis.run`` 'K2' when it launched K2,
+    else 'dense', in the list it yields."""
+    from sitator_tpu_torch.landmark import analysis, streaming
+    from sitator_tpu_torch.ops import landmark_mxu as mx
+    s_cls, la_cls = streaming.StreamingLandmarkAnalysis, \
+        analysis.LandmarkAnalysis
+    s_run, la_run = s_cls.run, la_cls.run
+    routes = []
+
+    def s_recorded(eng, *a, **k):
+        out = s_run(eng, *a, **k)
+        routes.append(f"streaming {eng.route_}")
+        return out
+
+    def la_recorded(eng, *a, **k):
+        k2 = mx.mxu_landmark_blocks.launches
+        out = la_run(eng, *a, **k)
+        sync()
+        routes.append("landmark " + (
+            "K2" if mx.mxu_landmark_blocks.launches > k2 else "dense"))
+        return out
+
+    s_cls.run, la_cls.run = s_recorded, la_recorded
+    try:
+        yield routes
+    finally:
+        s_cls.run, la_cls.run = s_run, la_run
+
+
+def phase_examples(device, names=EXAMPLE_NAMES):
+    """The port's walkthroughs (``sitator_tpu_torch/examples``) on the card
+    and on the CPU in the same call.  At the phase's start every example
+    is started as a ``--device cpu`` subprocess (one thread each, four at
+    a time, no card visible); meanwhile each runs here, in this process,
+    as ``main(["--device", "cuda", ...])`` with its output captured and the
+    launch counters reset before and read after.  Where the machine lacks
+    a library (``sklearn``, ``tensorstore``) the example leaves out the
+    steps that need it and says so, on both sides.  For each example: the
+    seconds on the card and on the CPU, the engines' routes, K1/K2/K3/K1s
+    launches, peak device memory, the first launch of K2 and of K1 held to
+    its plain version on the same inputs (:func:`first_launches`), the
+    reference's key lines present (``tests/test_examples.py``), and the
+    card's printed lines against the CPU's
+    (``sitator_tpu_torch/examples/_parity.py``).  Every example runs; a
+    fault is printed when it is found and the phase fails after the last
+    one if any was.  K1 and K2 must each have been launched.  Returns the
+    launch counts summed over the examples and the largest error of each
+    kernel against its plain version."""
+    import importlib
+    import io
+    import os
+    import shutil
+    import tempfile
+    import threading
+    import traceback
+    import torch
+    from sitator_tpu_torch.examples import _common, _parity
+    from sitator_tpu_torch.tools.bench import MARGIN as bench_gate
+
+    t_phase = time.perf_counter()
+    keys = example_key_lines()
+    absent = [lib for lib in ("sklearn", "tensorstore")
+              if not _common.has(lib)]
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_examples_"))
+    (tmp / "cpu").mkdir()
+    (tmp / "card").mkdir()
+
+    def argv_of(name, side):
+        if name == "landmark_walkthrough":
+            return ["--out", str(tmp / side / "walkthrough_result.npz")]
+        return []
+
+    # the CPU runs: four at a time, in the card's order
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               MKL_NUM_THREADS="1", TMPDIR=str(tmp / "cpu"))
+    procs, cpu = {}, {n: {} for n in names}
+    lock, slots = threading.Lock(), threading.Semaphore(4)
+    stop = threading.Event()
+
+    def cpu_run(name):
+        with slots:
+            if stop.is_set():
+                return
+            t0 = time.perf_counter()
+            with lock:
+                procs[name] = p = subprocess.Popen(
+                    [sys.executable, "-m",
+                     f"sitator_tpu_torch.examples.{name}", "--device", "cpu",
+                     *argv_of(name, "cpu")],
+                    cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True)
+            try:
+                out, err = p.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out, err = p.communicate()
+            cpu[name].update(rc=p.returncode, out=out, err=err,
+                             s=time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=cpu_run, args=(n,), daemon=True)
+               for n in names]
+    for t in threads:
+        t.start()
+        time.sleep(0.05)        # start in order: the card waits in order
+
+    faults, launches, errs = [], {k: 0 for k in KERNELS}, {}
+    saved_tmp = tempfile.tempdir
+    try:
+        if absent:
+            print("examples: absent on this machine: " + ", ".join(absent)
+                  + " (the examples leave out the steps that need them)",
+                  flush=True)
+        for name, t in zip(names, threads):
+            mod = importlib.import_module(f"sitator_tpu_torch.examples.{name}")
+            argv = argv_of(name, "card")
+            buf = io.StringIO()
+            tempfile.tempdir = str(tmp / "card")
+            reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            rc, kept = None, {}
+            try:
+                with engine_routes() as routes, first_launches() as kept, \
+                        contextlib.redirect_stdout(buf):
+                    rc = mod.main(["--device", device, *argv])
+                sync()
+            except Exception:         # noqa: BLE001 -- every fault is kept
+                routes = []
+                print(traceback.format_exc(), flush=True)
+            card_s = time.perf_counter() - t0
+            tempfile.tempdir = saved_tmp
+            got = read_launches()
+            for k in launches:
+                launches[k] += got[k]
+            peak = torch.cuda.max_memory_allocated() / 2**20
+            card_out = buf.getvalue()
+            t.join()
+            c = cpu[name]
+            print(f"example {name}: card {card_s:.1f} s, CPU "
+                  f"{c.get('s', float('nan')):.1f} s (one thread); routes "
+                  f"{routes or 'none'}; launches K1 {got['K1']} K2 "
+                  f"{got['K2']} K3 {got['K3']} K1s {got['K1s']}; peak "
+                  f"device memory {peak:.1f} MiB", flush=True)
+            for line in card_out.splitlines():
+                print("    " + line, flush=True)
+            problems = []
+            try:
+                for k, e in hold_first_launches(name, kept).items():
+                    errs[k] = max(errs.get(k, 0.0), e)
+            except SmokeError as e:
+                problems.append(f"first launch against its plain version: "
+                                f"{e}")
+            if rc != 0:
+                problems.append(f"card run exited {rc}")
+            if c.get("rc") != 0:
+                problems.append(f"CPU run exited {c.get('rc')}: "
+                                f"{c.get('err', '')[-2000:]}")
+            want = [k.replace("/tmp/walkthrough_result.npz",
+                              argv[-1] if name == "landmark_walkthrough"
+                              else "") for k in keys[name]
+                    if KEY_NEEDS.get(k) not in absent]
+            missing = [k for k in want if k not in card_out]
+            if missing:
+                problems.append(f"key lines missing on the card: {missing}")
+            if not problems:
+                roots = ["/tmp", str(tmp)]
+                diff = _parity.differences(
+                    name, card_out, c["out"], roots, against=_parity.CARD,
+                    float_units=_parity.CARD_FLOAT_UNITS)
+                if diff and name in LABEL_GATE and all(
+                        "numbers differ" in d for d in diff):
+                    rows, margin, inside = label_gate(mod, tmp, device)
+                    print(f"example {name}: {len(diff)} line(s) differ in "
+                          f"numbers; {len(rows)} label(s) differ between "
+                          "the card (K1, bf16 similarities) and the CPU "
+                          "(dense route, f32), top-2 margins "
+                          f"{[f'{m:.2e}' for m in margin]} (gate "
+                          f"{bench_gate[True]}): "
+                          + ("every one inside the precision gate" if inside
+                             else "NOT all inside the precision gate"),
+                          flush=True)
+                    for d in diff:
+                        print(f"    {d}", flush=True)
+                    if inside:
+                        diff = []
+                problems += [f"card != CPU: {d}" for d in diff]
+            print(f"example {name}: {len(want)} of the reference's key "
+                  f"lines present"
+                  + (f" ({len(keys[name]) - len(want)} left out with their "
+                     "step)" if len(want) < len(keys[name]) else "")
+                  + ("; card == CPU on every line that is not exempt"
+                     if not problems else ""), flush=True)
+            for p in problems:
+                faults.append(f"{name}: {p}")
+                print(f"FAULT {faults[-1]}", flush=True)
+    finally:
+        tempfile.tempdir = saved_tmp
+        stop.set()
+        with lock:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+        for t in threads:
+            t.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"examples phase: {time.perf_counter() - t_phase:.1f} s; launches "
+          f"{json.dumps(launches)}", flush=True)
+    check(not faults, f"{len(faults)} fault(s) in the examples: "
+          + " | ".join(faults))
+    check(launches["K1"] > 0 and launches["K2"] > 0,
+          f"the examples launched K1 {launches['K1']} and K2 "
+          f"{launches['K2']} times; each must be launched")
+    check(set(errs) == {"K1", "K2"}, f"first launches held: {sorted(errs)}")
+    return launches, errs
+
+
 STAT_KEYS = ("n_ij", "lag_sum", "res_sum", "res_cnt", "occ_counts",
              "last_sites", "last_res")
 
@@ -4084,9 +4462,18 @@ def main():
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if sys.argv[1:] == ["examples"]:
+        _, errs = phase_examples("cuda")
+        print(f"examples' first launches against their plain versions, "
+              f"max abs err: {json.dumps(errs)}", flush=True)
+        print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if sys.argv[1:]:
-        print(f"chip_smoke: unknown arguments {sys.argv[1:]}; the one "
-              "argument is 'cards'", file=sys.stderr)
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}; the "
+              "arguments are 'cards' and 'examples'", file=sys.stderr)
         return 2
     res = phase_kernels("cuda")
     paths = {}
@@ -4099,6 +4486,9 @@ def main():
     phase_descriptors("cuda", dict(ctx, **net_ctx))
     phase_transport("cuda", dict(ctx, **net_ctx))
     paths["cli"] = phase_cli("cuda", ctx)
+    paths["examples"], ex_errs = phase_examples("cuda")
+    for key, err in ex_errs.items():
+        res[key]["err"] = max(res[key]["err"], err)
     paths["mesh"], mesh_fps = phase_mesh("cuda", ctx)
     paths["cards"], cards_fps = phase_cards(ctx)
     paths["multiprocess"], mp_fps = phase_multiprocess("cuda", ctx)

@@ -1,0 +1,106 @@
+"""The port's walkthroughs against the reference's, line by line (the
+rule and the exempt lines: ``sitator_tpu_torch/examples/_parity.py``),
+and the steps the three walkthroughs that need ``sklearn`` or
+``tensorstore`` keep without them; the reference's K1 and the port's on
+``multichip_mesh``."""
+import re
+
+import pytest
+
+from tests._torch_examples import (check_example, differences, finish,
+                                   start_port, start_reference)
+
+
+@pytest.mark.parametrize("name", ["diffusion_kinetics.py",
+                                  "multichip_mesh.py",
+                                  "density_sites.py"])
+def test_example_matches_reference(name, tmp_path):
+    check_example(name, tmp_path)
+
+
+# the reference's lines of the steps that need the library, and the lines
+# the port prints in their place
+WITHOUT = {
+    "fcc_tet_oct.py": (["sklearn"], r"^type \d:"),
+    "streaming_and_typing.py": (["sklearn"],
+                                r"^site types:|^occupancy by type:"),
+    "zarr_and_smeared_soap.py": (["tensorstore", "sklearn"],
+                                 r"density: typing matches|^delta vs gauss"
+                                 r"|^wrote .* zarr store|^zarr store:"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WITHOUT))
+def test_example_without_optional_library(name, tmp_path):
+    """In an interpreter that cannot import ``sklearn`` or ``tensorstore``
+    (a machine that lacks them) the walkthrough leaves out exactly the
+    steps that need the library, names each on a line, and prints every
+    other line of the reference's run; without ``tensorstore`` the zarr
+    walkthrough streams from an ``.npy`` memmap of the same frames."""
+    libs, dropped = WITHOUT[name]
+    ref = start_reference(name)
+    port = start_port(name, tmp_path, blocked=libs)
+    ref_out = finish(ref, f"examples/{name}")
+    port_out = finish(port, f"sitator_tpu_torch/examples/{name}")
+    for lib in libs:
+        assert f"({lib} absent on this machine)" in port_out
+    kept = "".join(line + "\n" for line in ref_out.splitlines()
+                   if not re.search(dropped, line))
+    rest = "".join(line.replace("streaming off npy", "streaming off zarr")
+                   + "\n" for line in port_out.splitlines()
+                   if "absent on this machine)" not in line)
+    bad = differences(name, kept, rest, ["/tmp", str(tmp_path)])
+    assert not bad, "\n".join(bad)
+
+
+def test_mesh_example_routes_differ_only_inside_the_gate(tmp_path):
+    """On the card ``multichip_mesh`` streams through K1 (bf16
+    similarities), on the CPU through the dense route (f32), and the two
+    can print other jumps.  On the example's system the reference's own K1
+    (``landmark_mxu.py::_kernel`` in interpret mode) and K1's plain twin
+    in the port give the same labels outside the precision gate
+    (``tools/bench.py::gated``) and the same jumps, and so do the two
+    packages' dense routes; every label that K1's route gives otherwise
+    than the dense route lies inside the gate, as
+    ``chip_smoke.py::phase_examples`` requires of the card."""
+    import numpy as np
+
+    from sitator_tpu.landmark import StreamingLandmarkAnalysis as JaxStreaming
+    from sitator_tpu_torch.examples import multichip_mesh
+    from sitator_tpu_torch.examples._parity import gate_margins
+    from sitator_tpu_torch.landmark import StreamingLandmarkAnalysis
+    from sitator_tpu_torch.tools.bench import gated
+    from tests._torch_common import networks_of
+
+    md, seeds = multichip_mesh.system()
+    ref_seeds, _ = networks_of(md, centers=seeds.centers,
+                               vertices=seeds.vertices)
+    labels, jumps, centers = {}, {}, {}
+    for side, fused in (("reference", True), ("reference", False),
+                        ("port", True), ("port", False)):
+        path = str(tmp_path / f"labels_{side}_{fused}.npy")
+        kw = dict(multichip_mesh.ENGINE, store_labels=path, use_fused=fused,
+                  verbose=False)
+        if side == "port":
+            sla, sn = StreamingLandmarkAnalysis(**kw, device="cpu"), seeds
+        else:
+            sla, sn = JaxStreaming(**kw, interpret=fused), ref_seeds
+        centers[side, fused] = np.asarray(sla.fit_centers(sn, md.traj))
+        jumps[side, fused] = int(np.asarray(
+            sla.run(sn, md.traj, centers=centers[side, fused]).n_ij).sum())
+        labels[side, fused] = np.load(path)
+
+    def rows_outside_gate(a, b):
+        rows = np.argwhere(labels[a] != labels[b])
+        if not len(rows):
+            return rows, rows
+        margin, top1 = gate_margins(md, seeds, centers["port", True], rows,
+                                    "cpu", **multichip_mesh.ENGINE)
+        return rows, rows[~gated(margin, top1)]
+
+    for fused in (True, False):
+        _, outside = rows_outside_gate(("reference", fused), ("port", fused))
+        assert not len(outside), (fused, outside[:4])
+        assert jumps["reference", fused] == jumps["port", fused], fused
+    rows, outside = rows_outside_gate(("port", True), ("port", False))
+    assert len(rows) and not len(outside), (len(rows), outside[:4])

@@ -694,3 +694,50 @@ def test_kernel_sources_ship_with_the_package():
                      "assign_tail.cu", "hopper_common.cuh",
                      "landmark_common.cuh", "lv_gather.cu", "lv_tile.cu",
                      "sims_wgmma.cu"]
+
+
+EXAMPLES_AND_DOC_TOOLS = textwrap.dedent("""
+    import importlib.abc
+    import sys
+
+    class Blocker(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib", "sitator_tpu",
+                                      "bench"):
+                raise ImportError(f"blocked: {name}")
+            return None
+
+    sys.meta_path.insert(0, Blocker())
+    import importlib
+    import pkgutil
+
+    import sitator_tpu_torch.examples as ex
+    from sitator_tpu_torch.examples import _common, _parity
+    from sitator_tpu_torch.tools import gen_api_docs, line_coverage
+    helpers = {"_common", "_parity"}
+    names = [m.name for m in pkgutil.iter_modules(ex.__path__)]
+    assert len(names) == 14 and helpers <= set(names), names
+    for name in names:
+        mod = importlib.import_module(f"sitator_tpu_torch.examples.{name}")
+        assert name in helpers or callable(mod.main), name
+    assert not _parity.differences("x", "1 a", "1 a", ["/tmp"])
+    assert "## `sitator_tpu_torch.ops`" in gen_api_docs.generate()
+    assert line_coverage.PACKAGE == "sitator_tpu_torch"
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "sitator_tpu",
+                                           "bench"))
+    assert not loaded, loaded
+    print("EXAMPLES-OK")
+""")
+
+
+def test_examples_and_doc_tools_without_jax_or_bench():
+    """The port's walkthroughs (``_common``, ``_parity`` and every example
+    module), its API-doc generator and its line-coverage tool import, and
+    the generator runs, with ``jax``, ``sitator_tpu`` and the top-level
+    ``bench`` blocked."""
+    proc = subprocess.run([sys.executable, "-c", EXAMPLES_AND_DOC_TOOLS],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "EXAMPLES-OK" in proc.stdout
