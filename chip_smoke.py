@@ -12,7 +12,9 @@ and the real-card mesh of phase 12, for a machine with several cards;
 Phases; any failure exits non-zero before the result lines:
 
 1. device: the card's name and power limit (``nvidia-smi``), the CUDA and
-   ``nvcc`` versions;
+   ``nvcc`` versions, and which of ``sklearn``, ``tensorstore``,
+   ``networkx``, ``h5py``, ``matplotlib``, ``ase`` and ``tqdm`` the machine
+   has (``importlib.util.find_spec``);
 2. build: compiles ``sitator_tpu_torch/csrc/*.cu`` for ``sm_90a`` into
    ``build/`` (skipped when a library for these sources is there), prints
    each kernel's registers and spills from ``ptxas``, and counts the
@@ -94,7 +96,11 @@ Phases; any failure exits non-zero before the result lines:
    ``async_label_copy``, equals depth 0 and the unswapped run, the
    permutation included, after one rollback), the accumulator copy taken
    before each optimistic fold; ``merge_network`` on the streamed result
-   and ``DiffusionPathwayAnalysis`` on the merged network; Markov
+   and ``DiffusionPathwayAnalysis`` on the merged network;
+   ``ConductionBottleneckAnalysis`` on the merged network (its Brandes,
+   no networkx) held to a plain-Python float64 Brandes in the same process
+   (betweenness within 1e-9; base dimension, candidates, removal
+   dimensions and critical sites equal); Markov
    clustering on the card against ``device="cpu"`` (equal partitions,
    converged matrices within 1e-5; iterations and time printed); a classic
    run ``LandmarkAnalysis`` → ``JumpAnalysis`` → ``MergeSitesByDynamics`` →
@@ -112,7 +118,11 @@ Phases; any failure exits non-zero before the result lines:
    ``SiteCentersDescriptor`` on the 1024 streamed sites and
    ``SOAPDescriptorAverages(averages_n=16)`` on the card, equal within 2e-5
    to ``device="cpu"`` on 64 sites, unchanged within 1e-4 under a rotation
-   of the whole system, refused with TF32 products on;
+   of the whole system, refused with TF32 products on; ``SiteTypeAnalysis``
+   (no sklearn) on both descriptor matrices through the elbow and at 4
+   types, the card against the CPU on the same matrix (labels equal,
+   ``reduced`` within 1e-9 of its scale, ``distances_`` within 1e-9
+   relative);
    ``MergeSitesByDescriptors`` on the over-split input against the
    components of the thresholded similarity matrix; ``density_grid`` of the
    ions (total, and every count that differs from a float64 histogram
@@ -159,15 +169,21 @@ Phases; any failure exits non-zero before the result lines:
    parameters on the decoded frames, its tallies to the int64 oracle; then
    pass 2's frames/s and ``phase_times_`` from memory, memmap and XYZ in
    1024- and 256-frame blocks (each reader twice), and 256 frames in one
-   block of 1024 (the CLI's default) against one of 256;
+   block of 1024 (the CLI's default) against one of 256; then zarr stores
+   (``zarr_passes``): the frames twice over (4096) converted by the port's
+   ``convert_to_zarr`` to zarr v2 (blosc/LZ4) and v3 (raw) in 256-frame
+   chunks (seconds, bytes on disk), the Blosc codec's decode alone (MB/s),
+   and the streaming fit (K2) and pass 2 (K1) in 16 blocks of 256 from
+   memory, memmap and both stores in turns (frames/s, feeder wait), each
+   run's centres, labels and ``n_ij`` equal to the memory run's;
 11. the walkthroughs of ``sitator_tpu_torch/examples`` (the 12 scripts of
    ``examples/`` on the port, ``phase_examples``): each runs here on the
    card (``main(["--device", "cuda", ...])``, output captured, counters
    reset before and read after) while the same script runs as a
    ``--device cpu`` subprocess (one thread, four at a time, no card
-   visible); where the machine lacks a library (``sklearn``,
-   ``tensorstore``) the example itself leaves out the steps that need it
-   and names them.  For each: seconds on the card and on the CPU, the
+   visible); every step of every example runs (site typing and the zarr
+   store need no library beyond torch, numpy and scipy).  For each:
+   seconds on the card and on the CPU, the
    engines' routes, K1, K2, K3 and K1s launches, peak device memory, the
    first launch of K2 and of K1 at the example's shapes (a partly filled
    site tile, ragged vertex lists, ion rows padded) held to its plain
@@ -454,6 +470,13 @@ def frames_of(sy):
 
 # -- phases -------------------------------------------------------------------
 
+# libraries some of the reference's steps use; the port needs none of them
+# (only its exports to networkx, ASE and HDF5 files, its plots and progress
+# bars reach for them)
+CENSUS = ("sklearn", "tensorstore", "networkx", "h5py", "matplotlib", "ase",
+          "tqdm")
+
+
 def phase_device():
     import torch
     from sitator_tpu_torch.ops import _cuda
@@ -466,6 +489,10 @@ def phase_device():
     print(smi, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"nvcc: {nvcc[-1]}", flush=True)
+    import importlib.util
+    print("libraries here (importlib.util.find_spec): " + ", ".join(
+        f"{lib} {'present' if importlib.util.find_spec(lib) else 'absent'}"
+        for lib in CENSUS), flush=True)
     # the plain versions hold full f32 where the reference does
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1871,6 +1898,8 @@ def phase_network(device, ctx):
           f"{np.bincount(dpa_m.pathway_dims, minlength=4).tolist()} (count by "
           f"dimension 0-3) {lap()}", flush=True)
 
+    check_bottlenecks(merged, device)
+
     n_ij = np.asarray(out2.n_ij, np.float64)
     T = n_ij + n_ij.T
     T[np.diag_indices_from(T)] += np.maximum(T.max(axis=1), 1.0)
@@ -2033,6 +2062,105 @@ def phase_network(device, ctx):
         check(launches[k] > 0, f"{k} was not launched on the network path")
     return launches, fps, dict(out=out2, labels=lab, merged=merged, dpa=dpa_m,
                                remap=remap, split_st=split_st, split=split)
+
+
+def brandes_oracle(n, adj):
+    """Normalised weighted betweenness by Brandes' algorithm as networkx 3
+    runs it, in plain Python float64: a heap Dijkstra from every node over
+    ``adj[v] = [(w, length), ...]`` (predecessors where ``dist[v] + len ==
+    dist[w]``), dependencies accumulated back in the order the nodes were
+    settled, ``1 / ((n - 1)(n - 2))``."""
+    import heapq
+    import itertools
+    bc = [0.0] * n
+    for s in range(n):
+        order, pred, sigma, dist, seen = [], {s: []}, {s: 1.0}, {}, {s: 0.0}
+        count = itertools.count()
+        heap = [(0.0, next(count), s, s)]
+        while heap:
+            d, _, p, v = heapq.heappop(heap)
+            if v in dist:
+                continue
+            if p != v:
+                sigma[v] += sigma[p]
+            order.append(v)
+            dist[v] = d
+            for w, length in adj[v]:
+                vw = d + length
+                if w not in dist and (w not in seen or vw < seen[w]):
+                    seen[w] = vw
+                    heapq.heappush(heap, (vw, next(count), v, w))
+                    sigma[w], pred[w] = 0.0, [v]
+                elif w not in dist and vw == seen[w]:
+                    sigma[w] += sigma[v]
+                    pred[w].append(v)
+        delta = dict.fromkeys(order, 0.0)
+        while order:
+            w = order.pop()
+            coeff = (1.0 + delta[w]) / sigma[w]
+            for v in pred[w]:
+                delta[v] += sigma[v] * coeff
+            if w != s:
+                bc[w] += delta[w]
+    scale = 1.0 / ((n - 1) * (n - 2)) if n > 2 else 1.0
+    return np.array(bc) * scale
+
+
+def check_bottlenecks(net, device):
+    """``ConductionBottleneckAnalysis`` on a copy of ``net`` (its Brandes in
+    NumPy/SciPy on the host, no networkx; the jump tallies are given),
+    held to :func:`brandes_oracle` — betweenness within 1e-9 — and to the
+    same percolation readout computed from the oracle's betweenness:
+    ``base_dim_``, ``candidates_``, ``removal_dims_`` and
+    ``critical_sites_`` equal."""
+    from sitator_tpu_torch.network import (ConductionBottleneckAnalysis,
+                                           DiffusionPathwayAnalysis)
+    net = net.copy()
+    t0 = time.perf_counter()
+    cba = ConductionBottleneckAnalysis(verbose=False, device=device).run(net)
+    t_cba = time.perf_counter() - t0
+    n_ij = np.asarray(net.n_ij, np.float64)
+    sym = n_ij + n_ij.T
+    np.fill_diagonal(sym, 0.0)
+    conn = sym >= 1
+    S = net.n_sites
+    adj = [[] for _ in range(S)]
+    for i, j in zip(*np.nonzero(np.triu(conn, k=1))):
+        adj[i].append((int(j), 1.0 / sym[i, j]))
+        adj[j].append((int(i), 1.0 / sym[i, j]))
+    for a in adj:
+        a.sort()
+    t0 = time.perf_counter()
+    bc = brandes_oracle(S, adj)
+    t_oracle = time.perf_counter() - t0
+    err = float(np.abs(cba.betweenness_ - bc).max())
+    check(err <= 1e-9, f"ConductionBottleneckAnalysis: betweenness differs "
+          f"from the float64 oracle by {err:.3g} > 1e-9")
+    frac = np.asarray(net.centers) @ np.linalg.inv(
+        np.asarray(net.structure.cell, np.float64))
+    perc = DiffusionPathwayAnalysis.percolation_dimension
+    base = perc(conn, frac)
+    cands = [int(i) for i in np.argsort(bc)[::-1][:cba.n_candidates]
+             if bc[i] > 0]
+    dims = []
+    for i in cands:
+        sub = conn.copy()
+        sub[i, :] = sub[:, i] = False
+        dims.append(perc(sub, frac))
+    critical = [i for i, d in zip(cands, dims) if d < base]
+    check(cba.base_dim_ == base and cba.candidates_.tolist() == cands
+          and cba.removal_dims_.tolist() == dims
+          and cba.critical_sites_.tolist() == critical,
+          f"ConductionBottleneckAnalysis: readout {cba.base_dim_}, "
+          f"{cba.candidates_.tolist()}, {cba.removal_dims_.tolist()}, "
+          f"{cba.critical_sites_.tolist()} != the oracle's {base}, {cands}, "
+          f"{dims}, {critical}")
+    print(f"ConductionBottleneckAnalysis on the merged network ({S} sites, "
+          f"{int(np.triu(conn, 1).sum())} edges): {t_cba:.2f} s "
+          f"(networkx-free Brandes); betweenness within {err:.3g} of the "
+          f"float64 oracle ({t_oracle:.2f} s, plain Python) (<= 1e-9); "
+          f"max {bc.max():.4g}; base {base}D, candidates {cands}, removal "
+          f"dims {dims}, critical {critical} == the oracle's", flush=True)
 
 
 SPLIT_OFFSET = 0.2      # Å between the halves of an engineered split site
@@ -2338,6 +2466,8 @@ def phase_descriptors(device, ctx):
           f"== the capped visits; card == CPU on 64 sites "
           f"({int(c_card.sum())} probes, {t_avg_cpu:.2f} s on the CPU) "
           f"within {e_avg:.3g} (<= 2e-5) {lap()}", flush=True)
+    check_site_typing({"averages": avg, "centers": d_card}, device)
+    print(f"site typing {lap()}", flush=True)
 
     # 3. the descriptor merge on the over-split input
     from scipy.sparse.csgraph import connected_components
@@ -2523,6 +2653,61 @@ def phase_descriptors(device, ctx):
 
 # the number of wavevectors the scattering step asks for at the bench width
 NQ_RANGE = (5000, 10000)
+
+
+class FixedDescriptors:
+    """A descriptor that hands back one matrix: the typing step alone."""
+
+    def __init__(self, matrix):
+        self.matrix = matrix
+
+    def get_descriptors(self, st):
+        return self.matrix, np.ones(len(self.matrix), np.int64)
+
+
+def check_site_typing(matrices, device):
+    """``SiteTypeAnalysis`` (the PCA in float64 on the device, the Ward tree
+    and the cut on the host; no sklearn) on each descriptor matrix, on the
+    card against the same call on the CPU with the same matrix, through
+    the elbow (``max_types=8``) and at 4 types: type labels equal,
+    ``reduced`` within 1e-9 of its largest magnitude, ``distances_``
+    within 1e-9 relative."""
+    from types import SimpleNamespace
+    from sitator_tpu_torch.site_descriptors import SiteTypeAnalysis
+    for name, matrix in matrices.items():
+        for mode in (dict(max_types=8), dict(n_types=4)):
+            runs = {}
+            for dev in (device, "cpu"):
+                sta = SiteTypeAnalysis(FixedDescriptors(matrix),
+                                       verbose=False, device=dev, **mode)
+                net = SimpleNamespace()
+                sync()
+                t0 = time.perf_counter()
+                sta.run(net)
+                sync()
+                runs[dev] = sta, net.site_types, time.perf_counter() - t0
+            card, card_labels, t_card = runs[device]
+            cpu, cpu_labels, t_cpu = runs["cpu"]
+            e_red = float(np.abs(card.reduced - cpu.reduced).max())
+            scale = float(np.abs(cpu.reduced).max())
+            e_dist = float((np.abs(card.distances_ - cpu.distances_)
+                            / np.maximum(np.abs(cpu.distances_),
+                                         1e-300)).max())
+            check(np.array_equal(card_labels, cpu_labels),
+                  f"SiteTypeAnalysis ({name}, {mode}): card and CPU type "
+                  "labels differ")
+            check(e_red <= 1e-9 * scale, f"SiteTypeAnalysis ({name}, "
+                  f"{mode}): reduced differs by {e_red:.3g} (scale "
+                  f"{scale:.3g})")
+            check(e_dist <= 1e-9, f"SiteTypeAnalysis ({name}, {mode}): "
+                  f"distances_ differ by {e_dist:.3g} relative")
+            print(f"SiteTypeAnalysis on the {name} descriptors "
+                  f"({matrix.shape[0]} x {matrix.shape[1]}, {mode}): "
+                  f"{int(card_labels.max()) + 1} types "
+                  f"{np.bincount(card_labels).tolist()}; card {t_card:.3f} s, "
+                  f"CPU {t_cpu:.3f} s; labels equal, reduced within "
+                  f"{e_red / scale:.3g} of its scale, distances_ within "
+                  f"{e_dist:.3g} relative (<= 1e-9)", flush=True)
 
 
 def pair_hist64(fa, fb, exclude, cell, r_max, n_bins, exact, ulps=4,
@@ -3071,7 +3256,117 @@ def phase_cli(device, ctx):
             print(f"pass 2 on {n_written} frames from memory in one block of "
                   f"{block}: {n_written / dt:.1f} frames/s ({dt:.3f} s)",
                   flush=True)
+        zarr_launches = zarr_passes(tmp, decoded, structure, seeded, kw)
     print(f"cli phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {k: launches[k] + zarr_launches[k] for k in launches}
+
+
+def zarr_passes(tmp, decoded, structure, seeded, kw):
+    """Zarr stores at the bench width: the phase's frames twice over (4096
+    frames, 491 MB of float32) converted by the port's ``convert_to_zarr``
+    to a zarr v2 store (blosc/LZ4, shuffle) and a zarr v3 store (raw
+    bytes), in chunks of 256 frames; the Blosc codec's decode alone over
+    every chunk of the v2 store; then the streaming fit (K2) and pass 2
+    (K1) in 16 blocks of 256 frames from memory, the ``.npy`` memmap and
+    both stores, in the order memory, npy, v2, v3, v3, v2, npy, memory, with
+    the launch counters reset before and read after.  Every run's fitted
+    centres, labels and ``n_ij`` equal the first memory run's bit for bit.
+    Returns the launches."""
+    import os
+    from sitator_tpu_torch import StreamingLandmarkAnalysis
+    from sitator_tpu_torch.io import (ArrayTrajectory, NpyTrajectory,
+                                      TensorstoreTrajectory, convert_to_zarr,
+                                      open_trajectory)
+    from sitator_tpu_torch.io import zarr_store
+
+    n_z, block = 2 * len(decoded), 256
+    frames = np.concatenate([decoded, decoded])
+    raw_mb = frames.nbytes / 1e6
+    npy = str(tmp / "zmd.npy")
+    np.save(npy, frames)
+    stores = {}
+    for fmt in (2, 3):
+        path = str(tmp / f"md_v{fmt}.zarr")
+        t0 = time.perf_counter()
+        convert_to_zarr(ArrayTrajectory(frames, structure), path,
+                        chunk_frames=block, zarr_format=fmt)
+        t_conv = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(r, f))
+                   for r, _, fs in os.walk(path) for f in fs)
+        stores[f"zarr v{fmt}"] = path
+        check(type(open_trajectory(path)) is TensorstoreTrajectory,
+              f"open_trajectory(zarr v{fmt}) gave "
+              f"{type(open_trajectory(path))}")
+        print(f"convert_to_zarr v{fmt} ({'blosc/LZ4, shuffle' if fmt == 2 else 'raw bytes'}, "
+              f"chunks of {block} frames): {n_z} frames x {frames.shape[1]} "
+              f"atoms in {t_conv:.2f} s ({raw_mb / t_conv:.0f} MB/s of "
+              f"frames); {size / 1e6:.1f} MB on disk, {size / frames.nbytes:.3f}"
+              f" of the {raw_mb:.1f} MB of float32 frames", flush=True)
+
+    # the codec alone: every chunk of the v2 store decoded in one call
+    store = zarr_store.ZarrArray(stores["zarr v2"])
+    blobs = []
+    for i in range(store.grid[0]):
+        with open(store.chunk_path((i, 0, 0)), "rb") as f:
+            blobs.append(np.frombuffer(f.read(), np.uint8))
+    outs = [np.empty(store.chunks, np.float32) for _ in blobs]
+    rates = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        zarr_store.blosc_decode(blobs, outs)
+        rates.append(sum(o.nbytes for o in outs) / 1e6
+                     / (time.perf_counter() - t0))
+    check(np.array_equal(np.concatenate(outs)[:n_z], frames),
+          "the Blosc codec's decode differs from the frames written")
+    print(f"Blosc/LZ4 decode alone ({zarr_store.N_THREADS} threads, "
+          f"{len(blobs)} chunks of {store.chunks[0]} frames, "
+          f"{sum(b.size for b in blobs) / 1e6:.1f} MB of frames in): "
+          + ", ".join(f"{r:.0f} MB/s" for r in rates) + " of decoded frames",
+          flush=True)
+
+    sources = {"memory": lambda: ArrayTrajectory(frames),
+               "npy": lambda: NpyTrajectory(npy),
+               "zarr v2": lambda: open_trajectory(stores["zarr v2"]),
+               "zarr v3": lambda: open_trajectory(stores["zarr v3"])}
+    first, fps = None, {}
+    reset_launches()
+    for name in ("memory", "npy", "zarr v2", "zarr v3", "zarr v3",
+                 "zarr v2", "npy", "memory"):
+        reader = sources[name]()
+        labels_path = str(tmp / "zlabels.npy")
+        eng = StreamingLandmarkAnalysis(block_frames=block,
+                                        store_labels=labels_path, **kw)
+        t0 = time.perf_counter()
+        centers = eng.fit_centers(seeded, reader)
+        sync()
+        t_fit = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = eng.run(seeded, reader, centers=centers)
+        sync()
+        dt = time.perf_counter() - t0
+        labels = np.load(labels_path)
+        if first is None:
+            first = centers, labels, got.n_ij
+        check(np.array_equal(centers, first[0]), f"the fit from {name} "
+              "differs from the fit from memory")
+        check(np.array_equal(labels, first[1])
+              and np.array_equal(got.n_ij, first[2]),
+              f"pass 2 from {name}: labels or n_ij differ from memory's")
+        fps.setdefault(name, []).append(n_z / dt)
+        print(f"fit + pass 2 from {name} ({type(reader).__name__}, "
+              f"{n_z // block} blocks of {block} frames): fit {t_fit:.2f} s; "
+              f"pass 2 {n_z / dt:.1f} frames/s ({dt:.3f} s), feeder wait "
+              f"{eng.phase_times_.get('feeder', float('nan')):.3f} s; "
+              "phase_times_ (s): " + json.dumps(
+                  {a: round(b, 4) for a, b in eng.phase_times_.items()}),
+              flush=True)
+    launches = read_launches()
+    check(launches["K1"] > 0 and launches["K2"] > 0,
+          f"the zarr-fed runs launched {launches}")
+    print("pass 2 frames/s by source (two runs each): " + json.dumps(
+        {k: [round(x, 1) for x in v] for k, v in fps.items()})
+        + f"; centres, labels and n_ij of every run == memory's; launches "
+        f"{launches}", flush=True)
     return launches
 
 
@@ -3082,10 +3377,6 @@ EXAMPLE_NAMES = ("landmark_walkthrough", "streaming_and_typing",
                  "density_sites", "structure_screening",
                  "diffusion_kinetics", "temperature_series",
                  "msm_validation")
-# the reference's key lines that belong to a step an example leaves out
-# where a library cannot be imported
-KEY_NEEDS = {"site types:": "sklearn",
-             "delta vs gauss typing agreement: 100%": "sklearn"}
 # examples whose spilled labels let the phase trace a difference in their
 # integers to rows inside the precision gate: each exposes ``system()``,
 # its streaming engine's settings ``ENGINE``, the prefix of its temporary
@@ -3249,9 +3540,9 @@ def phase_examples(device, names=EXAMPLE_NAMES):
     is started as a ``--device cpu`` subprocess (one thread each, four at
     a time, no card visible); meanwhile each runs here, in this process,
     as ``main(["--device", "cuda", ...])`` with its output captured and the
-    launch counters reset before and read after.  Where the machine lacks
-    a library (``sklearn``, ``tensorstore``) the example leaves out the
-    steps that need it and says so, on both sides.  For each example: the
+    launch counters reset before and read after.  Every step of every
+    example runs (the typing, the zarr store: the port needs no
+    ``sklearn``, ``tensorstore`` or ``networkx``).  For each example: the
     seconds on the card and on the CPU, the engines' routes, K1/K2/K3/K1s
     launches, peak device memory, the first launch of K2 and of K1 held to
     its plain version on the same inputs (:func:`first_launches`), the
@@ -3270,13 +3561,11 @@ def phase_examples(device, names=EXAMPLE_NAMES):
     import threading
     import traceback
     import torch
-    from sitator_tpu_torch.examples import _common, _parity
+    from sitator_tpu_torch.examples import _parity
     from sitator_tpu_torch.tools.bench import MARGIN as bench_gate
 
     t_phase = time.perf_counter()
     keys = example_key_lines()
-    absent = [lib for lib in ("sklearn", "tensorstore")
-              if not _common.has(lib)]
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_examples_"))
     (tmp / "cpu").mkdir()
     (tmp / "card").mkdir()
@@ -3322,10 +3611,6 @@ def phase_examples(device, names=EXAMPLE_NAMES):
     faults, launches, errs = [], {k: 0 for k in KERNELS}, {}
     saved_tmp = tempfile.tempdir
     try:
-        if absent:
-            print("examples: absent on this machine: " + ", ".join(absent)
-                  + " (the examples leave out the steps that need them)",
-                  flush=True)
         for name, t in zip(names, threads):
             mod = importlib.import_module(f"sitator_tpu_torch.examples.{name}")
             argv = argv_of(name, "card")
@@ -3373,8 +3658,7 @@ def phase_examples(device, names=EXAMPLE_NAMES):
                                 f"{c.get('err', '')[-2000:]}")
             want = [k.replace("/tmp/walkthrough_result.npz",
                               argv[-1] if name == "landmark_walkthrough"
-                              else "") for k in keys[name]
-                    if KEY_NEEDS.get(k) not in absent]
+                              else "") for k in keys[name]]
             missing = [k for k in want if k not in card_out]
             if missing:
                 problems.append(f"key lines missing on the card: {missing}")
@@ -3402,8 +3686,6 @@ def phase_examples(device, names=EXAMPLE_NAMES):
                 problems += [f"card != CPU: {d}" for d in diff]
             print(f"example {name}: {len(want)} of the reference's key "
                   f"lines present"
-                  + (f" ({len(keys[name]) - len(want)} left out with their "
-                     "step)" if len(want) < len(keys[name]) else "")
                   + ("; card == CPU on every line that is not exempt"
                      if not problems else ""), flush=True)
             for p in problems:

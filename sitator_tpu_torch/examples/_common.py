@@ -57,17 +57,3 @@ def device_missing(prog, device):
               file=sys.stderr)
         return 1
     return 0
-
-
-def has(library):
-    """Whether ``library`` can be imported here."""
-    try:
-        importlib.import_module(library)
-    except ImportError:
-        return False
-    return True
-
-
-def left_out(prog, step, library):
-    """The line that names a step left out for a missing library."""
-    print(f"{prog}: {step} not run here ({library} absent on this machine)")

@@ -12,7 +12,6 @@ on the synthetic FCC hopping trajectory:
 
 Run:  python3 -m sitator_tpu_torch.examples.fcc_tet_oct
       [--device {cuda,cpu}]
-(Without scikit-learn, step 3 is left out and named on a line.)
 """
 import sys
 
@@ -72,9 +71,9 @@ def sites(dev):
 
 
 def typing(dev, sn):
-    """Step 3: tet vs oct by SiteTypeAnalysis (needs scikit-learn)."""
+    """Step 3: tet vs oct by SiteTypeAnalysis."""
     sta = SiteTypeAnalysis(SiteCentersDescriptor(r_cut=4.0, device=dev),
-                           n_types=2, verbose=False)
+                           n_types=2, verbose=False, device=dev)
     sta.run(sn)
     for t in range(2):
         sel = sn.site_types == t
@@ -87,10 +86,7 @@ def main(argv=None):
     if _common.device_missing(NAME, args.device):
         return 1
     sn = sites(args.device)
-    if not _common.has("sklearn"):
-        _common.left_out(NAME, "SiteTypeAnalysis", "sklearn")
-    else:
-        typing(args.device, sn)
+    typing(args.device, sn)
     print("FCC walkthrough complete.")
     return 0
 

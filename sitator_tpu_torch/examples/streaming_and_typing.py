@@ -7,7 +7,6 @@ and the discovered sites are typed by their SOAP environments.
 
 Run:  python3 -m sitator_tpu_torch.examples.streaming_and_typing
       [--device {cuda,cpu}]
-(Without scikit-learn, the typing is left out and named on a line.)
 """
 import os
 import sys
@@ -64,7 +63,7 @@ def stream(dev, tmp):
 
 
 def typing(dev, tmp, md, out, remap):
-    """SOAP site typing of the merged sites (needs scikit-learn)."""
+    """SOAP site typing of the merged sites."""
     # --- rebuild a SiteTrajectory from the spilled labels for typing
     labels = np.load(os.path.join(tmp, "labels.npy"))
     labels = np.where(labels >= 0, remap[labels], -1).astype(np.int32)
@@ -73,7 +72,7 @@ def typing(dev, tmp, md, out, remap):
 
     sta = SiteTypeAnalysis(SOAPDescriptorAverages(r_cut=4.5, averages_n=8,
                                                   device=dev),
-                           max_types=4)
+                           max_types=4, device=dev)
     sta.run(st)
     print(f"site types: {np.bincount(out.site_types)} (counts per type)")
     print("occupancy by type:",
@@ -87,10 +86,7 @@ def main(argv=None):
         return 1
     tmp = tempfile.mkdtemp(prefix="sitator_stream_")
     md, out, remap = stream(args.device, tmp)
-    if not _common.has("sklearn"):
-        _common.left_out(NAME, "SiteTypeAnalysis", "sklearn")
-    else:
-        typing(args.device, tmp, md, out, remap)
+    typing(args.device, tmp, md, out, remap)
     print(f"artifacts in {tmp}")
     return 0
 

@@ -1,9 +1,8 @@
 """Seventh walkthrough: cloud-scale chunked storage + GAP-fidelity SOAP.
 
-1. Convert a trajectory into a tensorstore-backed **zarr store** — the
-   frame-chunked format that rides object storage (gcs/s3) as well as
-   local disk — and stream the full analysis off it, bit-identical to
-   the in-memory run.
+1. Convert a trajectory into a **zarr store** — the frame-chunked format
+   (blosc/LZ4 chunks, the metadata tensorstore writes) — and stream the
+   full analysis off it, bit-identical to the in-memory run.
 2. Type the discovered sites with the **Gaussian-smeared** SOAP density
    (``density='gauss'``): the exact atom-centered-Gaussian expansion via
    analytic Bessel-integral tables — the same density model quippy/GAP
@@ -12,9 +11,6 @@
 
 Run:  python3 -m sitator_tpu_torch.examples.zarr_and_smeared_soap
       [--device {cuda,cpu}]
-(Without tensorstore it streams from an ``.npy`` memmap of the same frames
-in place of the store; without scikit-learn step 2 is left out.  Each is
-said on a line.)
 """
 import os
 import sys
@@ -30,7 +26,6 @@ import numpy as np
 from sitator_tpu_torch import SiteNetwork, SiteTrajectory
 from sitator_tpu_torch.io import (
     ArrayTrajectory,
-    NpyTrajectory,
     TensorstoreTrajectory,
     convert_to_zarr,
     make_fcc_hopping_trajectory,
@@ -47,28 +42,18 @@ from sitator_tpu_torch.voronoi import VoronoiSiteGenerator
 NAME = "zarr_and_smeared_soap"
 
 
-def stream(dev, tmp, zarr=True):
-    """Step 1: ``(md, streamed network)``; from the zarr store, or with
-    ``zarr=False`` from an ``.npy`` memmap of the same frames."""
+def stream(dev, tmp):
+    """Step 1: ``(md, streamed network)`` from the zarr store."""
     # --- an FCC interstitial trajectory, converted into a chunked store
     md = make_fcc_hopping_trajectory(n_cells=2, a=5.0, n_ions=16,
                                      n_frames=3000, jump_rate=0.05, seed=11)
-    if zarr:
-        store = os.path.join(tmp, "md.zarr")
-        convert_to_zarr(ArrayTrajectory(md.traj, md.structure), store,
-                        chunk_frames=256, verbose=True)
-        reader = open_trajectory(store)      # dispatches on the store dir
-        assert isinstance(reader, TensorstoreTrajectory)
-        print(f"zarr store: {len(reader)} frames, structure sidecar "
-              f"{'restored' if reader.structure is not None else 'missing'}")
-        source = "zarr"
-    else:
-        path = os.path.join(tmp, "md.npy")
-        np.save(path, md.traj)
-        reader = NpyTrajectory(path, structure=md.structure)
-        print(f"npy memmap in place of the zarr store: {len(reader)} "
-              "frames (tensorstore absent on this machine)")
-        source = "npy"
+    store = os.path.join(tmp, "md.zarr")
+    convert_to_zarr(ArrayTrajectory(md.traj, md.structure), store,
+                    chunk_frames=256, verbose=True)
+    reader = open_trajectory(store)      # dispatches on the store dir
+    assert isinstance(reader, TensorstoreTrajectory)
+    print(f"zarr store: {len(reader)} frames, structure sidecar "
+          f"{'restored' if reader.structure is not None else 'missing'}")
 
     # --- stream the analysis off the store; compare against in-memory
     sn = SiteNetwork(md.structure, md.static_mask, md.mobile_mask)
@@ -83,13 +68,13 @@ def stream(dev, tmp, zarr=True):
         cutoff_midpoint=3.1, cutoff_steepness=4.0, block_frames=512,
         verbose=False, device=dev).run(seeds, md.traj, centers=centers)
     assert np.array_equal(out.n_ij, out_mem.n_ij)
-    print(f"streaming off {source} == in-memory: {int(out.n_ij.sum())} "
+    print(f"streaming off zarr == in-memory: {int(out.n_ij.sum())} "
           f"jumps, {out.n_sites} sites (bit-identical)")
     return md, out
 
 
 def typing(dev, tmp, md, out):
-    """Step 2: both SOAP density models (needs scikit-learn)."""
+    """Step 2: both SOAP density models."""
     labels = np.load(os.path.join(tmp, "labels.npy"))
     # ground truth per discovered site: tet/oct kind of the nearest true
     # hole
@@ -104,7 +89,7 @@ def typing(dev, tmp, md, out):
         sta = SiteTypeAnalysis(
             SOAPDescriptorAverages(r_cut=4.5, averages_n=8, density=density,
                                    verbose=False, device=dev),
-            n_types=2, verbose=False)
+            n_types=2, verbose=False, device=dev)
         sta.run(st)
         types[density] = out.site_types.copy()
         agree = np.mean(types[density] == true_kind)
@@ -121,13 +106,8 @@ def main(argv=None):
     if _common.device_missing(NAME, args.device):
         return 1
     tmp = tempfile.mkdtemp(prefix="sitator_zarr_")
-    md, out = stream(args.device, tmp,
-                     zarr=_common.has("tensorstore"))
-    if not _common.has("sklearn"):
-        _common.left_out(NAME, "SiteTypeAnalysis (delta and gauss SOAP)",
-                         "sklearn")
-    else:
-        typing(args.device, tmp, md, out)
+    md, out = stream(args.device, tmp)
+    typing(args.device, tmp, md, out)
     print(f"artifacts in {tmp}")
     return 0
 

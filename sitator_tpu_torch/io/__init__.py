@@ -1,8 +1,10 @@
 """Trajectory and structure IO (counterpart of ``sitator_tpu.io``): the
 text and binary formats with their readers and writers, the native
 multithreaded text decoders (:mod:`sitator_tpu_torch.io.native`), zarr
-stores through ``tensorstore`` (imported when used), the background block
-prefetcher, and the synthetic-MD generators with known ground truth.
+v2/v3/n5 stores read and written by the port itself
+(:mod:`sitator_tpu_torch.io.zarr_store`; ``tensorstore`` only for a store
+on another kvstore than ``file``), the background block prefetcher, and
+the synthetic-MD generators with known ground truth.
 
 NumPy copies of the reference's modules, so the port imports nothing of
 the JAX package.  ``__all__`` is the reference's, in its order, then the

@@ -1,12 +1,15 @@
 """ctypes bindings + on-demand build of the native text decoders
-(counterpart of ``sitator_tpu.io.native``).
+(counterpart of ``sitator_tpu.io.native``) and of the zarr stores' Blosc
+codec.
 
-``fastxyz.cpp``, ``fastlmp.cpp`` and ``fastxd.cpp`` are compiled with
-``g++`` at first use into ``build/sitator_tpu_torch-fastio-<hash>/`` beside
-the package (the directory the CUDA kernels build into), keyed by a hash of
-the sources and flags, so a checkout builds from its own sources and never
-loads another package's artefact.  Without ``g++`` the readers fall back to
-the Python parsers, as the reference does.
+``fastxyz.cpp``, ``fastlmp.cpp``, ``fastxd.cpp`` and ``zarrcodec.cpp``
+are compiled with ``g++`` at first use into
+``build/sitator_tpu_torch-fastio-<hash>/`` beside the package (the
+directory the CUDA kernels build into), keyed by a hash of the sources and
+flags, so a checkout builds from its own sources and never loads another
+package's artefact.  Without ``g++`` the readers fall back to the Python
+parsers, as the reference does; a Blosc-compressed zarr chunk then raises
+(``io/zarr_store.py``: the codec has no Python fallback).
 
 The per-file index caches (``.fxyzidx.npz``, ``.flmpidx.npz``,
 ``.fxdidx.npz`` beside the trajectory) have the reference's names and
@@ -27,7 +30,8 @@ import numpy as np
 logger = logging.getLogger(__name__)
 
 _HERE = Path(__file__).resolve().parent
-_SRCS = [_HERE / "fastxyz.cpp", _HERE / "fastlmp.cpp", _HERE / "fastxd.cpp"]
+_SRCS = [_HERE / "fastxyz.cpp", _HERE / "fastlmp.cpp", _HERE / "fastxd.cpp",
+         _HERE / "zarrcodec.cpp"]
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
 # portable flag set (no -march=native: the library may be shared across
 # heterogeneous hosts); the parsers are scalar, -O3 is all they need
@@ -100,6 +104,19 @@ def get_lib():
             ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64),
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
             ctypes.c_int64, ctypes.POINTER(ctypes.c_float), ctypes.c_int]
+        lib.zc_blosc_decode.restype = ctypes.c_int
+        lib.zc_blosc_decode.argtypes = [
+            ctypes.c_int64, ctypes.POINTER(ctypes.c_void_p),
+            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_void_p),
+            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
+            ctypes.c_int]
+        lib.zc_blosc_encode.restype = ctypes.c_int
+        lib.zc_blosc_encode.argtypes = [
+            ctypes.c_int64, ctypes.POINTER(ctypes.c_void_p),
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+            ctypes.c_int]
         _lib = lib
         return _lib
 

@@ -1,12 +1,12 @@
-"""Tensorstore-backed chunked trajectory store (counterpart of
+"""Chunked zarr trajectory stores (counterpart of
 ``sitator_tpu.io.tensorstore_io``; host NumPy).
 
 At the 1M-frame x 10k-atom scale (about 120 GB in float32) the streaming
-engine needs a chunked random-access store whose reads can ride object
-storage as well as local disk.  ``tensorstore`` is that store: frame-chunked
-zarr arrays behind the same :class:`TrajectoryReader` protocol the rest of
-the IO layer speaks (``len()``, ``r[lo:hi]``), so ``ChunkedFeeder`` /
-``StreamingLandmarkAnalysis`` run off it unchanged.
+engine needs a chunked random-access store.  This module keeps the
+reference's names and contract: frame-chunked zarr arrays behind the same
+:class:`TrajectoryReader` protocol the rest of the IO layer speaks
+(``len()``, ``r[lo:hi]``), so ``ChunkedFeeder`` /
+``StreamingLandmarkAnalysis`` run off them unchanged.
 
 The chunk layout is ``(chunk_frames, A, 3)`` — whole frames per chunk, so a
 streaming block read is a contiguous chunk range with no re-assembly;
@@ -14,8 +14,14 @@ writes are issued asynchronously with a bounded in-flight window so
 conversion overlaps IO with parsing.  A ``structure.npz`` sidecar inside
 the store directory carries the
 :class:`~sitator_tpu_torch.core.structure.Structure` (cell/species/
-positions), restoring the full reader contract on open.  ``tensorstore`` is
-imported only when a store is opened or written.
+positions), restoring the full reader contract on open.
+
+Local stores (a directory, or a tensorstore spec dict whose kvstore is
+``file``) are read and written by :mod:`sitator_tpu_torch.io.zarr_store`
+(zarr v2 / v3 / n5 metadata, the native Blosc/LZ4 codec): the metadata is
+what ``tensorstore`` writes, and either package reads the other's stores.
+``tensorstore`` itself is imported only to open a spec dict on another
+kvstore (``gcs``, ``s3``, ``memory``), where it is installed.
 """
 from __future__ import annotations
 
@@ -24,36 +30,51 @@ import os
 import numpy as np
 
 from sitator_tpu_torch.io.formats import TrajectoryReader, open_trajectory
+from sitator_tpu_torch.io.zarr_store import ZarrArray, ZarrWriter, \
+    store_format
 
 __all__ = ["TensorstoreTrajectory", "convert_to_zarr"]
 
 _SIDECAR = "structure.npz"
+_DRIVERS = ("zarr", "zarr3", "n5")
 
 
 def _ts():
     try:
         import tensorstore
-    except ImportError as e:  # pragma: no cover - installed in this env
+    except ImportError as e:
         raise ImportError(
-            "tensorstore is required for zarr trajectory stores "
-            "(pip install tensorstore)") from e
+            "tensorstore is required to open a zarr store on a kvstore "
+            "other than 'file' (pip install tensorstore); local stores "
+            "need no library") from e
     return tensorstore
 
 
-def _zarr_driver(path):
-    """Which tensorstore driver serves this store directory."""
-    if os.path.exists(os.path.join(path, "zarr.json")):
-        return "zarr3"
-    if os.path.exists(os.path.join(path, ".zarray")):
-        return "zarr"
-    if os.path.exists(os.path.join(path, "attributes.json")):
-        return "n5"
-    return None
+def _file_spec_path(spec):
+    """(driver, directory) of a spec dict on a ``file`` kvstore, else
+    None."""
+    kv = spec.get("kvstore")
+    if isinstance(kv, str):
+        if not kv.startswith("file://"):
+            return None
+        base = kv[len("file://"):]
+    elif isinstance(kv, dict) and kv.get("driver") == "file":
+        base = kv.get("path", "")
+    else:
+        return None
+    extra = sorted(set(spec) - {"driver", "kvstore", "path"})
+    if extra:
+        raise ValueError(f"spec keys {extra} are not supported for a local "
+                         "store (driver, kvstore and path are)")
+    if spec.get("driver") not in _DRIVERS:
+        raise ValueError(f"spec driver {spec.get('driver')!r} is not one of "
+                         f"{_DRIVERS}")
+    return spec["driver"], os.path.join(base, spec.get("path", ""))
 
 
 def is_zarr_store(path):
     """True if ``path`` is a directory holding a zarr/zarr3/n5 array."""
-    return os.path.isdir(str(path)) and _zarr_driver(str(path)) is not None
+    return os.path.isdir(str(path)) and store_format(str(path)) is not None
 
 
 def _load_sidecar(path):
@@ -77,65 +98,75 @@ def _write_sidecar(path, structure):
 class TensorstoreTrajectory(TrajectoryReader):
     """Read a ``(F, A, 3)`` zarr/zarr3/n5 trajectory store.
 
-    ``path`` may also be a full tensorstore spec dict (any kvstore —
-    ``file``, ``gcs``, ``s3``, ``memory`` — works; the reader only needs
-    random block reads).
+    ``path`` is the store's directory, or a tensorstore spec dict: on a
+    ``file`` kvstore the store is read here; any other kvstore (``gcs``,
+    ``s3``, ``memory``) is opened through ``tensorstore``.  Blocks read as
+    float32 in numpy's indexing: an int key gives one ``(A, 3)`` frame, a
+    slice ``(n, A, 3)``.
     """
 
     def __init__(self, path, structure=None):
-        ts = _ts()
+        self._path = self._ts = self._a = None
+        local = None
         if isinstance(path, dict):
-            spec = path
-            self._path = None
+            local = _file_spec_path(path)
+            if local is None:
+                self._ts = _ts().open(path, read=True,
+                                      write=False).result()
+                shape = tuple(self._ts.shape)
         else:
             p = str(path)
-            driver = _zarr_driver(p)
+            driver = store_format(p)
             if driver is None:
                 raise ValueError(f"{p} is not a zarr/zarr3/n5 array store")
-            spec = {"driver": driver,
-                    "kvstore": {"driver": "file", "path": p}}
-            self._path = p
-        self._a = ts.open(spec, read=True, write=False).result()
-        if self._a.ndim != 3 or self._a.shape[2] != 3:
+            local = driver, p
+        if local is not None:
+            self._path = local[1]
+            self._a = ZarrArray(local[1], local[0])
+            shape = self._a.shape
+        if len(shape) != 3 or shape[2] != 3:
             raise ValueError(
-                f"trajectory store must be (F, A, 3); got {self._a.shape}")
+                f"trajectory store must be (F, A, 3); got {shape}")
+        self._shape = shape
         if structure is None and self._path is not None:
             structure = _load_sidecar(self._path)
         self.structure = structure
 
     def __len__(self):
-        return int(self._a.shape[0])
+        return int(self._shape[0])
 
     def __getitem__(self, key):
-        return np.asarray(self._a[key].read().result(), dtype=np.float32)
+        if self._ts is not None:
+            return np.asarray(self._ts[key].read().result(),
+                              dtype=np.float32)
+        n = len(self)
+        if isinstance(key, slice):
+            lo, hi, step = key.indices(n)
+            if step == 1:
+                return self._a.read(lo, hi)
+            idx = np.arange(lo, hi, step)
+            if not idx.size:
+                return self._a.read(0, 0)
+            first, last = int(idx.min()), int(idx.max())
+            return self._a.read(first, last + 1)[idx - first]
+        i = int(key)
+        if not -n <= i < n:
+            raise IndexError(f"frame {i} out of range [0, {n})")
+        i %= n
+        return self._a.read(i, i + 1)[0]
 
 
-def _make_store(ts, out_path, n_frames, n_atoms, dtype, chunk_frames,
+def _make_store(out_path, n_frames, n_atoms, dtype, chunk_frames,
                 zarr_format):
     if zarr_format not in (2, 3):  # catch '3', 1, and other typos loudly
         raise ValueError(
             f"zarr_format must be 2 or 3 (int); got {zarr_format!r}")
-    dt = np.dtype(dtype)
-    chunk = [int(max(1, min(chunk_frames, n_frames))), n_atoms, 3]
-    if zarr_format == 3:
-        spec = {"driver": "zarr3",
-                "kvstore": {"driver": "file", "path": str(out_path)},
-                "metadata": {
-                    "shape": [n_frames, n_atoms, 3],
-                    "data_type": dt.name,
-                    "chunk_grid": {"name": "regular",
-                                   "configuration": {"chunk_shape": chunk}},
-                }}
-    else:
-        spec = {"driver": "zarr",
-                "kvstore": {"driver": "file", "path": str(out_path)},
-                "metadata": {"shape": [n_frames, n_atoms, 3],
-                             "chunks": chunk,
-                             "dtype": dt.newbyteorder("<").str}}
-    return ts.open(spec, create=True, delete_existing=True).result(), chunk
+    chunk = int(max(1, min(chunk_frames, n_frames)))
+    return ZarrWriter(out_path, (n_frames, n_atoms, 3), dtype, chunk,
+                      zarr_format)
 
 
-def _convert_text_two_pass(ts, p, fmt, out_path, dtype, chunk_frames,
+def _convert_text_two_pass(p, fmt, out_path, dtype, chunk_frames,
                            zarr_format, variable_cell, verbose,
                            max_inflight):
     """Two-pass O(1)-memory text→zarr conversion (counting pass, then a
@@ -148,30 +179,34 @@ def _convert_text_two_pass(ts, p, fmt, out_path, dtype, chunk_frames,
     if n_frames == 0:
         raise ValueError(f"no frames found in {p}")
     n_atoms = structure.n_atoms
-    arr, chunk = _make_store(ts, out_path, n_frames, n_atoms, dtype,
-                             chunk_frames, zarr_format)
+    arr = _make_store(out_path, n_frames, n_atoms, dtype, chunk_frames,
+                      zarr_format)
+    chunk = arr.chunks[0]
     dt = np.dtype(dtype)
-    buf = np.empty((chunk[0], n_atoms, 3), dt)
+    buf = np.empty((chunk, n_atoms, 3), dt)
     fill = 0
     lo = 0
     inflight = []
-    for _, pos in _text_frame_iter(p, fmt, variable_cell):
-        buf[fill] = pos
-        fill += 1
-        if fill == chunk[0]:
-            inflight.append(arr[lo:lo + fill].write(buf.copy()))
-            lo += fill
-            fill = 0
-            if len(inflight) >= max_inflight:
-                inflight.pop(0).result()
-    if fill:
-        inflight.append(arr[lo:lo + fill].write(buf[:fill].copy()))
-    for fut in inflight:
-        fut.result()
+    try:
+        for _, pos in _text_frame_iter(p, fmt, variable_cell):
+            buf[fill] = pos
+            fill += 1
+            if fill == chunk:
+                inflight.append(arr.write(lo, buf.copy()))
+                lo += fill
+                fill = 0
+                if len(inflight) >= max_inflight:
+                    inflight.pop(0).result()
+        if fill:
+            inflight.append(arr.write(lo, buf[:fill].copy()))
+        for fut in inflight:
+            fut.result()
+    finally:
+        arr.close()
     _write_sidecar(str(out_path), structure)
     if verbose:
         print(f"wrote {n_frames} frames x {n_atoms} atoms to zarr store "
-              f"{out_path} (two-pass, chunks of {chunk[0]} frames)")
+              f"{out_path} (two-pass, chunks of {chunk} frames)")
     return structure, str(out_path)
 
 
@@ -202,7 +237,6 @@ def convert_to_zarr(src, out_path, dtype=np.float32, chunk_frames=512,
     if zarr_format not in (2, 3):  # fail in ms, not after a counting pass
         raise ValueError(
             f"zarr_format must be 2 or 3 (int); got {zarr_format!r}")
-    ts = _ts()
     reader = None
     if isinstance(src, TrajectoryReader):
         reader = src
@@ -216,7 +250,7 @@ def convert_to_zarr(src, out_path, dtype=np.float32, chunk_frames=512,
                 reader = _try_native_reader(p, fmt)
             if reader is None:
                 return _convert_text_two_pass(
-                    ts, p, fmt, out_path, dtype, chunk_frames, zarr_format,
+                    p, fmt, out_path, dtype, chunk_frames, zarr_format,
                     variable_cell, verbose, max_inflight)
         else:
             reader = open_trajectory(p, variable_cell=variable_cell)
@@ -225,24 +259,28 @@ def convert_to_zarr(src, out_path, dtype=np.float32, chunk_frames=512,
     structure = getattr(reader, "structure", None)
     out_path = str(out_path)
 
-    arr, chunk = _make_store(ts, out_path, n_frames, n_atoms, dtype,
-                             chunk_frames, zarr_format)
+    arr = _make_store(out_path, n_frames, n_atoms, dtype, chunk_frames,
+                      zarr_format)
+    chunk = arr.chunks[0]
 
     # chunk-aligned write blocks; bounded async window overlaps read + write
-    B = max(chunk[0], (int(block_frames) // chunk[0]) * chunk[0])
+    B = max(chunk, (int(block_frames) // chunk) * chunk)
     dt = np.dtype(dtype)
     inflight = []
-    for lo in range(0, n_frames, B):
-        hi = min(lo + B, n_frames)
-        fut = arr[lo:hi].write(reader[lo:hi].astype(dt, copy=False))
-        inflight.append(fut)
-        if len(inflight) >= max_inflight:
-            inflight.pop(0).result()
-    for fut in inflight:
-        fut.result()
+    try:
+        for lo in range(0, n_frames, B):
+            hi = min(lo + B, n_frames)
+            inflight.append(arr.write(lo, reader[lo:hi].astype(dt,
+                                                               copy=False)))
+            if len(inflight) >= max_inflight:
+                inflight.pop(0).result()
+        for fut in inflight:
+            fut.result()
+    finally:
+        arr.close()
 
     _write_sidecar(out_path, structure)
     if verbose:
         print(f"wrote {n_frames} frames x {n_atoms} atoms to zarr store "
-              f"{out_path} (chunks of {chunk[0]} frames)")
+              f"{out_path} (chunks of {chunk} frames)")
     return structure, out_path

@@ -1,10 +1,13 @@
-"""Graph export: a :class:`SiteNetwork` as a ``networkx`` digraph.
+"""Graph export: a :class:`SiteNetwork` as a ``networkx`` digraph, and
+the conduction-bottleneck readout of its jump graph.
 
 Beyond-reference convenience (the reference keeps its jump graph as
 bare ``n_ij`` arrays, SURVEY.md §3.5): hand the analyzed network to the
 standard Python graph ecosystem — community detection, centrality,
 shortest paths, drawing — without re-assembling attribute arrays by
-hand.  Host-side and lazy (networkx imported on call).
+hand.  Host-side and lazy (networkx imported on call by
+:func:`to_networkx` alone; :class:`ConductionBottleneckAnalysis` computes
+its betweenness itself, ``network/_brandes.py``).
 """
 from __future__ import annotations
 
@@ -113,9 +116,8 @@ class ConductionBottleneckAnalysis:
         self.verbose = verbose
 
     def run(self, st_or_sn):
-        import networkx as nx
-
         from sitator_tpu_torch.core.sitetraj import SiteTrajectory
+        from sitator_tpu_torch.network._brandes import betweenness_centrality
         from sitator_tpu_torch.network.pathways import DiffusionPathwayAnalysis
 
         if isinstance(st_or_sn, SiteTrajectory):
@@ -135,12 +137,9 @@ class ConductionBottleneckAnalysis:
         np.fill_diagonal(sym, 0.0)
         conn = sym >= self.connectivity_threshold
 
-        g = nx.Graph()
-        g.add_nodes_from(range(S))
-        for i, j in zip(*np.nonzero(np.triu(conn, k=1))):
-            g.add_edge(int(i), int(j), inv_w=1.0 / sym[i, j])
-        bc = nx.betweenness_centrality(g, weight="inv_w")
-        self.betweenness_ = np.array([bc.get(i, 0.0) for i in range(S)])
+        ii, jj = np.nonzero(np.triu(conn, k=1))
+        self.betweenness_ = betweenness_centrality(S, ii, jj,
+                                                   1.0 / sym[ii, jj])
         if "betweenness" in sn.site_attributes:
             sn.remove_attribute("betweenness")
         sn.add_site_attribute("betweenness", self.betweenness_)

@@ -81,11 +81,12 @@ def finish(proc, label):
     return out
 
 
-def check_example(name, tmp_path):
-    """Run both sides at once, assert the reference's key lines on both and
-    the line-by-line rule."""
+def check_example(name, tmp_path, blocked=()):
+    """Run both sides at once (the port unable to import ``blocked`` as
+    well), assert the reference's key lines on both and the line-by-line
+    rule."""
     ref = start_reference(name)
-    port = start_port(name, tmp_path)
+    port = start_port(name, tmp_path, blocked=blocked)
     ref_out = finish(ref, f"examples/{name}")
     port_out = finish(port, f"sitator_tpu_torch/examples/{name}")
     for key in EXAMPLES[name]:

@@ -1,14 +1,11 @@
 """The port's walkthroughs against the reference's, line by line (the
 rule and the exempt lines: ``sitator_tpu_torch/examples/_parity.py``),
-and the steps the three walkthroughs that need ``sklearn`` or
-``tensorstore`` keep without them; the reference's K1 and the port's on
-``multichip_mesh``."""
-import re
-
+also the three whose reference needs ``sklearn`` or ``tensorstore`` run
+by the port where neither (nor ``networkx``) can be imported; the
+reference's K1 and the port's on ``multichip_mesh``."""
 import pytest
 
-from tests._torch_examples import (check_example, differences, finish,
-                                   start_port, start_reference)
+from tests._torch_examples import check_example
 
 
 @pytest.mark.parametrize("name", ["diffusion_kinetics.py",
@@ -18,39 +15,20 @@ def test_example_matches_reference(name, tmp_path):
     check_example(name, tmp_path)
 
 
-# the reference's lines of the steps that need the library, and the lines
-# the port prints in their place
-WITHOUT = {
-    "fcc_tet_oct.py": (["sklearn"], r"^type \d:"),
-    "streaming_and_typing.py": (["sklearn"],
-                                r"^site types:|^occupancy by type:"),
-    "zarr_and_smeared_soap.py": (["tensorstore", "sklearn"],
-                                 r"density: typing matches|^delta vs gauss"
-                                 r"|^wrote .* zarr store|^zarr store:"),
-}
+# what the reference's typing, bottleneck and zarr steps import, and the
+# machine with the card lacks
+LIBRARIES = ["sklearn", "tensorstore", "networkx"]
 
 
-@pytest.mark.parametrize("name", sorted(WITHOUT))
+@pytest.mark.parametrize("name", ["fcc_tet_oct.py", "streaming_and_typing.py",
+                                  "zarr_and_smeared_soap.py"])
 def test_example_without_optional_library(name, tmp_path):
-    """In an interpreter that cannot import ``sklearn`` or ``tensorstore``
-    (a machine that lacks them) the walkthrough leaves out exactly the
-    steps that need the library, names each on a line, and prints every
-    other line of the reference's run; without ``tensorstore`` the zarr
-    walkthrough streams from an ``.npy`` memmap of the same frames."""
-    libs, dropped = WITHOUT[name]
-    ref = start_reference(name)
-    port = start_port(name, tmp_path, blocked=libs)
-    ref_out = finish(ref, f"examples/{name}")
-    port_out = finish(port, f"sitator_tpu_torch/examples/{name}")
-    for lib in libs:
-        assert f"({lib} absent on this machine)" in port_out
-    kept = "".join(line + "\n" for line in ref_out.splitlines()
-                   if not re.search(dropped, line))
-    rest = "".join(line.replace("streaming off npy", "streaming off zarr")
-                   + "\n" for line in port_out.splitlines()
-                   if "absent on this machine)" not in line)
-    bad = differences(name, kept, rest, ["/tmp", str(tmp_path)])
-    assert not bad, "\n".join(bad)
+    """In an interpreter that cannot import ``sklearn``, ``tensorstore``
+    or ``networkx`` (a machine that lacks them) the walkthrough runs every
+    step — the typing, and the stream off a zarr store — and prints every
+    key line of the reference's run (``tests/test_examples.py``) and every
+    other line by the parity rule."""
+    check_example(name, tmp_path, blocked=LIBRARIES)
 
 
 def test_mesh_example_routes_differ_only_inside_the_gate(tmp_path):

@@ -462,10 +462,103 @@ def test_native_sources_ship_with_the_package():
     native = ROOT / "sitator_tpu_torch" / "io" / "native"
     assert sorted(p.name for p in native.iterdir()
                   if p.suffix == ".cpp") == ["fastlmp.cpp", "fastxd.cpp",
-                                             "fastxyz.cpp"]
+                                             "fastxyz.cpp", "zarrcodec.cpp"]
     text = (ROOT / "pyproject.toml").read_text()
     assert '"sitator_tpu_torch.io.native" = ["*.cpp"]' in text
     assert 'sitator-tpu-torch = "sitator_tpu_torch.cli:main"' in text
+
+
+WITHOUT_LIBRARIES = textwrap.dedent("""
+    import importlib.abc
+    import sys
+    import tempfile
+
+    BLOCKED = ("jax", "jaxlib", "sitator_tpu", "sklearn", "tensorstore",
+               "networkx")
+
+    class Blocker(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"blocked: {name}")
+            return None
+
+    sys.meta_path.insert(0, Blocker())
+    import os
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    from sitator_tpu_torch import SiteNetwork, cli
+    from sitator_tpu_torch.io import (ArrayTrajectory, TensorstoreTrajectory,
+                                      convert_to_zarr,
+                                      make_fcc_hopping_trajectory,
+                                      open_trajectory, write_xyz)
+    from sitator_tpu_torch.landmark import StreamingLandmarkAnalysis
+    from sitator_tpu_torch.network import ConductionBottleneckAnalysis
+    from sitator_tpu_torch.site_descriptors import (SiteCentersDescriptor,
+                                                    SiteTypeAnalysis)
+    from sitator_tpu_torch.voronoi import VoronoiSiteGenerator
+
+    md = make_fcc_hopping_trajectory(n_cells=2, a=5.0, n_ions=6,
+                                     n_frames=120, jump_rate=0.05, seed=3)
+    tmp = tempfile.mkdtemp()
+    seeds = VoronoiSiteGenerator().run(
+        SiteNetwork(md.structure, md.static_mask, md.mobile_mask))
+    kw = dict(cutoff_midpoint=3.1, cutoff_steepness=4.0, block_frames=48,
+              verbose=False, device="cpu")
+    want = None
+    for fmt in (2, 3):
+        store = os.path.join(tmp, f"md{fmt}.zarr")
+        convert_to_zarr(ArrayTrajectory(md.traj, md.structure), store,
+                        chunk_frames=32, zarr_format=fmt)
+        reader = open_trajectory(store)
+        assert isinstance(reader, TensorstoreTrajectory)
+        assert np.array_equal(reader[:], md.traj.astype(np.float32))
+        sla = StreamingLandmarkAnalysis(**kw)
+        centers = sla.fit_centers(seeds, reader)
+        out = sla.run(seeds, reader, centers=centers)
+        mem = StreamingLandmarkAnalysis(**kw).run(seeds, md.traj,
+                                                  centers=centers)
+        assert np.array_equal(out.n_ij, mem.n_ij) and out.n_ij.sum() > 0
+    xyz = os.path.join(tmp, "md.xyz")
+    write_xyz(xyz, md.structure, md.traj[:40])
+    for flag in ("--zarr", "--zarr3"):
+        dst = os.path.join(tmp, f"cli{flag[2:]}.zarr")
+        assert cli.main(["--device", "cpu", "convert", xyz, dst,
+                         flag]) == 0
+        assert len(open_trajectory(dst)) == 40
+
+    sn = SiteNetwork(md.structure, md.static_mask, md.mobile_mask)
+    sn.centers = md.true_sites
+    sta = SiteTypeAnalysis(SiteCentersDescriptor(r_cut=4.0, device="cpu"),
+                           n_types=2, verbose=False, device="cpu")
+    sta.run(sn)
+    assert np.array_equal(sn.site_types, md.true_site_types) or \
+        np.array_equal(sn.site_types, 1 - md.true_site_types)
+    SiteTypeAnalysis(SiteCentersDescriptor(r_cut=4.0, device="cpu"),
+                     max_types=4, verbose=False, device="cpu").run(sn)
+    assert sn.site_types.max() >= 1
+
+    cba = ConductionBottleneckAnalysis(verbose=False, device="cpu").run(out)
+    assert cba.betweenness_.shape == (out.n_sites,)
+    assert np.isfinite(cba.betweenness_).all() and cba.betweenness_.max() > 0
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not loaded, loaded
+    print("LIBRARIES-OK")
+""")
+
+
+def test_zarr_typing_bottlenecks_without_sklearn_tensorstore_networkx():
+    """With ``sklearn``, ``tensorstore`` and ``networkx`` unimportable (as
+    on the machine with the card), and ``jax`` and ``sitator_tpu`` too:
+    ``convert_to_zarr`` (v2 and v3) → ``open_trajectory`` →
+    ``StreamingLandmarkAnalysis`` fit and run equal to the in-memory run,
+    ``cli convert --zarr/--zarr3``, ``SiteTypeAnalysis`` (forced count
+    and elbow) and ``ConductionBottleneckAnalysis``."""
+    proc = subprocess.run([sys.executable, "-c", WITHOUT_LIBRARIES],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "LIBRARIES-OK" in proc.stdout
 
 
 def test_transport_and_kinetics_without_jax():
@@ -487,8 +580,7 @@ def test_transport_and_kinetics_without_jax():
 def test_seed_landmark_soap_descriptor_merge_without_jax():
     """The descriptor and seeding modules import, and a density seed →
     landmark → SOAP → ``MergeSitesByDescriptors`` run completes, with
-    ``jax`` and ``sitator_tpu`` blocked (and without loading ``sklearn``,
-    which only ``SiteTypeAnalysis.run`` needs)."""
+    ``jax`` and ``sitator_tpu`` blocked (and without loading ``sklearn``)."""
     proc = subprocess.run([sys.executable, "-c", SEED_TO_DESCRIPTORS],
                           cwd=ROOT, capture_output=True, text=True,
                           timeout=300)

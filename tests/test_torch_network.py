@@ -190,6 +190,75 @@ def test_conduction_bottlenecks_match_reference(name):
         pnet.ConductionBottleneckAnalysis(connectivity_threshold=0)
 
 
+def _bottleneck_case(kind, seed):
+    """(centers, n_ij) of a seeded jump graph: ``random`` integer counts on
+    a sparse pattern, ``equal`` counts (many shortest paths of one length),
+    ``disconnected`` (two components and isolated sites), or ``sites_N``
+    (N = 1, 2, 3)."""
+    rng = np.random.default_rng(seed)
+    if kind.startswith("sites_"):
+        n = int(kind[-1])
+        return rng.uniform(0, 10, (n, 3)), rng.integers(0, 3, (n, n))
+    n = int(rng.integers(4, 40))
+    centers = rng.uniform(0, 10, (n, 3))
+    mask = rng.random((n, n)) < rng.uniform(0.05, 0.4)
+    if kind == "equal":
+        n_ij = np.where(mask | mask.T, 1, 0)
+    else:
+        n_ij = np.where(mask, rng.integers(1, 6, (n, n)), 0)
+    if kind == "disconnected":
+        half = n // 2
+        n_ij[:half, half:] = n_ij[half:, :half] = 0
+        n_ij[-1, :] = n_ij[:, -1] = 0
+    return centers, n_ij
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("kind", ["random", "equal", "disconnected",
+                                  "sites_1", "sites_2", "sites_3"])
+def test_conduction_bottleneck_betweenness_is_networkx(kind, seed):
+    """The port's Brandes (``network/_brandes.py``, no networkx) against the
+    reference's ``nx.betweenness_centrality`` through the whole analysis:
+    betweenness within 1e-12, the integer outputs equal."""
+    pytest.importorskip("networkx")
+    centers, n_ij = _bottleneck_case(kind, seed)
+    for threshold in (1, 2):
+        rsn = _net(ref, centers, n_ij=n_ij)
+        psn = _net(port, centers, n_ij=n_ij)
+        want = rnet.ConductionBottleneckAnalysis(
+            connectivity_threshold=threshold, verbose=False).run(rsn)
+        got = pnet.ConductionBottleneckAnalysis(
+            connectivity_threshold=threshold, verbose=False,
+            device="cpu").run(psn)
+        np.testing.assert_allclose(got.betweenness_, want.betweenness_,
+                                   rtol=0, atol=1e-12)
+        assert got.base_dim_ == want.base_dim_
+        for name in ("candidates_", "removal_dims_", "critical_sites_"):
+            np.testing.assert_array_equal(getattr(got, name),
+                                          getattr(want, name), name)
+
+
+def test_brandes_against_networkx_on_lattices():
+    """Grids with one edge length (the most shortest paths of equal length)
+    and a random graph of 300 nodes, straight against networkx."""
+    nx = pytest.importorskip("networkx")
+    from sitator_tpu_torch.network._brandes import betweenness_centrality
+    rng = np.random.default_rng(11)
+    graphs = [nx.grid_2d_graph(9, 9), nx.grid_graph((4, 4, 4)),
+              nx.gnp_random_graph(300, 0.02, seed=3)]
+    for g in graphs:
+        g = nx.convert_node_labels_to_integers(g)
+        edges = np.array(g.edges(), dtype=np.int64)
+        w = (np.full(len(edges), 0.5) if len(g) < 200 else
+             1.0 / rng.integers(1, 9, len(edges)))
+        for (a, b), x in zip(edges, w):
+            g[a][b]["inv_w"] = float(x)
+        want = nx.betweenness_centrality(g, weight="inv_w")
+        got = betweenness_centrality(len(g), edges[:, 0], edges[:, 1], w)
+        np.testing.assert_allclose(got, [want[i] for i in range(len(g))],
+                                   rtol=0, atol=1e-12)
+
+
 def test_to_networkx_matches_reference():
     pytest.importorskip("networkx")
     (centers, n_ij), _ = PATHWAYS["thinned"]

@@ -277,13 +277,15 @@ def test_site_type_analysis_partitions_equal(fcc, descriptor, mode):
         rd = rdesc.SOAPDescriptorAverages(**kw)
         pd_ = pdesc.SOAPDescriptorAverages(device="cpu", **kw)
     rsta = rdesc.SiteTypeAnalysis(rd, verbose=False, **mode)
-    psta = pdesc.SiteTypeAnalysis(pd_, verbose=False, **mode)
+    psta = pdesc.SiteTypeAnalysis(pd_, verbose=False, device="cpu", **mode)
     rsta.run(rst)
     assert psta.run(pst) is pst
     want = rst.site_network.site_types
     got = pst.site_network.site_types
     assert got.dtype == np.int32
     np.testing.assert_array_equal(_partition(got), _partition(want))
+    # and the type numbers are the reference's own
+    np.testing.assert_array_equal(got, want)
     np.testing.assert_allclose(psta.descriptor_matrix,
                                rsta.descriptor_matrix, atol=ATOL)
     if "n_types" in mode and descriptor == "centers":
@@ -291,6 +293,111 @@ def test_site_type_analysis_partitions_equal(fcc, descriptor, mode):
         np.testing.assert_array_equal(_partition(got),
                                       _partition(md.true_site_types))
     rst.site_network.site_types = pst.site_network.site_types = None
+
+
+class _Matrix:
+    """A descriptor that hands back a fixed matrix: the typing step alone."""
+
+    def __init__(self, matrix):
+        self.matrix = matrix
+
+    def get_descriptors(self, st):
+        return self.matrix, np.ones(len(self.matrix), np.int64)
+
+
+def _typing_matrix(seed, dtype):
+    """Seeded descriptors: 5-400 sites x 4-200 columns in ``k0`` clusters
+    (1-5) of random spread, around a random offset."""
+    rng = np.random.default_rng(seed)
+    n, d = int(rng.integers(5, 401)), int(rng.integers(4, 201))
+    k0 = int(rng.integers(1, 6)) if dtype == np.float64 else \
+        int(rng.integers(2, 6))
+    means = rng.normal(size=(k0, d)) * rng.uniform(0.5, 3.0)
+    x = (means[rng.integers(0, k0, n)] + rng.uniform(-2, 2)
+         + rng.normal(size=(n, d)) * rng.uniform(0.05, 1.0))
+    return x.astype(dtype), k0
+
+
+def _type_both(matrix, **mode):
+    from types import SimpleNamespace
+    ref_sn, port_sn = SimpleNamespace(), SimpleNamespace()
+    rsta = rdesc.SiteTypeAnalysis(_Matrix(matrix), verbose=False, **mode)
+    psta = pdesc.SiteTypeAnalysis(_Matrix(matrix), verbose=False,
+                                  device="cpu", **mode)
+    rsta.run(ref_sn)
+    assert psta.run(port_sn) is port_sn
+    assert port_sn.site_types.dtype == np.int32
+    return rsta, ref_sn.site_types, psta, port_sn.site_types
+
+
+def _signed_like(got, want):
+    """``got``'s columns with the signs that best match ``want``'s."""
+    return got * np.where((got * want).sum(axis=0) < 0, -1.0, 1.0)
+
+
+@pytest.mark.parametrize("seed", range(24))
+def test_site_typing_float64_labels_equal(seed):
+    """On float64 descriptors the reference's sklearn steps and the port's
+    own (PCA by SVD or covariance eigh in float64, scipy's Ward tree,
+    sklearn's cut) compute the same numbers: the type labels are equal —
+    the numbers, not only the partition — through the elbow and at every
+    forced count 1-8; ``reduced`` agrees to 1e-9 of its largest value up to
+    each component's sign (the sign rule is sklearn's; a flip shows only
+    where two loadings tie), and ``distances_`` equals sklearn's
+    ``AgglomerativeClustering(distance_threshold=0).distances_`` on the
+    reference's ``reduced`` to 1e-9 relative."""
+    from sklearn.cluster import AgglomerativeClustering
+    matrix, _ = _typing_matrix(seed, np.float64)
+    for mode in [dict(max_types=8)] + [dict(n_types=k) for k in range(1, 9)]:
+        rsta, want, psta, got = _type_both(matrix, **mode)
+        np.testing.assert_array_equal(got, want, err_msg=str(mode))
+    scale = np.abs(rsta.reduced).max()
+    np.testing.assert_allclose(_signed_like(psta.reduced, rsta.reduced),
+                               rsta.reduced, rtol=0, atol=1e-9 * scale)
+    tree = AgglomerativeClustering(n_clusters=None, distance_threshold=0.0,
+                                   compute_full_tree=True).fit(rsta.reduced)
+    np.testing.assert_allclose(psta.distances_, tree.distances_, rtol=1e-9)
+
+
+@pytest.mark.parametrize("seed", range(24))
+def test_site_typing_float32_labels_equal(seed):
+    """Descriptors come in float32 (SOAP), where the reference's PCA runs in
+    float32 and the port's in float64.  On matrices of 2-5 real types the
+    labels are equal through the elbow and at the real number of types, and
+    the ``k0 - 1`` merge distances that separate the types agree to 1e-4
+    relative.  (Cutting a real type further splits its noise, which the
+    float32 PCA resolves only to float32 rounding: there the two trees may
+    merge in another order, so those cuts are held in float64 above.)"""
+    matrix, k0 = _typing_matrix(seed, np.float32)
+    for mode in (dict(max_types=8), dict(n_types=k0)):
+        rsta, want, psta, got = _type_both(matrix, **mode)
+        np.testing.assert_array_equal(got, want, err_msg=str(mode))
+    from sklearn.cluster import AgglomerativeClustering
+    tree = AgglomerativeClustering(n_clusters=None, distance_threshold=0.0,
+                                   compute_full_tree=True).fit(rsta.reduced)
+    np.testing.assert_allclose(psta.distances_[len(matrix) - k0:],
+                               tree.distances_[len(matrix) - k0:],
+                               rtol=1e-4)
+
+
+def test_site_typing_small_and_degenerate():
+    """One and two sites, a constant matrix, and ``n_components`` beyond the
+    matrix: the reference's labels (or its error)."""
+    rng = np.random.default_rng(5)
+    for matrix, mode in ((rng.normal(size=(1, 6)), dict(max_types=4)),
+                         (rng.normal(size=(2, 6)), dict(max_types=4)),
+                         (rng.normal(size=(2, 6)), dict(n_types=2)),
+                         (rng.normal(size=(7, 3)), dict(n_types=3)),
+                         (np.ones((6, 4)), dict(n_types=1))):
+        _, want, _, got = _type_both(matrix, **mode)
+        np.testing.assert_array_equal(got, want)
+    wide = _Matrix(rng.normal(size=(9, 3)))
+    with pytest.raises(ValueError, match="n_components"):
+        rdesc.SiteTypeAnalysis(wide, n_components=5,
+                               verbose=False).run(object())
+    with pytest.raises(ValueError, match="n_components"):
+        pdesc.SiteTypeAnalysis(wide, n_components=5, verbose=False,
+                               device="cpu").run(object())
 
 
 @pytest.mark.parametrize("kw", [
