@@ -14,7 +14,12 @@ Phases; any failure exits non-zero before the result lines:
 1. device: the card's name and power limit (``nvidia-smi``), the CUDA and
    ``nvcc`` versions, and which of ``sklearn``, ``tensorstore``,
    ``networkx``, ``h5py``, ``matplotlib``, ``ase`` and ``tqdm`` the machine
-   has (``importlib.util.find_spec``);
+   has (``importlib.util.find_spec``); then (``phase_zarr_layouts``, after the build, without arguments
+   only) whether ``libz.so.1`` and ``libzstd.so.1`` load and ``bz2`` and
+   ``lzma`` import, and every store of ``tests/data/torch_zarr_layouts/``
+   (zarr v2, zarr v3 and n5 with every codec tensorstore writes, written
+   by it) read by the port bit-equal to its ``.npy``; a layout the machine
+   cannot open fails the run;
 2. build: compiles ``sitator_tpu_torch/csrc/*.cu`` for ``sm_90a`` into
    ``build/`` (skipped when a library for these sources is there), prints
    each kernel's registers and spills from ``ptxas``, and counts the
@@ -172,10 +177,13 @@ Phases; any failure exits non-zero before the result lines:
    block of 1024 (the CLI's default) against one of 256; then zarr stores
    (``zarr_passes``): the frames twice over (4096) converted by the port's
    ``convert_to_zarr`` to zarr v2 (blosc/LZ4) and v3 (raw) in 256-frame
-   chunks (seconds, bytes on disk), the Blosc codec's decode alone (MB/s),
-   and the streaming fit (K2) and pass 2 (K1) in 16 blocks of 256 from
-   memory, memmap and both stores in turns (frames/s, feeder wait), each
-   run's centres, labels and ``n_ij`` equal to the memory run's;
+   chunks and by this script's writers to a zarr v3 sharded store (zstd
+   inner chunks, crc32c index) and a zarr v2 Blosc/zstd/bitshuffle store
+   (seconds, bytes on disk), each codec's decode alone (MB/s), and the
+   streaming fit (K2) and pass 2 (K1) in 16 blocks of 256 from memory,
+   memmap and the four stores in turns (frames/s beside the memmap's,
+   feeder wait), each run's centres, labels and ``n_ij`` equal to the
+   memory run's;
 11. the walkthroughs of ``sitator_tpu_torch/examples`` (the 12 scripts of
    ``examples/`` on the port, ``phase_examples``): each runs here on the
    card (``main(["--device", "cuda", ...])``, output captured, counters
@@ -3261,17 +3269,204 @@ def phase_cli(device, ctx):
     return {k: launches[k] + zarr_launches[k] for k in launches}
 
 
+# -- test-side zarr writers: the card's machine has no tensorstore, so the
+# stores of ``zarr_passes`` are written here, independently of the port
+# (zstd through libzstd.so.1 by ctypes, bitshuffle and crc32c in NumPy and
+# Python); ``tests/test_torch_zarr_layouts.py`` holds them to tensorstore
+
+def _libzstd():
+    import ctypes
+    lib = ctypes.CDLL("libzstd.so.1")
+    lib.ZSTD_compressBound.restype = ctypes.c_size_t
+    lib.ZSTD_compressBound.argtypes = [ctypes.c_size_t]
+    lib.ZSTD_compress.restype = ctypes.c_size_t
+    lib.ZSTD_compress.argtypes = [ctypes.c_void_p, ctypes.c_size_t,
+                                  ctypes.c_void_p, ctypes.c_size_t,
+                                  ctypes.c_int]
+    lib.ZSTD_isError.restype = ctypes.c_uint
+    lib.ZSTD_isError.argtypes = [ctypes.c_size_t]
+    return lib
+
+
+def zstd_compress_all(buffers, level):
+    """One zstd frame (``bytes``) of each C-contiguous buffer, 8 at a
+    time on threads (ctypes lets go of the interpreter)."""
+    from concurrent.futures import ThreadPoolExecutor
+    lib = _libzstd()
+
+    def one(buf):
+        src = np.ascontiguousarray(buf).reshape(-1).view(np.uint8)
+        dst = np.empty(lib.ZSTD_compressBound(src.size), np.uint8)
+        n = lib.ZSTD_compress(dst.ctypes.data, dst.size, src.ctypes.data,
+                              src.size, level)
+        check(not lib.ZSTD_isError(n), "ZSTD_compress failed")
+        return dst[:n].tobytes()
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(one, buffers))
+
+
+def crc32c_py(data):
+    """CRC-32C (Castagnoli, reflected 0x82F63B78), bit by bit."""
+    c = 0xFFFFFFFF
+    for b in bytes(data):
+        c ^= b
+        for _ in range(8):
+            c = (c >> 1) ^ (0x82F63B78 if c & 1 else 0)
+    return c ^ 0xFFFFFFFF
+
+
+def bitshuffle_blocks(blocks, ts):
+    """Bitshuffle each row of ``blocks`` (uint8, (n, bytes)) over elements
+    of ``ts`` bytes, as c-blosc 1.x: row (j, k) of ne / 8 bytes holds bit k
+    of byte j of every element (element i at bit i % 8 of byte i / 8).
+    The element count must be a multiple of 8.  Byte j of 8 elements is
+    one uint64, whose 8 x 8 bit matrix is transposed (Hacker's Delight)."""
+    n, nbytes = blocks.shape
+    ne = nbytes // ts
+    x = np.ascontiguousarray(blocks.reshape(n, ne // 8, 8, ts).transpose(
+        0, 3, 1, 2)).view("<u8")[..., 0]
+    for shift, mask in ((7, 0x00AA00AA00AA00AA), (14, 0x0000CCCC0000CCCC),
+                        (28, 0x00000000F0F0F0F0)):
+        t = (x ^ (x >> np.uint64(shift))) & np.uint64(mask)
+        x = x ^ t ^ (t << np.uint64(shift))
+    return np.ascontiguousarray(x).view(np.uint8).reshape(
+        n, ts, ne // 8, 8).transpose(0, 1, 3, 2).reshape(n, nbytes)
+
+
+def blosc_zstd_bitshuffle_frames(chunks, level=1, blocksize=1 << 18):
+    """Blosc1 frames of float32 chunks: zstd at ``level``, bitshuffle,
+    typesize 4, no split, blocks of ``blocksize`` bytes (the leftover block
+    of a chunk whose element count is a multiple of 8 bitshuffled too; one
+    whose count is not, stored as is, as c-blosc does)."""
+    import struct
+    frames = []
+    for chunk in chunks:
+        raw = np.ascontiguousarray(chunk, np.float32).reshape(-1).view(
+            np.uint8)
+        nbytes = raw.size
+        bs = min(blocksize, nbytes)
+        full = nbytes // bs
+        blocks = [bitshuffle_blocks(raw[:full * bs].reshape(full, bs), 4)]
+        rest = raw[full * bs:]
+        if rest.size:
+            blocks.append(bitshuffle_blocks(rest[None], 4)
+                          if rest.size % 32 == 0 else rest[None])
+        blocks = [r for b in blocks for r in b]
+        packed = zstd_compress_all(blocks, level)
+        streams = [struct.pack("<i", len(p)) + p if len(p) < b.size
+                   else struct.pack("<i", b.size) + b.tobytes()
+                   for b, p in zip(blocks, packed)]
+        start = 16 + 4 * len(streams)
+        starts, pos = [], start
+        for s in streams:
+            starts.append(pos)
+            pos += len(s)
+        head = struct.pack("<BBBBiii", 2, 1, (4 << 5) | 0x10 | 0x04, 4,
+                           nbytes, bs, pos)
+        frames.append(head + struct.pack(f"<{len(starts)}i", *starts)
+                      + b"".join(streams))
+    return frames
+
+
+def write_blosc_zstd_bitshuffle_store(path, frames, chunk, level=1):
+    """A zarr v2 store of ``frames`` (float32) in chunks of ``chunk``
+    frames: the compressor Blosc, cname zstd, bitshuffle."""
+    import os
+    import shutil
+    if os.path.isdir(path):
+        shutil.rmtree(path)
+    os.makedirs(path)
+    shape = [int(s) for s in frames.shape]
+    with open(os.path.join(path, ".zarray"), "w") as f:
+        json.dump({"zarr_format": 2, "shape": shape,
+                   "chunks": [chunk, *shape[1:]], "dtype": "<f4",
+                   "compressor": {"id": "blosc", "cname": "zstd",
+                                  "clevel": level, "shuffle": 2,
+                                  "blocksize": 0},
+                   "fill_value": 0.0, "filters": None, "order": "C",
+                   "dimension_separator": "."}, f)
+    for lo in range(0, len(frames), 8 * chunk):
+        parts = []
+        for a in range(lo, min(lo + 8 * chunk, len(frames)), chunk):
+            part = np.zeros((chunk, *shape[1:]), np.float32)
+            part[:min(chunk, len(frames) - a)] = frames[a:a + chunk]
+            parts.append(part)
+        for k, blob in enumerate(blosc_zstd_bitshuffle_frames(parts, level)):
+            name = ".".join([str(lo // chunk + k)] + ["0"] * (len(shape) - 1))
+            with open(os.path.join(path, name), "wb") as f:
+                f.write(blob)
+
+
+def write_sharded_zstd_store(path, frames, shard, inner, level=1):
+    """A zarr v3 store of ``frames`` (float32): shards of ``shard`` frames
+    holding inner chunks of ``inner`` (codecs ``bytes`` + ``zstd``), the
+    index (``bytes`` + ``crc32c``) at the end of each shard file."""
+    import os
+    import shutil
+    import struct
+    if os.path.isdir(path):
+        shutil.rmtree(path)
+    os.makedirs(path)
+    shape = [int(s) for s in frames.shape]
+    little = {"name": "bytes", "configuration": {"endian": "little"}}
+    with open(os.path.join(path, "zarr.json"), "w") as f:
+        json.dump({"zarr_format": 3, "node_type": "array", "shape": shape,
+                   "data_type": "float32",
+                   "chunk_grid": {"name": "regular", "configuration": {
+                       "chunk_shape": [shard, *shape[1:]]}},
+                   "chunk_key_encoding": {"name": "default"},
+                   "fill_value": 0.0,
+                   "codecs": [{"name": "sharding_indexed", "configuration": {
+                       "chunk_shape": [inner, *shape[1:]],
+                       "codecs": [little, {"name": "zstd", "configuration": {
+                           "level": level, "checksum": False}}],
+                       "index_codecs": [little, {"name": "crc32c"}],
+                       "index_location": "end"}}]}, f)
+    absent = 2 ** 64 - 1
+    for s, lo in enumerate(range(0, len(frames), shard)):
+        parts = []
+        for a in range(lo, lo + shard, inner):
+            if a >= len(frames):
+                parts.append(None)
+                continue
+            part = np.zeros((inner, *shape[1:]), np.float32)
+            part[:min(inner, len(frames) - a)] = frames[a:a + inner]
+            parts.append(part)
+        blobs = zstd_compress_all([p for p in parts if p is not None],
+                                  level)
+        index, body, pos = [], [], 0
+        for p in parts:
+            if p is None:
+                index += [absent, absent]
+                continue
+            blob = blobs.pop(0)
+            index += [pos, len(blob)]
+            body.append(blob)
+            pos += len(blob)
+        index = struct.pack(f"<{len(index)}Q", *index)
+        index += struct.pack("<I", crc32c_py(index))
+        shard_dir = os.path.join(path, "c", str(s),
+                                 *["0"] * (len(shape) - 2))
+        os.makedirs(shard_dir, exist_ok=True)
+        with open(os.path.join(shard_dir, "0"), "wb") as f:
+            f.write(b"".join(body) + index)
+
+
 def zarr_passes(tmp, decoded, structure, seeded, kw):
     """Zarr stores at the bench width: the phase's frames twice over (4096
     frames, 491 MB of float32) converted by the port's ``convert_to_zarr``
     to a zarr v2 store (blosc/LZ4, shuffle) and a zarr v3 store (raw
-    bytes), in chunks of 256 frames; the Blosc codec's decode alone over
-    every chunk of the v2 store; then the streaming fit (K2) and pass 2
-    (K1) in 16 blocks of 256 frames from memory, the ``.npy`` memmap and
-    both stores, in the order memory, npy, v2, v3, v3, v2, npy, memory, with
-    the launch counters reset before and read after.  Every run's fitted
-    centres, labels and ``n_ij`` equal the first memory run's bit for bit.
-    Returns the launches."""
+    bytes), in chunks of 256 frames, and written by this script's own
+    writers to a zarr v3 sharded store (shards of 1024 frames, inner chunks
+    of 256: ``bytes`` + ``zstd`` level 1, index ``bytes`` + ``crc32c``) and
+    a zarr v2 store of Blosc/zstd level 1 with bitshuffle (chunks of 256);
+    each codec's decode alone over every chunk of its store; then the
+    streaming fit (K2) and pass 2 (K1) in 16 blocks of 256 frames from
+    memory, the ``.npy`` memmap and the four stores, in the order memory,
+    npy, v2, v3, sharded, Blosc/zstd, then back, with the launch counters
+    reset before and read after.  Every run's fitted centres, labels and
+    ``n_ij`` equal the first memory run's bit for bit.  Returns the
+    launches."""
     import os
     from sitator_tpu_torch import StreamingLandmarkAnalysis
     from sitator_tpu_torch.io import (ArrayTrajectory, NpyTrajectory,
@@ -3284,54 +3479,89 @@ def zarr_passes(tmp, decoded, structure, seeded, kw):
     raw_mb = frames.nbytes / 1e6
     npy = str(tmp / "zmd.npy")
     np.save(npy, frames)
-    stores = {}
-    for fmt in (2, 3):
-        path = str(tmp / f"md_v{fmt}.zarr")
+    sharded, bzstd = "zarr v3 sharded zstd", "zarr v2 blosc/zstd bitshuffle"
+    writers = {
+        "zarr v2": ("blosc/LZ4, shuffle, chunks of 256 frames: the port's "
+                    "convert_to_zarr", lambda path: convert_to_zarr(
+                        ArrayTrajectory(frames, structure), path,
+                        chunk_frames=block, zarr_format=2)),
+        "zarr v3": ("raw bytes, chunks of 256 frames: the port's "
+                    "convert_to_zarr", lambda path: convert_to_zarr(
+                        ArrayTrajectory(frames, structure), path,
+                        chunk_frames=block, zarr_format=3)),
+        sharded: ("shards of 1024 frames, inner chunks of 256 (bytes + "
+                  "zstd level 1), index bytes + crc32c: this script's "
+                  "writer", lambda path: write_sharded_zstd_store(
+                      path, frames, shard=4 * block, inner=block)),
+        bzstd: ("Blosc zstd level 1, bitshuffle, chunks of 256 frames: this "
+                "script's writer", lambda path: write_blosc_zstd_bitshuffle_store(
+                    path, frames, chunk=block))}
+    stores, share = {}, {}
+    for i, (name, (what, write)) in enumerate(writers.items()):
+        path = str(tmp / f"md_{i}.zarr")
         t0 = time.perf_counter()
-        convert_to_zarr(ArrayTrajectory(frames, structure), path,
-                        chunk_frames=block, zarr_format=fmt)
+        write(path)
         t_conv = time.perf_counter() - t0
         size = sum(os.path.getsize(os.path.join(r, f))
                    for r, _, fs in os.walk(path) for f in fs)
-        stores[f"zarr v{fmt}"] = path
-        check(type(open_trajectory(path)) is TensorstoreTrajectory,
-              f"open_trajectory(zarr v{fmt}) gave "
-              f"{type(open_trajectory(path))}")
-        print(f"convert_to_zarr v{fmt} ({'blosc/LZ4, shuffle' if fmt == 2 else 'raw bytes'}, "
-              f"chunks of {block} frames): {n_z} frames x {frames.shape[1]} "
-              f"atoms in {t_conv:.2f} s ({raw_mb / t_conv:.0f} MB/s of "
-              f"frames); {size / 1e6:.1f} MB on disk, {size / frames.nbytes:.3f}"
-              f" of the {raw_mb:.1f} MB of float32 frames", flush=True)
+        stores[name], share[name] = path, size / frames.nbytes
+        reader = open_trajectory(path)
+        check(type(reader) is TensorstoreTrajectory and reader._ts is None,
+              f"open_trajectory({name}) gave {type(reader)}")
+        print(f"{name} ({what}): {n_z} frames x {frames.shape[1]} atoms "
+              f"written in {t_conv:.2f} s ({raw_mb / t_conv:.0f} MB/s of "
+              f"frames); {size / 1e6:.1f} MB on disk, {share[name]:.3f} of "
+              f"the {raw_mb:.1f} MB of float32 frames", flush=True)
 
-    # the codec alone: every chunk of the v2 store decoded in one call
-    store = zarr_store.ZarrArray(stores["zarr v2"])
-    blobs = []
-    for i in range(store.grid[0]):
-        with open(store.chunk_path((i, 0, 0)), "rb") as f:
-            blobs.append(np.frombuffer(f.read(), np.uint8))
-    outs = [np.empty(store.chunks, np.float32) for _ in blobs]
-    rates = []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        zarr_store.blosc_decode(blobs, outs)
-        rates.append(sum(o.nbytes for o in outs) / 1e6
-                     / (time.perf_counter() - t0))
-    check(np.array_equal(np.concatenate(outs)[:n_z], frames),
-          "the Blosc codec's decode differs from the frames written")
-    print(f"Blosc/LZ4 decode alone ({zarr_store.N_THREADS} threads, "
-          f"{len(blobs)} chunks of {store.chunks[0]} frames, "
-          f"{sum(b.size for b in blobs) / 1e6:.1f} MB of frames in): "
-          + ", ".join(f"{r:.0f} MB/s" for r in rates) + " of decoded frames",
-          flush=True)
+    # each codec alone: every chunk of its store decoded in one call
+    def chunk_files(name):
+        store = zarr_store.ZarrArray(stores[name])
+        blobs = []
+        for i in range(store.grid[0]):
+            with open(store.chunk_path((i, 0, 0)), "rb") as f:
+                blobs.append(np.frombuffer(f.read(), np.uint8))
+        return store, blobs
+
+    def inner_chunks(name):
+        store, shards = chunk_files(name)
+        m = store._shard.index_nbytes
+        blobs = []
+        for blob in shards:
+            entries = store._shard.entries([blob[-m:]], [name])[0]
+            blobs += [blob[int(o):int(o) + int(n)] for o, n in entries]
+        return store, blobs
+
+    decode_rate = {}
+    for name, fn, blobs_of in (
+            ("zarr v2", zarr_store.blosc_decode, chunk_files),
+            (bzstd, zarr_store.blosc_decode, chunk_files),
+            (sharded, zarr_store.zstd_decode, inner_chunks)):
+        store, blobs = blobs_of(name)
+        outs = [np.empty((block, *frames.shape[1:]), np.float32)
+                for _ in blobs]
+        rates = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            fn(blobs, outs)
+            rates.append(sum(o.nbytes for o in outs) / 1e6
+                         / (time.perf_counter() - t0))
+        check(np.array_equal(np.concatenate(outs)[:n_z], frames),
+              f"the {name} codec's decode differs from the frames written")
+        decode_rate[name] = rates
+        print(f"{name}: {fn.__name__} alone ({zarr_store.N_THREADS} threads, "
+              f"{len(blobs)} chunks of {block} frames, "
+              f"{sum(b.size for b in blobs) / 1e6:.1f} MB in): "
+              + ", ".join(f"{r:.0f} MB/s" for r in rates)
+              + " of decoded frames", flush=True)
 
     sources = {"memory": lambda: ArrayTrajectory(frames),
                "npy": lambda: NpyTrajectory(npy),
-               "zarr v2": lambda: open_trajectory(stores["zarr v2"]),
-               "zarr v3": lambda: open_trajectory(stores["zarr v3"])}
-    first, fps = None, {}
+               **{name: (lambda p=path: open_trajectory(p))
+                  for name, path in stores.items()}}
+    order = ["memory", "npy", "zarr v2", "zarr v3", sharded, bzstd]
+    first, fps, feeder = None, {}, {}
     reset_launches()
-    for name in ("memory", "npy", "zarr v2", "zarr v3", "zarr v3",
-                 "zarr v2", "npy", "memory"):
+    for name in order + order[::-1]:
         reader = sources[name]()
         labels_path = str(tmp / "zlabels.npy")
         eng = StreamingLandmarkAnalysis(block_frames=block,
@@ -3353,11 +3583,12 @@ def zarr_passes(tmp, decoded, structure, seeded, kw):
               and np.array_equal(got.n_ij, first[2]),
               f"pass 2 from {name}: labels or n_ij differ from memory's")
         fps.setdefault(name, []).append(n_z / dt)
+        feeder.setdefault(name, []).append(
+            eng.phase_times_.get("feeder", float("nan")))
         print(f"fit + pass 2 from {name} ({type(reader).__name__}, "
               f"{n_z // block} blocks of {block} frames): fit {t_fit:.2f} s; "
               f"pass 2 {n_z / dt:.1f} frames/s ({dt:.3f} s), feeder wait "
-              f"{eng.phase_times_.get('feeder', float('nan')):.3f} s; "
-              "phase_times_ (s): " + json.dumps(
+              f"{feeder[name][-1]:.3f} s; phase_times_ (s): " + json.dumps(
                   {a: round(b, 4) for a, b in eng.phase_times_.items()}),
               flush=True)
     launches = read_launches()
@@ -3367,7 +3598,61 @@ def zarr_passes(tmp, decoded, structure, seeded, kw):
         {k: [round(x, 1) for x in v] for k, v in fps.items()})
         + f"; centres, labels and n_ij of every run == memory's; launches "
         f"{launches}", flush=True)
+    memmap = np.mean(fps["npy"])
+    for name in stores:
+        rate = (", ".join(f"{r:.0f}" for r in decode_rate[name]) + " MB/s"
+                if name in decode_rate else "no codec")
+        print(f"{name}: decode alone {rate}; pass 2 "
+              f"{np.mean(fps[name]):.1f} frames/s = "
+              f"{np.mean(fps[name]) / memmap:.3f} of the memmap's "
+              f"{memmap:.1f} in this call; feeder "
+              + ", ".join(f"{f:.3f}" for f in feeder[name])
+              + f" s; on disk {share[name]:.3f} of the raw bytes",
+              flush=True)
     return launches
+
+
+def phase_zarr_layouts():
+    """The codec census, then every store of
+    ``tests/data/torch_zarr_layouts/`` (written by tensorstore: zarr v2,
+    zarr v3 and n5 with every codec it writes) read by the port and held
+    bit for bit to its ``.npy``: the card's machine opens them without
+    tensorstore.  A layout this machine cannot open fails the phase."""
+    from sitator_tpu_torch.io import zarr_store
+    from sitator_tpu_torch.io.tensorstore_io import TensorstoreTrajectory
+    fixtures = ROOT / "tests" / "data" / "torch_zarr_layouts"
+    names = sorted(p.name for p in fixtures.iterdir() if p.is_dir())
+    check(len(names) > 30, f"only {len(names)} zarr layout fixtures")
+    refused = {}
+    for name in names:
+        try:
+            zarr_store.ZarrArray(str(fixtures / name))
+        except zarr_store.UnsupportedLayout as e:
+            refused[name] = str(e)
+    have = zarr_store.codec_libraries()
+    print("codec libraries here: " + ", ".join(
+        f"{lib} {'loads' if ok else 'does not load'}"
+        if lib.endswith(".so.1") else
+        f"{lib} {'imports' if ok else 'does not import'}"
+        if lib in ("bz2", "lzma") else
+        f"{lib} {'built' if ok else 'not built'}"
+        for lib, ok in have.items())
+        + "; zarr layouts this machine cannot open: "
+        + (json.dumps(refused) if refused else "none"), flush=True)
+    check(not refused, f"zarr layouts refused here: {sorted(refused)}")
+    for name in names:
+        want = np.load(fixtures / f"{name}.npy")
+        got = zarr_store.ZarrArray(str(fixtures / name)).read(
+            0, len(want), want.dtype)
+        check(got.tobytes() == want.tobytes(),
+              f"zarr layout {name}: the port's read differs from the "
+              "frames tensorstore wrote")
+        traj = TensorstoreTrajectory(str(fixtures / name))
+        check(traj._ts is None and np.array_equal(
+            traj[1:len(want) - 1], want[1:-1].astype(np.float32)),
+              f"zarr layout {name}: TensorstoreTrajectory differs")
+    print(f"zarr layouts read equal to the frames tensorstore wrote: "
+          f"{len(names)} ({', '.join(names)})", flush=True)
 
 
 # the port's walkthroughs in the order they run on the card
@@ -4757,6 +5042,7 @@ def main():
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}; the "
               "arguments are 'cards' and 'examples'", file=sys.stderr)
         return 2
+    phase_zarr_layouts()
     res = phase_kernels("cuda")
     paths = {}
     paths["slice"], fps = phase_slice("cuda")

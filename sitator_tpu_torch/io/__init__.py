@@ -2,8 +2,10 @@
 text and binary formats with their readers and writers, the native
 multithreaded text decoders (:mod:`sitator_tpu_torch.io.native`), zarr
 v2/v3/n5 stores read and written by the port itself
-(:mod:`sitator_tpu_torch.io.zarr_store`; ``tensorstore`` only for a store
-on another kvstore than ``file``), the background block prefetcher, and
+(:mod:`sitator_tpu_torch.io.zarr_store`: every layout ``tensorstore``
+writes on a local directory; ``tensorstore`` only for a store on another
+kvstore than ``file``, or where a codec's library does not load), the
+background block prefetcher, and
 the synthetic-MD generators with known ground truth.
 
 NumPy copies of the reference's modules, so the port imports nothing of

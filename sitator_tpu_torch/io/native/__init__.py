@@ -1,6 +1,6 @@
 """ctypes bindings + on-demand build of the native text decoders
-(counterpart of ``sitator_tpu.io.native``) and of the zarr stores' Blosc
-codec.
+(counterpart of ``sitator_tpu.io.native``) and of the zarr stores' codec
+(Blosc, zstd, crc32c).
 
 ``fastxyz.cpp``, ``fastlmp.cpp``, ``fastxd.cpp`` and ``zarrcodec.cpp``
 are compiled with ``g++`` at first use into
@@ -8,8 +8,9 @@ are compiled with ``g++`` at first use into
 directory the CUDA kernels build into), keyed by a hash of the sources and
 flags, so a checkout builds from its own sources and never loads another
 package's artefact.  Without ``g++`` the readers fall back to the Python
-parsers, as the reference does; a Blosc-compressed zarr chunk then raises
-(``io/zarr_store.py``: the codec has no Python fallback).
+parsers, as the reference does; a zarr store whose codecs need the native
+codec then raises at open (``io/zarr_store.py``: it has no Python
+fallback).
 
 The per-file index caches (``.fxyzidx.npz``, ``.flmpidx.npz``,
 ``.fxdidx.npz`` beside the trajectory) have the reference's names and
@@ -36,6 +37,9 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
 # portable flag set (no -march=native: the library may be shared across
 # heterogeneous hosts); the parsers are scalar, -O3 is all they need
 _FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread"]
+# after the sources: dlopen for the zarr codec's libz.so.1 / libzstd.so.1
+# (in libc itself from glibc 2.34 on)
+_LIBS = ["-ldl"]
 _lock = threading.Lock()
 _lib = None
 
@@ -48,7 +52,7 @@ def library_path():
     for src in _SRCS:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(_FLAGS).encode())
+    h.update(" ".join(_FLAGS + _LIBS).encode())
     return (BUILD_ROOT / f"sitator_tpu_torch-fastio-{h.hexdigest()[:16]}"
             / "libfastio.bin")
 
@@ -56,8 +60,8 @@ def library_path():
 def _build(lib):
     lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"libfastio.{os.getpid()}.bin")
-    subprocess.run(["g++", *_FLAGS, *map(str, _SRCS), "-o", str(tmp)],
-                   check=True, capture_output=True)
+    subprocess.run(["g++", *_FLAGS, *map(str, _SRCS), "-o", str(tmp),
+                    *_LIBS], check=True, capture_output=True)
     os.replace(tmp, lib)
 
 
@@ -110,6 +114,14 @@ def get_lib():
             ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_void_p),
             ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
             ctypes.c_int]
+        lib.zc_zstd_decode.restype = ctypes.c_int
+        lib.zc_zstd_decode.argtypes = lib.zc_blosc_decode.argtypes
+        lib.zc_zstd_content_size.restype = ctypes.c_int64
+        lib.zc_zstd_content_size.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+        lib.zc_crc32c.restype = ctypes.c_uint32
+        lib.zc_crc32c.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+        lib.zc_libraries.restype = ctypes.c_int
+        lib.zc_libraries.argtypes = []
         lib.zc_blosc_encode.restype = ctypes.c_int
         lib.zc_blosc_encode.argtypes = [
             ctypes.c_int64, ctypes.POINTER(ctypes.c_void_p),

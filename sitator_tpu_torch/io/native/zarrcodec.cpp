@@ -1,31 +1,49 @@
-// zarrcodec — Blosc1 frames with LZ4 blocks and byte shuffle, for zarr stores.
+// zarrcodec — the native codecs of the zarr stores: Blosc1 frames, standalone
+// zstd frames and crc32c.
 //
-// The chunks of a zarr v2 store written with the default compressor
-// ({"id": "blosc", "cname": "lz4", "shuffle": -1}) and of an n5 store with
-// blosc compression are Blosc1 frames.  This file decodes and encodes that
-// frame format for the one compressor it carries (LZ4), with byte shuffle
-// and the memcpy flag, over many chunks at once on a pool of threads.  C ABI,
-// consumed via ctypes:
+// The chunks of a zarr v2, zarr v3 or n5 store with blosc compression are
+// Blosc1 frames.  This file decodes that frame format for every compressor
+// c-blosc 1.x writes but Snappy (BloscLZ and LZ4/LZ4HC here; zlib and zstd
+// through libz.so.1 and libzstd.so.1), with byte shuffle, bit shuffle and
+// the memcpy flag, and encodes it for LZ4 with byte shuffle, over many chunks
+// at once on a pool of threads.  It also decodes batches of standalone zstd
+// frames (the zstd compressor of zarr v2 and n5, the zstd codec of zarr v3)
+// and computes crc32c (the zarr v3 crc32c codec).  C ABI, consumed via
+// ctypes:
 //
 //   zc_blosc_decode: decode n frames into n buffers, every block of every
 //                    frame one job for n_threads threads;
 //   zc_blosc_encode: encode n buffers into n frames (LZ4, byte shuffle or
-//                    none), every block one job, then the frames assembled.
+//                    none), every block one job, then the frames assembled;
+//   zc_zstd_decode:  decode n zstd frames into n buffers, one job each;
+//   zc_zstd_content_size: the decoded size a zstd frame declares;
+//   zc_crc32c:       CRC-32C (Castagnoli) of a buffer;
+//   zc_libraries:    which of libz.so.1 (bit 0) and libzstd.so.1 (bit 1)
+//                    load here.
+//
+// libz.so.1 and libzstd.so.1 are opened with dlopen at first use and their
+// few entry points declared here, so the build needs neither zlib.h nor
+// zstd.h: a machine with the shared libraries and no -dev package builds
+// and decodes.  Without one of them a frame that needs it returns kLibrary.
 //
 // Frame layout (Blosc1): a 16-byte header {version, versionlz, flags,
 // typesize, nbytes, blocksize, ctbytes}, then (unless the memcpy flag is
 // set) one int32 start offset per block, then the blocks.  A block is split
 // into `typesize` streams when the frame's "no split" flag (0x10) is clear,
 // the block is not the leftover one, typesize <= 16 and blocksize / typesize
-// >= 128; each stream is an int32 compressed size followed by its bytes, and
-// a stream whose compressed size equals its raw size is stored raw.  Flags:
-// 0x01 byte shuffle, 0x02 memcpy (the raw buffer follows the header,
-// unshuffled), 0x04 bit shuffle, 0x10 no split, bits 5-7 the compressor
-// format (0 blosclz, 1 lz4, 2 snappy, 3 zlib, 4 zstd).
+// >= 128 (c-blosc 1.x sets the flag whenever the last two fail, so the flag
+// decides for every frame it writes, whatever the compressor); each stream
+// is an int32 compressed size followed by its bytes, and a stream whose
+// compressed size equals its raw size is stored raw.  Flags: 0x01 byte
+// shuffle, 0x02 memcpy (the raw buffer follows the header, unshuffled), 0x04
+// bit shuffle, 0x10 no split, bits 5-7 the compressor format (0 blosclz,
+// 1 lz4 and lz4hc, 2 snappy, 3 zlib, 4 zstd).
 //
-// Anything else (another compressor format, bit shuffle, a corrupt stream)
-// returns a negative status; the codec never hands back bytes it did not
-// decode.  Never throws.
+// Anything else (Snappy, a corrupt stream, a missing library) returns a
+// negative status; the codec never hands back bytes it did not decode.
+// Never throws.
+#include <dlfcn.h>
+
 #include <algorithm>
 #include <atomic>
 #include <cstdint>
@@ -41,11 +59,60 @@ constexpr int kMaxSplits = 16;       // blosc MAX_SPLITS
 constexpr int kL1 = 32 * 1024;
 constexpr uint8_t kShuffle = 0x01, kMemcpy = 0x02, kBitShuffle = 0x04,
                   kNoSplit = 0x10;
-constexpr int kLz4Format = 1;
+constexpr int kBloscLZFormat = 0, kLz4Format = 1, kZlibFormat = 3,
+              kZstdFormat = 4;
 
-// status codes (mirrored in zarr_store.py)
+// status codes (mirrored in zarr_store.py; -4, once "bit shuffle", is not
+// returned any more)
 constexpr int kOk = 0, kTruncated = -1, kVersion = -2, kCompressor = -3,
-              kBitShuffled = -4, kSize = -5, kCorrupt = -6, kLayout = -7;
+              kSize = -5, kCorrupt = -6, kLayout = -7, kLibrary = -8;
+
+// ------------------------------------------------- libz.so.1, libzstd.so.1
+struct Libraries {
+    int (*uncompress)(uint8_t*, unsigned long*, const uint8_t*,
+                      unsigned long) = nullptr;
+    size_t (*zstd_decompress)(void*, size_t, const void*, size_t) = nullptr;
+    unsigned (*zstd_is_error)(size_t) = nullptr;
+    unsigned long long (*zstd_content_size)(const void*, size_t) = nullptr;
+};
+
+template <class F>
+void bind(void* handle, const char* name, F* fn) {
+    *fn = handle ? reinterpret_cast<F>(dlsym(handle, name)) : nullptr;
+}
+
+const Libraries& libraries() {
+    static const Libraries libs = [] {
+        Libraries l;
+        void* z = dlopen("libz.so.1", RTLD_NOW | RTLD_LOCAL);
+        bind(z, "uncompress", &l.uncompress);
+        void* zs = dlopen("libzstd.so.1", RTLD_NOW | RTLD_LOCAL);
+        bind(zs, "ZSTD_decompress", &l.zstd_decompress);
+        bind(zs, "ZSTD_isError", &l.zstd_is_error);
+        bind(zs, "ZSTD_getFrameContentSize", &l.zstd_content_size);
+        if (!l.zstd_decompress || !l.zstd_is_error || !l.zstd_content_size)
+            l.zstd_decompress = nullptr;
+        return l;
+    }();
+    return libs;
+}
+
+constexpr unsigned long long kZstdUnknown = ~0ull, kZstdError = ~0ull - 1;
+
+// Decode one zstd frame of exactly `dlen` bytes (the size it declares, where
+// it declares one).
+int zstd_decode(const uint8_t* src, int64_t slen, uint8_t* dst,
+                int64_t dlen) {
+    const Libraries& l = libraries();
+    if (!l.zstd_decompress) return kLibrary;
+    const unsigned long long declared = l.zstd_content_size(src, slen);
+    if (declared == kZstdError) return kCorrupt;
+    if (declared != kZstdUnknown && declared != (unsigned long long)dlen)
+        return kSize;
+    const size_t got = l.zstd_decompress(dst, (size_t)dlen, src, (size_t)slen);
+    if (l.zstd_is_error(got) || got != (size_t)dlen) return kCorrupt;
+    return kOk;
+}
 
 inline int32_t rd32(const uint8_t* p) {
     return (int32_t)((uint32_t)p[0] | ((uint32_t)p[1] << 8) |
@@ -112,6 +179,66 @@ int64_t lz4_decode(const uint8_t* src, int64_t slen, uint8_t* dst,
             ml -= n;
             dist += n;
         }
+    }
+    return op == oend ? dlen : -1;
+}
+
+// ------------------------------------------------------------ BloscLZ block
+// Decode one BloscLZ stream (c-blosc 1.x's FastLZ derivative) of exactly
+// `dlen` output bytes.  The first byte's low 5 bits are a literal run's
+// control byte; then a control byte below 32 is a run of ctrl + 1 literals,
+// and one of 32 or more a match: length (ctrl >> 5) + 2, plus the bytes
+// that follow while the 3-bit length field is 7 (each added, until one is
+// not 255); distance ((ctrl & 31) << 8) + the next byte + 1, or, where that
+// byte is 255 and the high bits are all set, 8192 + the next two bytes (big
+// endian).  Returns dlen, or -1 for any malformed input.
+int64_t blosclz_decode(const uint8_t* src, int64_t slen, uint8_t* dst,
+                       int64_t dlen) {
+    constexpr int64_t kMaxDistance = 8191;
+    if (slen <= 0) return dlen == 0 ? 0 : -1;
+    const uint8_t* ip = src;
+    const uint8_t* const iend = src + slen;
+    uint8_t* op = dst;
+    uint8_t* const oend = dst + dlen;
+    unsigned ctrl = *ip++ & 31u;
+    for (;;) {
+        if (ctrl >= 32) {
+            int64_t len = (int64_t)(ctrl >> 5) - 1;
+            int64_t ofs = (int64_t)(ctrl & 31) << 8;
+            if (len == 6) {
+                unsigned code;
+                do {
+                    if (ip >= iend) return -1;
+                    code = *ip++;
+                    len += code;
+                } while (code == 255);
+            }
+            if (ip >= iend) return -1;
+            const unsigned code = *ip++;
+            len += 3;
+            int64_t dist = ofs + code + 1;
+            if (code == 255 && ofs == (31 << 8)) {
+                if (iend - ip < 2) return -1;
+                dist = (((int64_t)ip[0] << 8) | ip[1]) + kMaxDistance + 1;
+                ip += 2;
+            }
+            if (oend - op < len || dist > op - dst) return -1;
+            while (len) {              // overlapping copy, as LZ4's
+                const int64_t n = len < dist ? len : dist;
+                std::memcpy(op, op - dist, (size_t)n);
+                op += n;
+                len -= n;
+                dist += n;
+            }
+        } else {
+            const int64_t lit = (int64_t)ctrl + 1;
+            if (oend - op < lit || iend - ip < lit) return -1;
+            std::memcpy(op, ip, (size_t)lit);
+            op += lit;
+            ip += lit;
+        }
+        if (ip >= iend) break;
+        ctrl = *ip++;
     }
     return op == oend ? dlen : -1;
 }
@@ -233,8 +360,39 @@ void unshuffle(int ts, int64_t n, const uint8_t* src, uint8_t* dst) {
     std::memcpy(dst + ne * ts, src + ne * ts, (size_t)(n - ne * ts));
 }
 
+// Undo bitshuffle's bit transpose of a block of n bytes (elements of ts
+// bytes): in the shuffled block, row (j, k) of ne / 8 bytes holds bit k of
+// byte j of every element, element i at bit i % 8 of byte i / 8.  As in
+// c-blosc 1.x (checked against libblosc 1.21), a block whose element count
+// is not a multiple of 8 was not transposed at all and is copied as is.
+inline uint64_t transpose8x8(uint64_t x) {
+    // bit k of byte m <-> bit m of byte k
+    uint64_t t = (x ^ (x >> 7)) & 0x00AA00AA00AA00AAull;
+    x ^= t ^ (t << 7);
+    t = (x ^ (x >> 14)) & 0x0000CCCC0000CCCCull;
+    x ^= t ^ (t << 14);
+    t = (x ^ (x >> 28)) & 0x00000000F0F0F0F0ull;
+    return x ^ t ^ (t << 28);
+}
+
+void bitunshuffle(int ts, int64_t n, const uint8_t* src, uint8_t* dst) {
+    const int64_t ne = n / ts % 8 ? 0 : n / ts, row = ne / 8;
+    for (int j = 0; j < ts; ++j) {
+        const uint8_t* rows = src + (int64_t)j * 8 * row;
+        for (int64_t g = 0; g < row; ++g) {
+            uint64_t x = 0;
+            for (int k = 0; k < 8; ++k)
+                x |= (uint64_t)rows[k * row + g] << (8 * k);
+            x = transpose8x8(x);
+            uint8_t* out = dst + g * 8 * ts + j;
+            for (int m = 0; m < 8; ++m) out[m * ts] = (uint8_t)(x >> (8 * m));
+        }
+    }
+    std::memcpy(dst + ne * ts, src + ne * ts, (size_t)(n - ne * ts));
+}
+
 bool split_block(int ts, int64_t blocksize) {
-    // c-blosc 1.x's forward-compatible rule for LZ4
+    // c-blosc 1.x's forward-compatible rule
     return ts <= kMaxSplits && blocksize / ts >= kMinBuffer;
 }
 
@@ -280,13 +438,38 @@ int parse_header(const uint8_t* p, int64_t len, Frame* f) {
         if (f->ctbytes != f->nbytes + kHeader) return kLayout;
         return kOk;
     }
-    if (((f->flags >> 5) & 7) != kLz4Format) return kCompressor;
-    if (f->flags & kBitShuffle) return kBitShuffled;
+    switch ((f->flags >> 5) & 7) {
+        case kBloscLZFormat: case kLz4Format: break;
+        case kZlibFormat:
+            if (!libraries().uncompress) return kLibrary;
+            break;
+        case kZstdFormat:
+            if (!libraries().zstd_decompress) return kLibrary;
+            break;
+        default: return kCompressor;
+    }
     if (f->nbytes == 0) return kOk;
     if (f->blocksize <= 0) return kLayout;
     f->nblocks = (f->nbytes + f->blocksize - 1) / f->blocksize;
     if (kHeader + 4 * f->nblocks > f->ctbytes) return kLayout;
     return kOk;
+}
+
+// Decode one stream of a block: exactly dlen bytes, or false.
+bool decode_stream(int format, const uint8_t* src, int64_t slen, uint8_t* dst,
+                   int64_t dlen) {
+    switch (format) {
+        case kBloscLZFormat: return blosclz_decode(src, slen, dst, dlen) == dlen;
+        case kLz4Format: return lz4_decode(src, slen, dst, dlen) == dlen;
+        case kZlibFormat: {
+            unsigned long got = (unsigned long)dlen;
+            return libraries().uncompress(dst, &got, src,
+                                          (unsigned long)slen) == 0 &&
+                   got == (unsigned long)dlen;
+        }
+        case kZstdFormat: return zstd_decode(src, slen, dst, dlen) == kOk;
+    }
+    return false;
 }
 
 // Decode block b of frame f (source p) into dst (the whole output buffer).
@@ -296,16 +479,20 @@ int decode_block(const uint8_t* p, const Frame& f, int64_t b, uint8_t* dst,
     const int64_t bsize = leftover ? f.nbytes % f.blocksize : f.blocksize;
     const int64_t start = rd32(p + kHeader + 4 * b);
     if (start < kHeader + 4 * f.nblocks || start > f.ctbytes) return kLayout;
+    // c-blosc 1.x: byte shuffle wins where both flags are set
     const bool shuffled = (f.flags & kShuffle) && f.ts > 1;
+    const bool bitshuffled = !shuffled && (f.flags & kBitShuffle) &&
+                             bsize >= f.ts;
     const int nsplits = (!(f.flags & kNoSplit) && !leftover &&
                          split_block(f.ts, f.blocksize)) ? f.ts : 1;
     const int64_t neblock = bsize / nsplits;
     if (neblock * nsplits != bsize) return kLayout;
     uint8_t* out = dst + b * f.blocksize;
-    if (shuffled) {
+    if (shuffled || bitshuffled) {
         if ((int64_t)tmp.size() < bsize) tmp.resize(bsize);
         out = tmp.data();
     }
+    const int format = (f.flags >> 5) & 7;
     const uint8_t* ip = p + start;
     const uint8_t* const iend = p + f.ctbytes;
     for (int j = 0; j < nsplits; ++j) {
@@ -315,13 +502,15 @@ int decode_block(const uint8_t* p, const Frame& f, int64_t b, uint8_t* dst,
         if (cbytes < 0 || cbytes > iend - ip) return kLayout;
         if (cbytes == neblock) {
             std::memcpy(out, ip, (size_t)neblock);
-        } else if (lz4_decode(ip, cbytes, out, neblock) != neblock) {
+        } else if (!decode_stream(format, ip, cbytes, out, neblock)) {
             return kCorrupt;
         }
         ip += cbytes;
         out += neblock;
     }
     if (shuffled) unshuffle(f.ts, bsize, tmp.data(), dst + b * f.blocksize);
+    if (bitshuffled)
+        bitunshuffle(f.ts, bsize, tmp.data(), dst + b * f.blocksize);
     return kOk;
 }
 
@@ -473,6 +662,54 @@ int zc_blosc_encode(int64_t n, const uint8_t* const* src,
         out_len[i] = pos;
     });
     return kOk;
+}
+
+// Decode zstd frame i (src[i], src_len[i] bytes) into dst[i], which must
+// hold exactly its decoded size (dst_len[i]); one job per frame.  status[i]
+// gets 0, kSize (the frame declares another size), kCorrupt or kLibrary;
+// returns the first nonzero status.
+int zc_zstd_decode(int64_t n, const uint8_t* const* src,
+                   const int64_t* src_len, uint8_t* const* dst,
+                   const int64_t* dst_len, int32_t* status, int n_threads) {
+    run_jobs(n, n_threads, [&](int64_t i) {
+        status[i] = zstd_decode(src[i], src_len[i], dst[i], dst_len[i]);
+    });
+    for (int64_t i = 0; i < n; ++i)
+        if (status[i] != kOk) return status[i];
+    return kOk;
+}
+
+// The decoded size the zstd frame at src declares: -1 if it declares none,
+// -2 if it is not a zstd frame, kLibrary without libzstd.so.1.
+int64_t zc_zstd_content_size(const uint8_t* src, int64_t len) {
+    const Libraries& l = libraries();
+    if (!l.zstd_decompress) return kLibrary;
+    const unsigned long long s = l.zstd_content_size(src, (size_t)len);
+    return s == kZstdUnknown ? -1 : s == kZstdError ? -2 : (int64_t)s;
+}
+
+// CRC-32C (Castagnoli, reflected polynomial 0x82F63B78) of n bytes, as the
+// zarr v3 crc32c codec stores it.
+uint32_t zc_crc32c(const uint8_t* p, int64_t n) {
+    static const auto table = [] {
+        std::vector<uint32_t> t(256);
+        for (uint32_t i = 0; i < 256; ++i) {
+            uint32_t c = i;
+            for (int k = 0; k < 8; ++k)
+                c = (c >> 1) ^ (0x82F63B78u & (0u - (c & 1)));
+            t[i] = c;
+        }
+        return t;
+    }();
+    uint32_t c = ~0u;
+    for (int64_t i = 0; i < n; ++i) c = table[(c ^ p[i]) & 255] ^ (c >> 8);
+    return ~c;
+}
+
+// Bit 0: libz.so.1 loads here; bit 1: libzstd.so.1 does.
+int zc_libraries() {
+    const Libraries& l = libraries();
+    return (l.uncompress ? 1 : 0) | (l.zstd_decompress ? 2 : 0);
 }
 
 }  // extern "C"

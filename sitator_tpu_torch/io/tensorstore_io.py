@@ -18,10 +18,14 @@ positions), restoring the full reader contract on open.
 
 Local stores (a directory, or a tensorstore spec dict whose kvstore is
 ``file``) are read and written by :mod:`sitator_tpu_torch.io.zarr_store`
-(zarr v2 / v3 / n5 metadata, the native Blosc/LZ4 codec): the metadata is
-what ``tensorstore`` writes, and either package reads the other's stores.
-``tensorstore`` itself is imported only to open a spec dict on another
-kvstore (``gcs``, ``s3``, ``memory``), where it is installed.
+(zarr v2 / v3 / n5 metadata, every codec ``tensorstore`` writes): the
+metadata is what ``tensorstore`` writes, and either package reads the
+other's stores.  ``tensorstore`` itself is imported only to open a spec
+dict on another kvstore (``gcs``, ``s3``, ``memory``), and, as the last
+resort, a local store whose layout the port cannot decode here (a codec
+whose library does not load, one no reader here implements): where it does
+not import, such a store raises ``ValueError`` naming the codec when it is
+opened.
 """
 from __future__ import annotations
 
@@ -30,8 +34,8 @@ import os
 import numpy as np
 
 from sitator_tpu_torch.io.formats import TrajectoryReader, open_trajectory
-from sitator_tpu_torch.io.zarr_store import ZarrArray, ZarrWriter, \
-    store_format
+from sitator_tpu_torch.io.zarr_store import UnsupportedLayout, ZarrArray, \
+    ZarrWriter, store_format
 
 __all__ = ["TensorstoreTrajectory", "convert_to_zarr"]
 
@@ -122,8 +126,12 @@ class TensorstoreTrajectory(TrajectoryReader):
             local = driver, p
         if local is not None:
             self._path = local[1]
-            self._a = ZarrArray(local[1], local[0])
-            shape = self._a.shape
+            try:
+                self._a = ZarrArray(local[1], local[0])
+                shape = self._a.shape
+            except UnsupportedLayout as e:
+                self._ts = self._last_resort(e, *local)
+                shape = tuple(self._ts.shape)
         if len(shape) != 3 or shape[2] != 3:
             raise ValueError(
                 f"trajectory store must be (F, A, 3); got {shape}")
@@ -131,6 +139,18 @@ class TensorstoreTrajectory(TrajectoryReader):
         if structure is None and self._path is not None:
             structure = _load_sidecar(self._path)
         self.structure = structure
+
+    @staticmethod
+    def _last_resort(err, driver, path):
+        """The local store the port cannot decode (``err`` says why),
+        opened through ``tensorstore``; ``ValueError`` without it."""
+        try:
+            tensorstore = _ts()
+        except ImportError:
+            raise ValueError(f"{err}; tensorstore, which would read it, is "
+                             "not installed") from None
+        return tensorstore.open({"driver": driver, "kvstore": {
+            "driver": "file", "path": path}}, read=True, write=False).result()
 
     def __len__(self):
         return int(self._shape[0])

@@ -1,27 +1,54 @@
-"""Zarr v2 / zarr v3 / n5 arrays in local directories (host NumPy and the
-native Blosc codec; no zarr library).
+"""Zarr v2 / zarr v3 / n5 arrays in local directories (host NumPy, the
+native codec and the standard library; no zarr library).
 
-:class:`ZarrArray` reads the three layouts ``tensorstore``'s ``zarr``,
-``zarr3`` and ``n5`` drivers keep on a ``file`` kvstore:
+:class:`ZarrArray` reads every layout ``tensorstore``'s ``zarr``, ``zarr3``
+and ``n5`` drivers write on a ``file`` kvstore, for integer, unsigned,
+float and bool data:
 
 - zarr v2: ``.zarray`` (``dtype``, ``chunks``, ``order`` C or F,
-  ``dimension_separator``, ``fill_value``); compressor ``null``, ``blosc``
-  (LZ4, byte shuffle or none), ``zlib`` or ``gzip``; no filters.
+  ``dimension_separator``, ``fill_value``); compressor ``null``, ``zlib``,
+  ``gzip``, ``bz2``, ``zstd`` or ``blosc`` (``cname`` blosclz, lz4, lz4hc,
+  zlib or zstd; ``shuffle`` -1, 0, 1 or 2); no filters.
 - zarr v3: ``zarr.json`` (regular chunk grid, the ``default`` and ``v2``
-  chunk key encodings); the ``bytes`` codec (either endian), then
-  optionally ``gzip`` or ``blosc``.  Sharding and any other codec raise a
-  ``ValueError`` naming it.
+  chunk key encodings); codecs ``transpose`` (any order), then ``bytes``
+  (either endian) or ``sharding_indexed`` (its inner codecs go through this
+  same chain, so shards nest; its index codecs are ``bytes``, then
+  optionally ``crc32c``; the index at the start or the end of the shard),
+  then any of ``gzip``, ``blosc`` (any ``cname`` above; ``noshuffle``,
+  ``shuffle`` or ``bitshuffle``), ``zstd`` (with or without checksum) and
+  ``crc32c`` (verified: a mismatch raises, naming the chunk).
 - n5: ``attributes.json``; each block a big-endian header (mode,
   dimensions, the block's own extent) over data in column-major order,
-  big-endian; compression ``raw``, ``gzip`` (either container) or
-  ``blosc``.
+  big-endian; compression ``raw``, ``gzip`` (either container), ``bzip2``,
+  ``xz``, ``zstd`` or ``blosc``.
+
+Each format's metadata becomes one chain of codecs in encode order (array
+-> array ``transpose``; one array -> bytes codec, ``bytes`` or
+``sharding_indexed``; bytes -> bytes codecs), and every chunk decodes
+through it: zarr v2's ``order`` F is a transpose and its compressor the one
+bytes codec; an n5 block is its header, then the column-major transpose and
+``compression``.
 
 ``read(lo, hi)`` returns the frames ``[lo, hi)`` of the leading axis:
-chunk files are read on a pool of threads and the Blosc chunks among them
-decoded together by ``zarrcodec.cpp`` (every block of every chunk one job
-on 8 threads); a chunk that lies wholly inside the range in the output's
-own layout is decoded (or, uncompressed, read) straight into the output.
-A chunk file that does not exist reads as the fill value.
+chunk files are read on a pool of threads; the Blosc frames among them are
+decoded together by one native call (every block of every frame one job on
+8 threads), and so are the zstd frames (one job each); gzip, bz2 and xz
+chunks decode on the pool.  A chunk that lies wholly inside the range in
+the output's own layout is decoded (or, uncompressed, read) straight into
+the output.  A chunk file that does not exist, and an inner chunk that its
+shard's index marks absent, read as the fill value.  In a sharded array the
+unit of a read is the inner chunk: a read reads each shard's index once,
+then only the byte ranges of the inner chunks it needs.
+
+Libraries: the native codec ``io/native/zarrcodec.cpp`` (built with ``g++``
+with the text decoders) decodes Blosc frames (BloscLZ and LZ4 itself, zlib
+and zstd through ``libz.so.1`` and ``libzstd.so.1``, loaded at first use),
+standalone zstd frames (``libzstd.so.1``) and crc32c; Python's ``zlib``,
+``bz2`` and ``lzma`` decode gzip/zlib, bz2 and xz.  A layout this reader
+does not decode, or a codec whose library is not usable here, raises
+:class:`UnsupportedLayout` (a ``ValueError`` naming it) when the array is
+opened, never part way through a read; there is no Python fallback for the
+native codec.
 
 :class:`ZarrWriter` writes what :func:`zarr_metadata` describes — the
 metadata ``tensorstore`` writes for ``convert_to_zarr`` (zarr v2 with the
@@ -29,15 +56,11 @@ blosc/LZ4 compressor, or zarr v3 with the raw ``bytes`` codec), as the same
 JSON — in chunks of whole leading-axis slabs, an edge chunk at the full
 chunk size.  The Blosc frames the native encoder writes may differ from
 another encoder's bytes; they decode to the same arrays.
-
-The codec is ``io/native/zarrcodec.cpp``, built with ``g++`` with the text
-decoders; where it cannot be built a Blosc chunk raises (there is no
-Python fallback).  ``zlib`` and ``gzip`` chunks go through Python's
-``zlib``.
 """
 from __future__ import annotations
 
 import ctypes
+import importlib
 import json
 import math
 import os
@@ -49,21 +72,49 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 __all__ = ["ZarrArray", "ZarrWriter", "zarr_metadata", "store_format",
-           "blosc_decode", "blosc_encode"]
+           "UnsupportedLayout", "codec_libraries", "blosc_decode",
+           "blosc_encode", "zstd_decode", "crc32c"]
 
 N_THREADS = min(8, os.cpu_count() or 1)
 
 BLOSC_COMPRESSORS = {0: "blosclz", 1: "lz4", 2: "snappy", 3: "zlib",
                      4: "zstd"}
+# the Blosc cnames this reader decodes, each with the library it loads
+BLOSC_CNAMES = {"blosclz": None, "lz4": None, "lz4hc": None,
+                "zlib": "libz.so.1", "zstd": "libzstd.so.1"}
+_STREAM = {"blosclz": "BloscLZ", "lz4": "LZ4", "zlib": "zlib",
+           "zstd": "zstd"}
 _STATUS = {-1: "truncated Blosc frame",
            -2: "unsupported Blosc frame version",
            -5: "Blosc frame of another size than the chunk",
-           -6: "corrupt LZ4 stream in a Blosc frame",
            -7: "malformed Blosc frame"}
 _METADATA = {"zarr": ".zarray", "zarr3": "zarr.json", "n5": "attributes.json"}
+# each format's bytes -> bytes codecs: its name -> the codec
+_BYTES_CODECS = {
+    "zarr": {"zlib": "gzip", "gzip": "gzip", "bz2": "bz2", "zstd": "zstd",
+             "blosc": "blosc"},
+    "zarr3": {"gzip": "gzip", "blosc": "blosc", "zstd": "zstd",
+              "crc32c": "crc32c"},
+    "n5": {"gzip": "gzip", "bzip2": "bz2", "xz": "xz", "zstd": "zstd",
+           "blosc": "blosc"}}
+# what each codec needs at run time besides numpy
+_NEEDS = {"gzip": (), "bz2": ("bz2",), "xz": ("lzma",),
+          "zstd": ("zarrcodec", "libzstd.so.1"), "crc32c": ("zarrcodec",),
+          "blosc": ("zarrcodec",)}
+LIBRARIES = {"zarrcodec": "the native codec (io/native/zarrcodec.cpp, "
+                          "built with g++)",
+             "libz.so.1": "libz.so.1", "libzstd.so.1": "libzstd.so.1",
+             "bz2": "Python's bz2 module", "lzma": "Python's lzma module"}
+_ABSENT = 2 ** 64 - 1             # a shard index entry of an absent chunk
 
 _pool = None
 _pool_lock = threading.Lock()
+
+
+class UnsupportedLayout(ValueError):
+    """A store layout or codec this reader does not decode here: one it
+    does not implement, or one whose library is not usable.  Raised when
+    the array is opened."""
 
 
 def _io_pool():
@@ -73,6 +124,13 @@ def _io_pool():
             _pool = ThreadPoolExecutor(N_THREADS,
                                        thread_name_prefix="zarr-io")
         return _pool
+
+
+def _map(fn, *items):
+    """``fn`` over the items, on the I/O pool where there are several."""
+    if len(items[0]) < 2:
+        return list(map(fn, *items))
+    return list(_io_pool().map(fn, *items))
 
 
 def store_format(path):
@@ -85,15 +143,39 @@ def store_format(path):
 
 
 # ------------------------------------------------------------------ codec
-def _codec():
+def _native():
     from sitator_tpu_torch.io import native
-    lib = native.get_lib()
+    return native.get_lib()
+
+
+def _codec():
+    lib = _native()
     if lib is None:
         raise RuntimeError(
-            "Blosc-compressed zarr chunks need the native codec "
+            "Blosc, zstd and crc32c need the native codec "
             "(sitator_tpu_torch/io/native/zarrcodec.cpp), which is built "
             "with g++ at first use; g++ is not usable here")
     return lib
+
+
+def library_usable(name):
+    """Whether the library ``name`` (a key of :data:`LIBRARIES`) is usable
+    here."""
+    if name in ("bz2", "lzma"):
+        try:
+            importlib.import_module(name)
+        except ImportError:
+            return False
+        return True
+    lib = _native()
+    if lib is None or name == "zarrcodec":
+        return lib is not None
+    return bool(lib.zc_libraries() & {"libz.so.1": 1, "libzstd.so.1": 2}[name])
+
+
+def codec_libraries():
+    """``{library: usable here}`` for every library a codec may need."""
+    return {name: library_usable(name) for name in LIBRARIES}
 
 
 def _ptrs(arrays):
@@ -102,38 +184,76 @@ def _ptrs(arrays):
 
 
 def _frame_error(frame, status):
+    code = (int(frame[2]) >> 5) & 7 if frame.size > 2 else None
+    name = BLOSC_COMPRESSORS.get(code, f"code {code}")
     if status == -3:
-        code = (int(frame[2]) >> 5) & 7
         return ValueError(
-            "Blosc compressor "
-            f"{BLOSC_COMPRESSORS.get(code, f'code {code}')!r} is not "
-            "supported (the codec decodes LZ4 frames)")
-    if status == -4:
-        return ValueError("Blosc bitshuffle is not supported (the codec "
-                          "undoes byte shuffle)")
+            f"Blosc compressor {name!r} is not supported (the codec "
+            "decodes blosclz, lz4, lz4hc, zlib and zstd frames)")
+    if status == -6:
+        return ValueError(f"corrupt {_STREAM.get(name, name)} stream in a "
+                          "Blosc frame")
+    if status == -8:
+        return ValueError(f"a Blosc frame compressed with {name!r} needs "
+                          f"{BLOSC_CNAMES[name]}, which does not load here")
     return ValueError(_STATUS.get(status, f"Blosc status {status}"))
 
 
-def blosc_decode(frames, outs):
+def _batch(fn, frames, outs):
+    """One native batch call over (frame, out) pairs: the status of each."""
+    n = len(frames)
+    status = np.zeros(n, np.int32)
+    fn(n, _ptrs(frames), (ctypes.c_int64 * n)(*[f.size for f in frames]),
+       _ptrs(outs), (ctypes.c_int64 * n)(*[o.size for o in outs]),
+       status.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), N_THREADS)
+    return status
+
+
+def _uint8(arrays):
+    return [np.ascontiguousarray(a, dtype=np.uint8).reshape(-1)
+            for a in arrays]
+
+
+def blosc_decode(frames, outs, labels=None):
     """Decode each Blosc frame (a uint8 array) into the matching writable
     C-contiguous array of ``outs``, whose size must be the frame's decoded
     size.  All frames in one native call on :data:`N_THREADS` threads;
-    raises ``ValueError`` naming the first frame's fault."""
+    raises ``ValueError`` naming the first frame's fault (and its label,
+    where ``labels`` gives one per frame)."""
     if not frames:
         return
-    lib = _codec()
-    n = len(frames)
-    src = [np.ascontiguousarray(f, dtype=np.uint8).reshape(-1)
-           for f in frames]
-    dst = [o.reshape(-1).view(np.uint8) for o in outs]
-    status = np.zeros(n, np.int32)
-    rc = lib.zc_blosc_decode(
-        n, _ptrs(src), (ctypes.c_int64 * n)(*[s.size for s in src]),
-        _ptrs(dst), (ctypes.c_int64 * n)(*[d.size for d in dst]),
-        status.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), N_THREADS)
-    if rc != 0:
+    src = _uint8(frames)
+    status = _batch(_codec().zc_blosc_decode, src,
+                    [o.reshape(-1).view(np.uint8) for o in outs])
+    if status.any():
         i = int(np.flatnonzero(status)[0])
-        raise _frame_error(src[i], int(status[i]))
+        err = _frame_error(src[i], int(status[i]))
+        raise ValueError(f"{labels[i]}: {err}") if labels else err
+
+
+def zstd_decode(frames, outs, labels=None):
+    """Decode each zstd frame into the matching writable C-contiguous
+    array of ``outs``, whose size must be the frame's decoded size; one
+    native call, a frame a job on :data:`N_THREADS` threads."""
+    if not frames:
+        return
+    src = _uint8(frames)
+    status = _batch(_codec().zc_zstd_decode, src,
+                    [o.reshape(-1).view(np.uint8) for o in outs])
+    if status.any():
+        i = int(np.flatnonzero(status)[0])
+        err = {-5: "a zstd frame of another size than the chunk",
+               -6: "corrupt zstd frame",
+               -8: "zstd needs libzstd.so.1, which does not load here"}.get(
+            int(status[i]), f"zstd status {status[i]}")
+        raise ValueError(f"{labels[i]}: {err}" if labels else err)
+
+
+def crc32c(data):
+    """CRC-32C (Castagnoli) of a bytes-like object or uint8 array."""
+    buf = (np.ascontiguousarray(data).reshape(-1).view(np.uint8)
+           if isinstance(data, np.ndarray) else np.frombuffer(data, np.uint8))
+    return int(_codec().zc_crc32c(buf.ctypes.data, buf.size))
 
 
 def blosc_encode(arrays, clevel=5, shuffle=True):
@@ -158,13 +278,202 @@ def blosc_encode(arrays, clevel=5, shuffle=True):
     return [d[:int(k)].tobytes() for d, k in zip(dst, out_len)]
 
 
+# ------------------------------------------------------------- codec chain
+def _stated_size(name, data, label):
+    """The decoded size a Blosc or zstd frame states in its header."""
+    if name == "blosc":
+        return int(data[4:8].view("<u4")[0]) if data.size >= 16 else 0
+    size = int(_codec().zc_zstd_content_size(data.ctypes.data, data.size))
+    if size < 0:
+        raise ValueError(f"{label}: a zstd frame that states no decoded "
+                         "size, inside a chain of codecs")
+    return size
+
+
+def _check_crc32c(data, label):
+    if data.size < 4:
+        raise ValueError(f"{label}: {data.size} bytes cannot hold a crc32c")
+    want = int(data[-4:].view("<u4")[0])
+    got = crc32c(data[:-4])
+    if got != want:
+        raise ValueError(f"{label}: crc32c mismatch (stored {want:#010x}, "
+                         f"computed {got:#010x})")
+    return data[:-4]
+
+
+def _inflate(name):
+    if name == "gzip":
+        return lambda d: zlib.decompress(d, 47), zlib.error
+    if name == "bz2":
+        import bz2
+        return bz2.decompress, OSError
+    import lzma
+    return lzma.decompress, lzma.LZMAError
+
+
+def _decode_bytes(name, datas, sizes, outs, labels):
+    """One bytes -> bytes codec undone over a batch: ``datas`` (uint8
+    arrays), the decoded size of each (None: not known ahead), an array to
+    decode into (or None) each.  Returns the decoded uint8 arrays."""
+    outs = [None if o is None else o.reshape(-1).view(np.uint8)
+            for o in outs]
+    if name == "crc32c":
+        got = _map(_check_crc32c, datas, labels)
+    elif name in ("blosc", "zstd"):
+        outs = [o if o is not None else
+                np.empty(s if s is not None else
+                         _stated_size(name, d, label), np.uint8)
+                for d, s, o, label in zip(datas, sizes, outs, labels)]
+        (blosc_decode if name == "blosc" else zstd_decode)(
+            datas, outs, labels)
+        return outs
+    else:
+        fn, error = _inflate(name)
+
+        def one(d, label):
+            try:
+                return np.frombuffer(fn(memoryview(d)), np.uint8)
+            except (error, EOFError, ValueError) as e:
+                raise ValueError(f"{label}: corrupt {name} data ({e})") \
+                    from None
+        got = _map(one, datas, labels)
+    for i, (g, s, o, label) in enumerate(zip(got, sizes, outs, labels)):
+        if s is not None and g.size != s:
+            raise ValueError(f"{label}: {g.size} bytes where the chunk has "
+                             f"{s}")
+        if o is not None:
+            o[:] = g
+            got[i] = o
+    return got
+
+
+class _Chain:
+    """The codecs of an array, or of a shard's inner chunks, in encode
+    order: the permutations of its ``transpose`` codecs (``aa``), one array
+    -> bytes codec (``ab``: the stored dtype for ``bytes``, or a
+    :class:`_Shard`) and its bytes -> bytes codecs (``bb``: (codec,
+    configuration) pairs)."""
+
+    def __init__(self, aa, ab, bb):
+        self.aa, self.ab, self.bb = aa, ab, bb
+
+    def needs(self):
+        """(codec, library) of every library the chain's codecs load."""
+        for name, cfg in self.bb:
+            for lib in _NEEDS[name]:
+                yield name, lib
+            if name == "blosc" and BLOSC_CNAMES[cfg.get("cname", "lz4")]:
+                yield f"blosc/{cfg['cname']}", BLOSC_CNAMES[cfg["cname"]]
+        if isinstance(self.ab, _Shard):
+            yield from self.ab.inner.needs()
+            yield from self.ab.index.needs()
+
+    def direct(self, dtype):
+        """Whether a chunk decodes straight into a C-ordered array of
+        ``dtype``."""
+        return (not self.aa and isinstance(self.ab, np.dtype)
+                and self.ab == np.dtype(dtype))
+
+    def decode(self, blobs, shapes, labels, outs=None):
+        """Each blob (uint8) decoded to an array of its shape.  Where
+        ``outs`` gives an array (the chain :meth:`direct` for its dtype,
+        with bytes -> bytes codecs) the chunk is decoded into it."""
+        n = len(blobs)
+        outs = outs or [None] * n
+        eshapes = []
+        for shape in shapes:
+            for order in self.aa:
+                shape = tuple(shape[o] for o in order)
+            eshapes.append(tuple(shape))
+        shard = isinstance(self.ab, _Shard)
+        data = list(blobs)
+        for k, (name, _) in enumerate(reversed(self.bb)):
+            last = k == len(self.bb) - 1
+            sizes = [None if shard or not last else
+                     math.prod(e) * self.ab.itemsize for e in eshapes]
+            data = _decode_bytes(name, data, sizes,
+                                 outs if last else [None] * n, labels)
+        if shard:
+            arrays = [self.ab.decode(d, e, label)
+                      for d, e, label in zip(data, eshapes, labels)]
+        else:
+            arrays = []
+            for d, e, label in zip(data, eshapes, labels):
+                if d.size != math.prod(e) * self.ab.itemsize:
+                    raise ValueError(f"{label}: {d.size} bytes for a chunk "
+                                     f"of {e} {self.ab}")
+                arrays.append(d.view(self.ab).reshape(e))
+        for order in reversed(self.aa):
+            inverse = tuple(int(i) for i in np.argsort(order))
+            arrays = [a.transpose(inverse) for a in arrays]
+        return arrays
+
+
+class _Shard:
+    """A ``sharding_indexed`` codec: a shard of ``shape`` holds inner
+    chunks of ``chunk_shape`` (a grid ``grid``), each encoded by the chain
+    ``inner``; its index, one (offset, size) uint64 pair per inner chunk in
+    C order, is encoded by the chain ``index`` at the ``start`` or end of
+    the shard."""
+
+    def __init__(self, shape, chunk_shape, inner, index, at_start, dtype,
+                 fill_value):
+        self.chunk_shape = tuple(int(c) for c in chunk_shape)
+        self.grid = tuple(s // c for s, c in zip(shape, self.chunk_shape))
+        self.inner, self.index, self.at_start = inner, index, at_start
+        self.dtype, self.fill_value = dtype, fill_value
+        self.index_nbytes = 16 * math.prod(self.grid) + 4 * sum(
+            name == "crc32c" for name, _ in index.bb)
+
+    def entries(self, raws, labels):
+        """The index of each shard (its raw index bytes) as (n, 2)."""
+        got = self.index.decode(raws, [(*self.grid, 2)] * len(raws), labels)
+        return [e.reshape(-1, 2) for e in got]
+
+    @staticmethod
+    def locate(entries, k, size, label):
+        """(offset, size) of inner chunk ``k`` in a shard of ``size``
+        bytes, None if the index marks it absent."""
+        off, nbytes = (int(x) for x in entries[k])
+        if off == nbytes == _ABSENT:
+            return None
+        if off + nbytes > size:
+            raise ValueError(f"{label}: inner chunk {k} at bytes [{off}, "
+                             f"{off + nbytes}) lies past the end of the "
+                             f"{size}-byte shard")
+        return off, nbytes
+
+    def decode(self, blob, shape, label):
+        """A whole shard (nested in another's inner chunk) from its
+        bytes."""
+        m = self.index_nbytes
+        if blob.size < m:
+            raise ValueError(f"{label}: a shard of {blob.size} bytes cannot "
+                             f"hold its {m}-byte index")
+        raw = blob[:m] if self.at_start else blob[blob.size - m:]
+        entries = self.entries([raw], [f"{label} (shard index)"])[0]
+        out = np.full(shape, self.fill_value, self.dtype)
+        where = [(k, self.locate(entries, k, blob.size, label))
+                 for k in range(len(entries))]
+        where = [(k, loc) for k, loc in where if loc is not None]
+        arrays = self.inner.decode(
+            [blob[o:o + n] for _, (o, n) in where],
+            [self.chunk_shape] * len(where),
+            [f"{label} inner chunk {k}" for k, _ in where])
+        for (k, _), a in zip(where, arrays):
+            pos = np.unravel_index(k, self.grid)
+            out[tuple(slice(p * c, (p + 1) * c)
+                      for p, c in zip(pos, self.chunk_shape))] = a
+        return out
+
+
 # ---------------------------------------------------------------- metadata
 def _v3_fill(value, dtype):
     if isinstance(value, str):
         special = {"NaN": np.nan, "Infinity": np.inf, "-Infinity": -np.inf}
         if value not in special:
-            raise ValueError(f"zarr v3 fill_value {value!r} is not "
-                             "supported")
+            raise UnsupportedLayout(f"zarr v3 fill_value {value!r} is not "
+                                    "supported")
         value = special[value]
     return dtype.type(value)
 
@@ -173,19 +482,32 @@ def _dtype(name, where):
     try:
         dt = np.dtype(name)
     except TypeError:
-        raise ValueError(f"{where} data type {name!r} is not supported") \
-            from None
+        raise UnsupportedLayout(f"{where} data type {name!r} is not "
+                                "supported") from None
     if dt.kind not in "fiub":
-        raise ValueError(f"{where} data type {name!r} is not supported")
+        raise UnsupportedLayout(f"{where} data type {name!r} is not "
+                                "supported")
     return dt
+
+
+def _transpose_order(order, ndim):
+    if order in ("C", "F"):
+        return tuple(range(ndim))[::-1 if order == "F" else 1]
+    order = tuple(int(o) for o in order)
+    if sorted(order) != list(range(ndim)):
+        raise UnsupportedLayout(f"zarr v3 transpose order {list(order)} is "
+                                f"not a permutation of {ndim} axes")
+    return order
 
 
 class ZarrArray:
     """A zarr v2, zarr v3 or n5 array in the directory ``path``.
 
     Attributes: ``format`` (``'zarr'``, ``'zarr3'``, ``'n5'``), ``shape``,
-    ``chunks``, ``dtype`` (as stored, with its byte order), ``fill_value``,
-    ``metadata`` (the parsed metadata file).
+    ``chunks`` (of the chunk grid: a shard, in a sharded array), ``grid``,
+    ``dtype`` (as stored, with its byte order), ``fill_value``,
+    ``metadata`` (the parsed metadata file).  Raises
+    :class:`UnsupportedLayout` for a layout it does not decode here.
     """
 
     def __init__(self, path, fmt=None):
@@ -196,40 +518,49 @@ class ZarrArray:
                              "store")
         with open(os.path.join(self.path, _METADATA[self.format])) as f:
             self.metadata = m = json.load(f)
-        self._compressor = None       # (name, config) of bytes -> bytes
-        self._fortran = False
         self._cache_lock = threading.Lock()
-        self._cache = None            # (chunk index, decoded chunk)
+        self._cache = None            # (unit index, decoded unit)
         getattr(self, f"_parse_{self.format}")(m)
-        self.shape = tuple(int(s) for s in self.shape)
-        self.chunks = tuple(int(c) for c in self.chunks)
-        if len(self.chunks) != len(self.shape) or min(self.chunks,
-                                                      default=1) < 1:
+        self.ndim = len(self.shape)
+        if len(self.chunks) != self.ndim or min(self.chunks, default=1) < 1:
             raise ValueError(f"{self.path}: chunk shape {self.chunks} does "
                              f"not fit the array shape {self.shape}")
-        self.ndim = len(self.shape)
         self.grid = tuple(math.ceil(s / c) if s else 0
                           for s, c in zip(self.shape, self.chunks))
+        for codec, lib in self._chain.needs():
+            if not library_usable(lib):
+                raise UnsupportedLayout(
+                    f"{self.path}: the {self.format} codec {codec!r} needs "
+                    f"{LIBRARIES[lib]}, which is not usable here")
+        # the unit of a read: a sharded array's inner chunk, when the
+        # shard is the chain's only codec; else the chunk
+        ab = self._chain.ab
+        self._shard = ab if (isinstance(ab, _Shard) and not self._chain.aa
+                             and not self._chain.bb) else None
+        self._unit = self._shard.chunk_shape if self._shard else self.chunks
+        self._unit_chain = self._shard.inner if self._shard else self._chain
+        self._unit_grid = tuple(math.ceil(s / c) if s else 0
+                                for s, c in zip(self.shape, self._unit))
 
     # -- metadata of each format
     def _parse_zarr(self, m):
         if m.get("zarr_format") != 2:
             raise ValueError(f"{self.path}: .zarray zarr_format "
                              f"{m.get('zarr_format')!r}")
-        self.shape, self.chunks = m["shape"], m["chunks"]
+        self._set_shape(m["shape"], m["chunks"])
         self.dtype = _dtype(m["dtype"], "zarr v2")
         if m.get("filters"):
-            raise ValueError("zarr v2 filters are not supported: "
-                             + ", ".join(repr(f.get("id")) for f in
-                                         m["filters"]))
+            raise UnsupportedLayout(
+                "zarr v2 filters are not supported: " + ", ".join(
+                    repr(f.get("id")) for f in m["filters"]))
         comp = m.get("compressor")
-        if comp is not None:
-            self._compressor = self._bytes_codec(comp.get("id"), comp,
-                                                 "zarr v2 compressor")
+        bb = [] if comp is None else [self._bytes_codec(
+            comp.get("id"), comp, "zarr v2 compressor")]
         order = m.get("order", "C")
         if order not in ("C", "F"):
-            raise ValueError(f"zarr v2 order {order!r}")
-        self._fortran = order == "F"
+            raise UnsupportedLayout(f"zarr v2 order {order!r}")
+        self._chain = _Chain([_transpose_order("F", len(self.shape))]
+                             if order == "F" else [], self.dtype, bb)
         fill = m.get("fill_value")
         self.fill_value = self.dtype.type(0 if fill is None else (
             {"NaN": np.nan, "Infinity": np.inf,
@@ -241,34 +572,22 @@ class ZarrArray:
         if m.get("zarr_format") != 3 or m.get("node_type") != "array":
             raise ValueError(f"{self.path}: zarr.json is not a zarr v3 "
                              "array")
-        self.shape = m["shape"]
         grid = m["chunk_grid"]
         if grid.get("name") != "regular":
-            raise ValueError(f"zarr v3 chunk grid {grid.get('name')!r} is "
-                             "not supported")
-        self.chunks = grid["configuration"]["chunk_shape"]
+            raise UnsupportedLayout(f"zarr v3 chunk grid {grid.get('name')!r}"
+                                    " is not supported (regular is)")
+        self._set_shape(m["shape"], grid["configuration"]["chunk_shape"])
         if m.get("storage_transformers"):
-            raise ValueError("zarr v3 storage transformers are not "
-                             "supported")
-        self.dtype = _dtype(m["data_type"], "zarr v3")
-        codecs = list(m["codecs"])
-        first = codecs.pop(0) if codecs else {}
-        if first.get("name") != "bytes":
-            raise ValueError(f"zarr v3 codec {first.get('name')!r} is not "
-                             "supported (the store reads bytes, then gzip "
-                             "or blosc)")
-        endian = (first.get("configuration") or {}).get("endian", "little")
-        self.dtype = self.dtype.newbyteorder("<" if endian == "little"
-                                             else ">")
-        if len(codecs) > 1:
-            raise ValueError("zarr v3 codecs after bytes: "
-                             + ", ".join(repr(c.get("name")) for c in codecs)
-                             + " (one of gzip, blosc is supported)")
-        if codecs:
-            c = codecs[0]
-            self._compressor = self._bytes_codec(
-                c.get("name"), c.get("configuration") or {}, "zarr v3 codec")
-        self.fill_value = _v3_fill(m.get("fill_value", 0), self.dtype)
+            raise UnsupportedLayout(
+                "zarr v3 storage transformers are not supported: " + ", ".join(
+                    repr(t.get("name")) for t in m["storage_transformers"]))
+        dtype = _dtype(m["data_type"], "zarr v3")
+        self.fill_value = _v3_fill(m.get("fill_value", 0), dtype)
+        self._chain = self._v3_chain(m["codecs"], self.chunks, dtype)
+        ab = self._chain.ab
+        while isinstance(ab, _Shard):
+            ab = ab.inner.ab
+        self.dtype = ab               # the innermost bytes codec's order
         enc = m.get("chunk_key_encoding", {"name": "default"})
         sep = (enc.get("configuration") or {}).get(
             "separator", "/" if enc.get("name") == "default" else ".")
@@ -277,47 +596,106 @@ class ZarrArray:
         elif enc.get("name") == "v2":
             self._key = lambda idx: sep.join(map(str, idx)) if idx else "0"
         else:
-            raise ValueError(f"zarr v3 chunk key encoding "
-                             f"{enc.get('name')!r} is not supported")
+            raise UnsupportedLayout(f"zarr v3 chunk key encoding "
+                                    f"{enc.get('name')!r} is not supported")
+
+    def _v3_chain(self, codecs, shape, dtype):
+        """The chain of a zarr v3 codec list for chunks of ``shape``."""
+        aa, ab, bb = [], None, []
+        for c in codecs:
+            name, cfg = c.get("name"), c.get("configuration") or {}
+            if ab is not None:
+                bb.append(self._bytes_codec(name, cfg, "zarr v3 codec"))
+            elif name == "transpose":
+                aa.append(_transpose_order(cfg.get("order"), len(shape)))
+                shape = tuple(shape[o] for o in aa[-1])
+            elif name == "bytes":
+                ab = dtype.newbyteorder(
+                    ">" if cfg.get("endian", "little") == "big" else "<")
+            elif name == "sharding_indexed":
+                ab = self._sharding(cfg, shape, dtype)
+            else:
+                raise UnsupportedLayout(
+                    f"zarr v3 codec {name!r} is not supported (transpose, "
+                    "then bytes or sharding_indexed, then gzip, blosc, zstd "
+                    "or crc32c are)")
+        if ab is None:
+            raise UnsupportedLayout("zarr v3 codecs without bytes or "
+                                    "sharding_indexed are not supported")
+        return _Chain(aa, ab, bb)
+
+    def _sharding(self, cfg, shape, dtype):
+        inner_shape = tuple(int(c) for c in cfg["chunk_shape"])
+        if len(inner_shape) != len(shape) or min(inner_shape) < 1 or any(
+                s % c for s, c in zip(shape, inner_shape)):
+            raise UnsupportedLayout(
+                f"zarr v3 sharding_indexed chunk_shape {list(inner_shape)} "
+                f"does not divide the shard {list(shape)}")
+        grid = tuple(s // c for s, c in zip(shape, inner_shape))
+        index = self._v3_chain(cfg["index_codecs"], (*grid, 2),
+                               np.dtype(np.uint64))
+        if index.aa or isinstance(index.ab, _Shard) or any(
+                name != "crc32c" for name, _ in index.bb):
+            raise UnsupportedLayout(
+                "zarr v3 sharding_indexed index_codecs "
+                f"{[c.get('name') for c in cfg['index_codecs']]} are not "
+                "supported (bytes, then optionally crc32c, are)")
+        location = cfg.get("index_location", "end")
+        if location not in ("start", "end"):
+            raise UnsupportedLayout(f"zarr v3 sharding_indexed "
+                                    f"index_location {location!r}")
+        return _Shard(shape, inner_shape,
+                      self._v3_chain(cfg["codecs"], inner_shape, dtype),
+                      index, location == "start", dtype, self.fill_value)
 
     def _parse_n5(self, m):
-        self.shape, self.chunks = m["dimensions"], m["blockSize"]
+        self._set_shape(m["dimensions"], m["blockSize"])
         self.dtype = _dtype(m["dataType"], "n5").newbyteorder(">")
         comp = m.get("compression", {"type": "raw"})
-        if comp.get("type") != "raw":
-            self._compressor = self._bytes_codec(comp.get("type"), comp,
-                                                 "n5 compression")
-        self._fortran = True
+        bb = [] if comp.get("type") == "raw" else [self._bytes_codec(
+            comp.get("type"), comp, "n5 compression")]
+        self._chain = _Chain([_transpose_order("F", len(self.shape))],
+                             self.dtype, bb)
         self.fill_value = self.dtype.type(0)
         self._key = lambda idx: "/".join(map(str, idx)) if idx else "0"
 
-    @staticmethod
-    def _bytes_codec(name, config, where):
-        if name == "blosc":
-            return "blosc", config
-        if name in ("zlib", "gzip"):
-            return "zlib", config
-        raise ValueError(f"{where} {name!r} is not supported (raw, gzip, "
-                         "zlib and blosc with LZ4 are)")
+    def _set_shape(self, shape, chunks):
+        self.shape = tuple(int(s) for s in shape)
+        self.chunks = tuple(int(c) for c in chunks)
+
+    def _bytes_codec(self, name, config, where):
+        codecs = _BYTES_CODECS[self.format]
+        if name not in codecs:
+            raise UnsupportedLayout(
+                f"{where} {name!r} is not supported (raw, "
+                + ", ".join(codecs) + " are)")
+        cname = config.get("cname", "lz4")
+        if codecs[name] == "blosc" and cname not in BLOSC_CNAMES:
+            raise UnsupportedLayout(
+                f"{where} blosc with the Blosc compressor {cname!r} is not "
+                "supported (" + ", ".join(BLOSC_CNAMES) + " are)")
+        return codecs[name], config
 
     # -- chunks
     def chunk_path(self, idx):
+        """The file of chunk ``idx`` of the chunk grid (a shard's)."""
         return os.path.join(self.path, *self._key(idx).split("/"))
 
-    def _chunk_extent(self, idx):
-        return tuple(min(c, s - i * c)
-                     for i, c, s in zip(idx, self.chunks, self.shape))
-
-    def _read_file(self, path, into=None):
-        """The file's bytes as a uint8 array (None if there is no such
-        file); with ``into`` (a uint8 view of exactly the file's size) read
-        straight into it and return it."""
+    def _read_range(self, path, offset, size, into=None):
+        """``size`` bytes at ``offset`` of the file (offset None: the whole
+        file; None if there is no such file) as a uint8 array; with ``into``
+        (a uint8 view of exactly that size) read straight into it."""
         try:
             f = open(path, "rb")
         except FileNotFoundError:
-            return None
+            if offset is None:
+                return None
+            raise
         with f:
-            size = os.fstat(f.fileno()).st_size
+            if offset is None:
+                size = os.fstat(f.fileno()).st_size
+            else:
+                f.seek(offset)
             buf = into if into is not None and into.size == size else \
                 np.empty(size, np.uint8)
             got = f.readinto(memoryview(buf))
@@ -325,32 +703,69 @@ class ZarrArray:
                 raise OSError(f"{path}: short read ({got} of {size} bytes)")
         return buf
 
-    def _payload(self, raw, idx):
-        """(payload bytes, the chunk's stored extent) of one chunk file: n5
-        blocks carry their extent in a header."""
+    def _read_index(self, shard):
+        """(raw index bytes, file size) of a shard file, None if there is
+        no such file."""
+        path = self.chunk_path(shard)
+        try:
+            f = open(path, "rb")
+        except FileNotFoundError:
+            return None
+        m = self._shard.index_nbytes
+        with f:
+            size = os.fstat(f.fileno()).st_size
+            if size < m:
+                raise ValueError(f"{path}: a shard of {size} bytes cannot "
+                                 f"hold its {m}-byte index")
+            f.seek(0 if self._shard.at_start else size - m)
+            raw = np.frombuffer(f.read(m), np.uint8)
+        return raw, size
+
+    def _locate(self, idxs):
+        """Where each unit's bytes lie: (label, path, offset, size), offset
+        None for the whole file; None for an inner chunk its shard's index
+        marks absent or whose shard file does not exist."""
+        if self._shard is None:
+            return [(p, p, None, None) for p in map(self.chunk_path, idxs)]
+        per = self._shard.grid
+        shard_of = [tuple(i // g for i, g in zip(idx, per)) for idx in idxs]
+        shards = sorted(set(shard_of))
+        found = [(s, r) for s, r in zip(shards, _map(self._read_index,
+                                                      shards))
+                 if r is not None]
+        entries = self._shard.entries(
+            [raw for _, (raw, _) in found],
+            [f"{self.chunk_path(s)} (shard index)" for s, _ in found])
+        index = {s: (e, size) for (s, (_, size)), e in zip(found, entries)}
+        where = []
+        for idx, s in zip(idxs, shard_of):
+            if s not in index:
+                where.append(None)
+                continue
+            path = self.chunk_path(s)
+            k = int(np.ravel_multi_index(
+                tuple(i % g for i, g in zip(idx, per)), per))
+            loc = self._shard.locate(index[s][0], k, index[s][1], path)
+            where.append(None if loc is None else
+                         (f"{path} inner chunk {k}", path, *loc))
+        return where
+
+    def _payload(self, raw, path):
+        """(payload bytes, the unit's stored extent) of one unit: n5 blocks
+        carry their extent in a header."""
         if self.format != "n5":
-            return raw, self.chunks
+            return raw, self._unit
         head = raw[:4].view(">u2")
         mode, nd = int(head[0]), int(head[1])
         if mode not in (0, 1):
-            raise ValueError(f"n5 block mode {mode} is not supported")
+            raise UnsupportedLayout(f"{path}: n5 block mode {mode} is not "
+                                    "supported")
         ext = tuple(int(x) for x in raw[4:4 + 4 * nd].view(">u4"))
         off = 4 + 4 * nd + (4 if mode == 1 else 0)
         if len(ext) != self.ndim:
-            raise ValueError(f"{self.chunk_path(idx)}: block of {len(ext)} "
-                             f"dimensions in a {self.ndim}-d array")
+            raise ValueError(f"{path}: block of {len(ext)} dimensions in a "
+                             f"{self.ndim}-d array")
         return raw[off:], ext
-
-    def _arrange(self, flat, ext):
-        """A chunk's elements (1-d, stored dtype) in the array's order."""
-        if self._fortran:
-            return flat.reshape(ext[::-1]).transpose()
-        return flat.reshape(ext)
-
-    def _plain(self, payload):
-        if self._compressor is None or self._compressor[0] == "blosc":
-            return payload
-        return np.frombuffer(zlib.decompress(payload, 47), np.uint8)
 
     def read(self, lo, hi, dtype=np.float32):
         """Elements ``[lo, hi)`` of the leading axis, every other axis whole,
@@ -359,31 +774,23 @@ class ZarrArray:
         out = np.empty((max(0, hi - lo), *self.shape[1:]), dtype)
         if hi <= lo:
             return out
-        c0 = self.chunks[0]
-        rest = [range(g) for g in self.grid[1:]]
-        idxs = [(i0, *r) for i0 in range(lo // c0, (hi - 1) // c0 + 1)
-                for r in np.ndindex(*[len(x) for x in rest])]
-        # the output's own layout: a chunk wholly inside the range, spanning
+        u0 = self._unit[0]
+        idxs = [(i0, *r) for i0 in range(lo // u0, (hi - 1) // u0 + 1)
+                for r in np.ndindex(*self._unit_grid[1:])]
+        # the output's own layout: a unit wholly inside the range, spanning
         # every other axis, goes straight into the output
-        direct_ok = (not self._fortran and self.dtype == np.dtype(dtype)
-                     and tuple(self.chunks[1:]) == tuple(self.shape[1:]))
-        plain = self._compressor is None and self.format != "n5"
+        chain = self._unit_chain
+        direct_ok = chain.direct(dtype) and self._unit[1:] == self.shape[1:]
+        plain = not chain.bb and self.format != "n5"
 
         def slot(idx):
             i0 = idx[0]
-            if (direct_ok and i0 * c0 >= lo and (i0 + 1) * c0 <= hi):
-                return out[i0 * c0 - lo:(i0 + 1) * c0 - lo]
+            if direct_ok and i0 * u0 >= lo and (i0 + 1) * u0 <= hi:
+                return out[i0 * u0 - lo:(i0 + 1) * u0 - lo]
             return None
 
-        def load(idx):
-            dst = slot(idx)
-            into = dst.reshape(-1).view(np.uint8) if (
-                dst is not None and plain) else None
-            raw = self._read_file(self.chunk_path(idx), into)
-            return raw, raw is not None and raw is into
-
-        # a chunk read only in part is kept (the last one): strided reads of
-        # single frames, as the streaming fit makes, decode each chunk once
+        # a unit read only in part is kept (the last one): strided reads of
+        # single frames, as the streaming fit makes, decode each unit once
         with self._cache_lock:
             cached = self._cache
         if cached is not None and cached[0] in idxs and slot(cached[0]) is None:
@@ -391,45 +798,46 @@ class ZarrArray:
             idxs = [i for i in idxs if i != cached[0]]
         if not idxs:
             return out
-        loaded = list(_io_pool().map(load, idxs)) if len(idxs) > 1 else \
-            [load(idxs[0])]
-        frames, frame_outs, pending = [], [], []
-        for idx, (raw, in_place) in zip(idxs, loaded):
+        where = self._locate(idxs)
+
+        def load(idx, loc):
+            if loc is None:
+                return None, False
             dst = slot(idx)
+            into = dst.reshape(-1).view(np.uint8) if (
+                dst is not None and plain) else None
+            raw = self._read_range(*loc[1:], into)
+            return raw, raw is not None and raw is into
+
+        todo = []
+        for idx, loc, (raw, in_place) in zip(idxs, where,
+                                             _map(load, idxs, where)):
             if raw is None:
                 self._place(out, lo, idx, None)
-                continue
-            if in_place:
-                continue                      # read straight into the output
-            payload, ext = self._payload(raw, idx)
-            data = self._plain(payload)
-            n_el = math.prod(ext)
-            if self._compressor is not None and \
-                    self._compressor[0] == "blosc":
-                target = dst if (dst is not None and ext == self.chunks) \
-                    else np.empty(n_el, self.dtype)
-                frames.append(data)
-                frame_outs.append(target)
-                if target is not dst:
-                    pending.append((idx, target, ext))
-                continue
-            if data.size != n_el * self.dtype.itemsize:
-                raise ValueError(f"{self.chunk_path(idx)}: {data.size} bytes "
-                                 f"for a chunk of {ext} {self.dtype}")
-            pending.append((idx, data.view(self.dtype), ext))
-        blosc_decode(frames, frame_outs)
-        for idx, flat, ext in pending:
-            chunk = self._arrange(flat, ext)
-            self._place(out, lo, idx, chunk)
-            with self._cache_lock:
-                self._cache = idx, chunk
+            elif not in_place:        # else read straight into the output
+                payload, ext = self._payload(raw, loc[0])
+                dst = slot(idx)
+                todo.append((idx, payload, ext, loc[0], dst if (
+                    dst is not None and ext == self._unit and chain.bb)
+                    else None))
+        if not todo:
+            return out
+        idxs, payloads, exts, labels, targets = zip(*todo)
+        arrays = chain.decode(list(payloads), list(exts), list(labels),
+                              list(targets))
+        for idx, target, chunk in zip(idxs, targets, arrays):
+            if target is None:
+                self._place(out, lo, idx, chunk)
+                with self._cache_lock:
+                    self._cache = idx, chunk
         return out
 
     def _place(self, out, lo, idx, chunk):
-        """Copy the part of ``chunk`` (None: the fill value) inside the
-        array and the range into ``out``."""
-        start = [i * c for i, c in zip(idx, self.chunks)]
-        ext = self._chunk_extent(idx)
+        """Copy the part of the unit ``chunk`` (None: the fill value) inside
+        the array and the range into ``out``."""
+        start = [i * c for i, c in zip(idx, self._unit)]
+        ext = tuple(min(c, s - a)
+                    for a, c, s in zip(start, self._unit, self.shape))
         a0 = max(start[0], lo)
         b0 = min(start[0] + ext[0], lo + out.shape[0])
         dst = (slice(a0 - lo, b0 - lo),) + tuple(
