@@ -18,8 +18,13 @@ Phases; any failure exits non-zero before the result lines:
    only) whether ``libz.so.1`` and ``libzstd.so.1`` load and ``bz2`` and
    ``lzma`` import, and every store of ``tests/data/torch_zarr_layouts/``
    (zarr v2, zarr v3 and n5 with every codec tensorstore writes, written
-   by it) read by the port bit-equal to its ``.npy``; a layout the machine
-   cannot open fails the run;
+   by it) read by the port bit-equal to its ``.npy``; then
+   (``phase_h5_layouts``) whether the HDF5 codec is built and
+   ``libz.so.1`` loads, and every file of ``tests/data/torch_h5_layouts/``
+   (every libver, storage layout, chunk index and filter h5py writes,
+   written by it) read through ``H5Trajectory`` on the port's own reader,
+   not h5py, bit-equal to its ``.npy``, szip and n-bit refused by name; a
+   layout the machine cannot open fails the run;
 2. build: compiles ``sitator_tpu_torch/csrc/*.cu`` for ``sm_90a`` into
    ``build/`` (skipped when a library for these sources is there), prints
    each kernel's registers and spills from ``ptxas``, and counts the
@@ -183,7 +188,11 @@ Phases; any failure exits non-zero before the result lines:
    streaming fit (K2) and pass 2 (K1) in 16 blocks of 256 from memory,
    memmap and the four stores in turns (frames/s beside the memmap's,
    feeder wait), each run's centres, labels and ``n_ij`` equal to the
-   memory run's;
+   memory run's; then HDF5 files (``h5_passes``): the same 4096 frames
+   written by this script's writer contiguous and in chunks of 8 frames
+   with shuffle and deflate (seconds, bytes on disk), each read whole by
+   the port's reader (MB/s), and the fit and pass 2 from memory, memmap
+   and the two files in turns, as for the zarr stores;
 11. the walkthroughs of ``sitator_tpu_torch/examples`` (the 12 scripts of
    ``examples/`` on the port, ``phase_examples``): each runs here on the
    card (``main(["--device", "cuda", ...])``, output captured, counters
@@ -3265,8 +3274,10 @@ def phase_cli(device, ctx):
                   f"{block}: {n_written / dt:.1f} frames/s ({dt:.3f} s)",
                   flush=True)
         zarr_launches = zarr_passes(tmp, decoded, structure, seeded, kw)
+        h5_launches = h5_passes(tmp, decoded, structure, seeded, kw)
     print(f"cli phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return {k: launches[k] + zarr_launches[k] for k in launches}
+    return {k: launches[k] + zarr_launches[k] + h5_launches[k]
+            for k in launches}
 
 
 # -- test-side zarr writers: the card's machine has no tensorstore, so the
@@ -3452,6 +3463,173 @@ def write_sharded_zstd_store(path, frames, shard, inner, level=1):
             f.write(b"".join(body) + index)
 
 
+# -- test-side HDF5 writer: the card's machine has no h5py, so the files of
+# ``h5_passes`` are written here, independently of the port, in the format
+# h5py writes under libver "earliest" (superblock v1, v1 object headers, an
+# old-style root group, data layout v3); ``tests/test_torch_h5_layouts.py``
+# holds them to h5py
+
+_H5_UNDEF = 2 ** 64 - 1
+
+
+def _h5_header(messages):
+    """A v1 object header of (type, body) messages, each padded to 8
+    bytes; the datatype, fill value and filter pipeline flagged constant,
+    as h5py writes them."""
+    import struct
+    body = b""
+    for mtype, data in messages:
+        data = data + b"\0" * (-len(data) % 8)
+        constant = 1 if mtype in (3, 5, 11) else 0
+        body += struct.pack("<HHB3x", mtype, len(data), constant) + data
+    return struct.pack("<BBHII4x", 1, 0, len(messages), 1, len(body)) + body
+
+
+def write_h5_trajectory(path, frames, chunk_frames=None):
+    """An HDF5 file holding ``frames`` (float32, ``(F, A, 3)``) as the
+    dataset ``positions`` of its root group: contiguous, or
+    (``chunk_frames``) chunked in whole frames, each chunk byte-shuffled
+    and deflated at level 4 (h5py's ``gzip`` default) on 8 threads, the
+    chunks indexed by one v1 B-tree leaf."""
+    import struct
+    import zlib
+    from concurrent.futures import ThreadPoolExecutor
+    frames = np.ascontiguousarray(frames, np.float32)
+    shape = frames.shape
+    name = b"positions\0"
+    heap_data = b"\0" * 8 + name + b"\0" * (-len(name) % 8)
+    chunks = []
+    if chunk_frames:
+        c0 = int(chunk_frames)
+
+        def encode(i):
+            part = np.zeros((c0, *shape[1:]), np.float32)
+            part[:min(c0, shape[0] - i * c0)] = frames[i * c0:(i + 1) * c0]
+            shuffled = part.reshape(-1).view(np.uint8).reshape(-1, 4).T
+            return zlib.compress(shuffled.tobytes(), 4)
+        with ThreadPoolExecutor(8) as pool:
+            chunks = list(pool.map(encode, range(-(-shape[0] // c0))))
+    istore_k = max(32, (len(chunks) + 1) // 2)
+    # addresses: superblock, root header, root B-tree, local heap, its
+    # data, SNOD, the dataset's header, its chunk B-tree, then the data
+    root_oh = 104
+    group_bt = root_oh + 40
+    heap = group_bt + 24 + 32 * 16 + 8
+    heap_at = heap + 32
+    snod = heap_at + len(heap_data)
+    dset_oh = snod + 8 + 8 * 40
+    space = struct.pack("<BBBx4x", 1, len(shape), 1) + struct.pack(
+        f"<{2 * len(shape)}Q", *shape, *shape)
+    dtype = bytes.fromhex("11201f0004000000") + struct.pack(
+        "<HHBBBBI", 0, 32, 23, 8, 0, 23, 127)
+    fill = struct.pack("<BBBBI", 2, 3 if chunks else 2, 2, 1, 0)
+    messages = [(1, space), (3, dtype), (5, fill)]
+    if chunks:
+        # shuffle (client data: the element size), then deflate (level 4)
+        pipeline = struct.pack("<BB6x", 1, 2)
+        for fid, fname, cd in ((2, b"shuffle\0", 4), (1, b"deflate\0", 4)):
+            pipeline += struct.pack("<HHHH", fid, len(fname), 1, 1) + fname
+            pipeline += struct.pack("<Ixxxx", cd)
+        messages.append((11, pipeline))
+    layout_size = 32 if chunks else 24
+    head_size = len(_h5_header(messages + [(8, b"\0" * layout_size)]))
+    chunk_bt = dset_oh + head_size
+    key_size = 8 + 8 * (len(shape) + 1)
+    data_at = chunk_bt + (24 + 2 * istore_k * (key_size + 8) + key_size
+                          if chunks else 0)
+    if chunks:
+        layout = struct.pack("<BBBQ", 3, 2, len(shape) + 1, chunk_bt) + \
+            struct.pack(f"<{len(shape) + 1}I", c0, *shape[1:], 4)
+    else:
+        layout = struct.pack("<BBQQ", 3, 1, data_at, frames.nbytes)
+    dset = _h5_header(messages + [(8, layout)])
+    assert len(dset) == head_size
+    eof = data_at + (sum(map(len, chunks)) if chunks else frames.nbytes)
+    sb = (b"\x89HDF\r\n\x1a\n" + struct.pack(
+        "<BBBBBBBBHHIHH", 1, 0, 0, 0, 0, 8, 8, 0, 4, 16, 0, istore_k, 0)
+        + struct.pack("<QQQQ", 0, _H5_UNDEF, eof, _H5_UNDEF)
+        + struct.pack("<QQII", 0, root_oh, 1, 0)
+        + struct.pack("<QQ", group_bt, heap))
+    sb += b"\0" * (root_oh - len(sb))
+    root = _h5_header([(17, struct.pack("<QQ", group_bt, heap))])
+    tree = (b"TREE" + struct.pack("<BBHQQ", 0, 0, 1, _H5_UNDEF, _H5_UNDEF)
+            + struct.pack("<QQQ", 0, snod, 8))
+    tree += b"\0" * (heap - group_bt - len(tree))
+    # free list offset 1: the heap has no free block
+    local = b"HEAP" + struct.pack("<B3xQQQ", 0, len(heap_data), 1, heap_at)
+    entries = struct.pack("<QQII16x", 8, dset_oh, 0, 0)
+    symbols = b"SNOD" + struct.pack("<BxH", 1, 1) + entries
+    symbols += b"\0" * (dset_oh - snod - len(symbols))
+    with open(path, "wb") as f:
+        f.write(sb + root + tree + local + heap_data + symbols + dset)
+        if chunks:
+            node = b"TREE" + struct.pack("<BBHQQ", 1, 0, len(chunks),
+                                         _H5_UNDEF, _H5_UNDEF)
+            at = data_at
+            for i, blob in enumerate(chunks):
+                node += struct.pack(f"<II{len(shape) + 1}Q", len(blob), 0,
+                                    i * c0, *[0] * len(shape)) + \
+                    struct.pack("<Q", at)
+                at += len(blob)
+            node += struct.pack(f"<II{len(shape) + 1}Q", 0, 0,
+                                len(chunks) * c0, *[0] * len(shape))
+            f.write(node + b"\0" * (data_at - chunk_bt - len(node)))
+            for blob in chunks:
+                f.write(blob)
+        else:
+            f.write(memoryview(frames.reshape(-1).view(np.uint8)))
+
+
+def store_turns(tmp, sources, order, n_frames, block, seeded, kw, what):
+    """The streaming fit (K2) and pass 2 (K1) in blocks of ``block`` frames
+    from each source in ``order``, then back, with the launch counters
+    reset before and read after.  Every run's fitted centres, labels and
+    ``n_ij`` must equal the first run's bit for bit.  Returns (pass 2
+    frames/s by source, feeder wait by source, launches)."""
+    from sitator_tpu_torch import StreamingLandmarkAnalysis
+    first, fps, feeder = None, {}, {}
+    reset_launches()
+    for name in order + order[::-1]:
+        reader = sources[name]()
+        labels_path = str(tmp / "zlabels.npy")
+        eng = StreamingLandmarkAnalysis(block_frames=block,
+                                        store_labels=labels_path, **kw)
+        t0 = time.perf_counter()
+        centers = eng.fit_centers(seeded, reader)
+        sync()
+        t_fit = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = eng.run(seeded, reader, centers=centers)
+        sync()
+        dt = time.perf_counter() - t0
+        labels = np.load(labels_path)
+        if first is None:
+            first = centers, labels, got.n_ij
+        check(np.array_equal(centers, first[0]), f"the fit from {name} "
+              "differs from the fit from memory")
+        check(np.array_equal(labels, first[1])
+              and np.array_equal(got.n_ij, first[2]),
+              f"pass 2 from {name}: labels or n_ij differ from memory's")
+        fps.setdefault(name, []).append(n_frames / dt)
+        feeder.setdefault(name, []).append(
+            eng.phase_times_.get("feeder", float("nan")))
+        print(f"fit + pass 2 from {name} ({type(reader).__name__}, "
+              f"{n_frames // block} blocks of {block} frames): fit "
+              f"{t_fit:.2f} s; pass 2 {n_frames / dt:.1f} frames/s "
+              f"({dt:.3f} s), feeder wait {feeder[name][-1]:.3f} s; "
+              "phase_times_ (s): " + json.dumps(
+                  {a: round(b, 4) for a, b in eng.phase_times_.items()}),
+              flush=True)
+    launches = read_launches()
+    check(launches["K1"] > 0 and launches["K2"] > 0,
+          f"the {what}-fed runs launched {launches}")
+    print("pass 2 frames/s by source (two runs each): " + json.dumps(
+        {k: [round(x, 1) for x in v] for k, v in fps.items()})
+        + f"; centres, labels and n_ij of every run == memory's; launches "
+        f"{launches}", flush=True)
+    return fps, feeder, launches
+
+
 def zarr_passes(tmp, decoded, structure, seeded, kw):
     """Zarr stores at the bench width: the phase's frames twice over (4096
     frames, 491 MB of float32) converted by the port's ``convert_to_zarr``
@@ -3468,7 +3646,7 @@ def zarr_passes(tmp, decoded, structure, seeded, kw):
     ``n_ij`` equal the first memory run's bit for bit.  Returns the
     launches."""
     import os
-    from sitator_tpu_torch import StreamingLandmarkAnalysis
+    import shutil
     from sitator_tpu_torch.io import (ArrayTrajectory, NpyTrajectory,
                                       TensorstoreTrajectory, convert_to_zarr,
                                       open_trajectory)
@@ -3558,46 +3736,9 @@ def zarr_passes(tmp, decoded, structure, seeded, kw):
                "npy": lambda: NpyTrajectory(npy),
                **{name: (lambda p=path: open_trajectory(p))
                   for name, path in stores.items()}}
-    order = ["memory", "npy", "zarr v2", "zarr v3", sharded, bzstd]
-    first, fps, feeder = None, {}, {}
-    reset_launches()
-    for name in order + order[::-1]:
-        reader = sources[name]()
-        labels_path = str(tmp / "zlabels.npy")
-        eng = StreamingLandmarkAnalysis(block_frames=block,
-                                        store_labels=labels_path, **kw)
-        t0 = time.perf_counter()
-        centers = eng.fit_centers(seeded, reader)
-        sync()
-        t_fit = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        got = eng.run(seeded, reader, centers=centers)
-        sync()
-        dt = time.perf_counter() - t0
-        labels = np.load(labels_path)
-        if first is None:
-            first = centers, labels, got.n_ij
-        check(np.array_equal(centers, first[0]), f"the fit from {name} "
-              "differs from the fit from memory")
-        check(np.array_equal(labels, first[1])
-              and np.array_equal(got.n_ij, first[2]),
-              f"pass 2 from {name}: labels or n_ij differ from memory's")
-        fps.setdefault(name, []).append(n_z / dt)
-        feeder.setdefault(name, []).append(
-            eng.phase_times_.get("feeder", float("nan")))
-        print(f"fit + pass 2 from {name} ({type(reader).__name__}, "
-              f"{n_z // block} blocks of {block} frames): fit {t_fit:.2f} s; "
-              f"pass 2 {n_z / dt:.1f} frames/s ({dt:.3f} s), feeder wait "
-              f"{feeder[name][-1]:.3f} s; phase_times_ (s): " + json.dumps(
-                  {a: round(b, 4) for a, b in eng.phase_times_.items()}),
-              flush=True)
-    launches = read_launches()
-    check(launches["K1"] > 0 and launches["K2"] > 0,
-          f"the zarr-fed runs launched {launches}")
-    print("pass 2 frames/s by source (two runs each): " + json.dumps(
-        {k: [round(x, 1) for x in v] for k, v in fps.items()})
-        + f"; centres, labels and n_ij of every run == memory's; launches "
-        f"{launches}", flush=True)
+    fps, feeder, launches = store_turns(
+        tmp, sources, ["memory", "npy", "zarr v2", "zarr v3", sharded, bzstd],
+        n_z, block, seeded, kw, "zarr")
     memmap = np.mean(fps["npy"])
     for name in stores:
         rate = (", ".join(f"{r:.0f}" for r in decode_rate[name]) + " MB/s"
@@ -3609,7 +3750,157 @@ def zarr_passes(tmp, decoded, structure, seeded, kw):
               + ", ".join(f"{f:.3f}" for f in feeder[name])
               + f" s; on disk {share[name]:.3f} of the raw bytes",
               flush=True)
+    for path in stores.values():
+        shutil.rmtree(path)
+    os.remove(npy)
     return launches
+
+
+def h5_passes(tmp, decoded, structure, seeded, kw):
+    """HDF5 files at the bench width: the phase's frames twice over (4096
+    frames, 491 MB of float32) written by this script's own writer
+    (``write_h5_trajectory``: the card's machine has no h5py) contiguous,
+    and chunked in 8 frames (960 KB, about h5py's own chunk size) with
+    byte shuffle and deflate level 4 (h5py's ``gzip`` default); each file
+    read whole by the port's reader (``H5Dataset.read``: the decode alone,
+    MB/s); then the streaming fit (K2) and pass 2 (K1) in 16 blocks of 256
+    frames from memory, the ``.npy`` memmap and the two files, in the
+    order memory, npy, contiguous, chunked, then back, through
+    ``open_trajectory`` on the port's own reader (``_h5py is None``).
+    Every run's fitted centres, labels and ``n_ij`` equal the first memory
+    run's bit for bit.  Returns the launches."""
+    import os
+    from sitator_tpu_torch.io import (ArrayTrajectory, H5Trajectory,
+                                      NpyTrajectory, open_trajectory)
+    from sitator_tpu_torch.io import h5_store
+    from sitator_tpu_torch.io._shared import N_THREADS
+
+    n_h, block = 2 * len(decoded), 256
+    frames = np.concatenate([decoded, decoded])
+    raw_mb = frames.nbytes / 1e6
+    npy = str(tmp / "hmd.npy")
+    np.save(npy, frames)
+    chunked = "h5 chunked shuffle+deflate"
+    writers = {
+        "h5 contiguous": ("one contiguous dataset", lambda path:
+                          write_h5_trajectory(path, frames)),
+        chunked: ("chunks of 8 frames, byte shuffle + deflate level 4",
+                  lambda path: write_h5_trajectory(path, frames,
+                                                   chunk_frames=8)),
+    }
+    files, share = {}, {}
+    for i, (name, (what, write)) in enumerate(writers.items()):
+        path = str(tmp / f"md_{i}.h5")
+        t0 = time.perf_counter()
+        write(path)
+        t_write = time.perf_counter() - t0
+        files[name], share[name] = path, os.path.getsize(path) / frames.nbytes
+        reader = open_trajectory(path)
+        check(type(reader) is H5Trajectory and reader._h5py is None,
+              f"open_trajectory({name}) gave {type(reader)} (h5py route: "
+              f"{getattr(reader, '_h5py', None) is not None})")
+        print(f"{name} ({what}; this script's writer): {n_h} frames x "
+              f"{frames.shape[1]} atoms written in {t_write:.2f} s; "
+              f"{os.path.getsize(path) / 1e6:.1f} MB on disk, "
+              f"{share[name]:.3f} of the {raw_mb:.1f} MB of float32 frames",
+              flush=True)
+
+    # each file read whole by the port's reader: for the chunked file,
+    # the decode alone (deflate on the I/O pool, then the native unshuffle)
+    decode_rate = {}
+    for name, path in files.items():
+        ds = h5_store.H5Dataset(path)
+        rates = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            got = ds.read(0, n_h)
+            rates.append(raw_mb / (time.perf_counter() - t0))
+        check(got.tobytes() == frames.tobytes(),
+              f"{name}: the port's read differs from the frames written")
+        decode_rate[name] = rates
+        del got
+        print(f"{name}: H5Dataset.read of all {n_h} frames "
+              f"({ds.layout}, {N_THREADS} threads): "
+              + ", ".join(f"{r:.0f} MB/s" for r in rates)
+              + " of decoded frames", flush=True)
+
+    sources = {"memory": lambda: ArrayTrajectory(frames),
+               "npy": lambda: NpyTrajectory(npy),
+               **{name: (lambda p=path: open_trajectory(p))
+                  for name, path in files.items()}}
+    fps, feeder, launches = store_turns(
+        tmp, sources, ["memory", "npy", *files], n_h, block, seeded, kw,
+        "HDF5")
+    memmap = np.mean(fps["npy"])
+    for name in files:
+        print(f"{name}: read alone "
+              + ", ".join(f"{r:.0f}" for r in decode_rate[name])
+              + f" MB/s; pass 2 {np.mean(fps[name]):.1f} frames/s = "
+              f"{np.mean(fps[name]) / memmap:.3f} of the memmap's "
+              f"{memmap:.1f} in this call; feeder "
+              + ", ".join(f"{f:.3f}" for f in feeder[name])
+              + f" s; on disk {share[name]:.3f} of the raw bytes",
+              flush=True)
+    for path in [*files.values(), npy]:
+        os.remove(path)
+    return launches
+
+
+def phase_h5_layouts():
+    """The HDF5 codec census, then every file of
+    ``tests/data/torch_h5_layouts/`` (written by h5py: every libver, layout,
+    chunk index and filter it writes) read through ``H5Trajectory`` on the
+    port's own reader (``_h5py is None``) and held bit for bit to its
+    ``.npy``: the card's machine reads them without h5py.  szip and n-bit
+    must be refused by name; a layout refused otherwise fails the phase."""
+    from sitator_tpu_torch.io import h5_store
+    from sitator_tpu_torch.io.formats import H5Trajectory
+    from tests import _torch_h5_layouts as layouts
+    fixtures = ROOT / "tests" / "data" / "torch_h5_layouts"
+    names = sorted(p.stem for p in fixtures.glob("*.h5"))
+    check(len(names) > 50, f"only {len(names)} HDF5 layout fixtures")
+    refused = {}
+    for name in names:
+        try:
+            h5_store.H5Dataset(str(fixtures / f"{name}.h5"),
+                               layouts.key_of(name)).close()
+        except h5_store.UnsupportedLayout as e:
+            refused[name] = str(e)
+    unexpected = {n: e for n, e in refused.items()
+                  if n not in layouts.REFUSED}
+    have = h5_store.codec_libraries()
+    print("HDF5 codec libraries here: " + ", ".join(
+        f"{lib} {'loads' if ok else 'does not load'}"
+        if lib.endswith(".so.1") else f"{lib} {'built' if ok else 'not built'}"
+        for lib, ok in have.items())
+        + "; HDF5 layouts this machine cannot open: "
+        + (json.dumps(unexpected) if unexpected else "none")
+        + "; refused by name as meant: " + ", ".join(
+            f"{x} ({layouts.REFUSED[x]})" for x in sorted(refused)
+            if x in layouts.REFUSED), flush=True)
+    check(not unexpected, f"HDF5 layouts refused here: {sorted(unexpected)}")
+    for name, filt in layouts.REFUSED.items():
+        check(filt in refused.get(name, ""),
+              f"{name} was not refused naming {filt}")
+    n = 0
+    for name in names:
+        if name in layouts.REFUSED:
+            continue
+        want = np.load(fixtures / f"{name}.npy")
+        traj = H5Trajectory(str(fixtures / f"{name}.h5"),
+                            layouts.key_of(name))
+        check(traj._h5py is None, f"HDF5 layout {name} took the h5py route")
+        check(traj[:].tobytes() == want.tobytes()
+              and traj[1:len(want) - 1].tobytes() == want[1:-1].tobytes()
+              and traj[-1].tobytes() == want[-1].tobytes()
+              and traj[::3].tobytes() == want[::3].tobytes(),
+              f"HDF5 layout {name}: the port's read differs from the "
+              "frames h5py wrote")
+        traj.close()
+        n += 1
+    print(f"HDF5 layouts read equal to the frames h5py wrote: {n} "
+          f"({', '.join(x for x in names if x not in layouts.REFUSED)})",
+          flush=True)
 
 
 def phase_zarr_layouts():
@@ -5043,6 +5334,7 @@ def main():
               "arguments are 'cards' and 'examples'", file=sys.stderr)
         return 2
     phase_zarr_layouts()
+    phase_h5_layouts()
     res = phase_kernels("cuda")
     paths = {}
     paths["slice"], fps = phase_slice("cuda")

@@ -4,8 +4,10 @@ multithreaded text decoders (:mod:`sitator_tpu_torch.io.native`), zarr
 v2/v3/n5 stores read and written by the port itself
 (:mod:`sitator_tpu_torch.io.zarr_store`: every layout ``tensorstore``
 writes on a local directory; ``tensorstore`` only for a store on another
-kvstore than ``file``, or where a codec's library does not load), the
-background block prefetcher, and
+kvstore than ``file``, or where a codec's library does not load), HDF5
+files read by the port itself (:mod:`sitator_tpu_torch.io.h5_store`:
+every layout ``h5py`` writes; ``h5py`` only for szip, n-bit and plugin
+filters), the background block prefetcher, and
 the synthetic-MD generators with known ground truth.
 
 NumPy copies of the reference's modules, so the port imports nothing of

@@ -1174,20 +1174,43 @@ class NpzTrajectory(ArrayTrajectory):
 
 
 class H5Trajectory(TrajectoryReader):
+    """An HDF5 dataset of frames, read as float32 with h5py's indexing.
+
+    ``key`` is a path through groups and links, as H5MD's
+    ``particles/all/position/value``; errors keep h5py's types.  The port's
+    own reader (:mod:`sitator_tpu_torch.io.h5_store`) serves every layout
+    h5py writes but the szip, n-bit and plugin filters; ``h5py`` is opened
+    only where that reader raises ``UnsupportedLayout`` and h5py imports,
+    and without h5py the ``UnsupportedLayout`` names what is missing.
+    ``_h5py`` is the h5py file of that route, None where the port's reader
+    serves."""
+
     def __init__(self, path, key="positions", structure=None):
-        import h5py
-        self._f = h5py.File(path, "r")
-        self._d = self._f[key]
+        from sitator_tpu_torch.io.h5_store import H5Dataset, UnsupportedLayout
+        self._h5py = self._ds = None
+        try:
+            self._ds = H5Dataset(path, key)
+        except UnsupportedLayout as e:
+            try:
+                import h5py
+            except ImportError:
+                raise UnsupportedLayout(
+                    f"{e}; h5py, which would read it, is not installed") \
+                    from None
+            self._h5py = h5py.File(path, "r")
+            self._ds = self._h5py[key]
         self.structure = structure
 
     def __len__(self):
-        return self._d.shape[0]
+        return self._ds.shape[0]
 
     def __getitem__(self, key):
-        return np.asarray(self._d[key], dtype=np.float32)
+        if self._h5py is not None:
+            return np.asarray(self._ds[key], dtype=np.float32)
+        return self._ds.take(key, np.float32)
 
     def close(self):
-        self._f.close()
+        (self._h5py or self._ds).close()
 
 
 class XYZTrajectory(ArrayTrajectory):

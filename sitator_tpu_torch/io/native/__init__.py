@@ -1,16 +1,18 @@
 """ctypes bindings + on-demand build of the native text decoders
-(counterpart of ``sitator_tpu.io.native``) and of the zarr stores' codec
-(Blosc, zstd, crc32c).
+(counterpart of ``sitator_tpu.io.native``), of the zarr stores' codec
+(Blosc, zstd, crc32c) and of the HDF5 chunks' codec (shuffle, LZF,
+Fletcher-32, scale-offset).
 
-``fastxyz.cpp``, ``fastlmp.cpp``, ``fastxd.cpp`` and ``zarrcodec.cpp``
-are compiled with ``g++`` at first use into
+``fastxyz.cpp``, ``fastlmp.cpp``, ``fastxd.cpp``, ``zarrcodec.cpp`` and
+``h5codec.cpp`` are compiled with ``g++`` at first use into
 ``build/sitator_tpu_torch-fastio-<hash>/`` beside the package (the
 directory the CUDA kernels build into), keyed by a hash of the sources and
 flags, so a checkout builds from its own sources and never loads another
 package's artefact.  Without ``g++`` the readers fall back to the Python
 parsers, as the reference does; a zarr store whose codecs need the native
 codec then raises at open (``io/zarr_store.py``: it has no Python
-fallback).
+fallback), and so does an HDF5 dataset whose filters need it
+(``io/h5_store.py``).
 
 The per-file index caches (``.fxyzidx.npz``, ``.flmpidx.npz``,
 ``.fxdidx.npz`` beside the trajectory) have the reference's names and
@@ -32,7 +34,7 @@ logger = logging.getLogger(__name__)
 
 _HERE = Path(__file__).resolve().parent
 _SRCS = [_HERE / "fastxyz.cpp", _HERE / "fastlmp.cpp", _HERE / "fastxd.cpp",
-         _HERE / "zarrcodec.cpp"]
+         _HERE / "zarrcodec.cpp", _HERE / "h5codec.cpp"]
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
 # portable flag set (no -march=native: the library may be shared across
 # heterogeneous hosts); the parsers are scalar, -O3 is all they need
@@ -129,6 +131,18 @@ def get_lib():
             ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
             ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
             ctypes.c_int]
+        lib.h5c_unshuffle.restype = None
+        lib.h5c_unshuffle.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                      ctypes.c_int, ctypes.c_void_p]
+        lib.h5c_lzf_decode.restype = ctypes.c_int64
+        lib.h5c_lzf_decode.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                       ctypes.c_void_p, ctypes.c_int64]
+        lib.h5c_fletcher32.restype = ctypes.c_uint32
+        lib.h5c_fletcher32.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+        lib.h5c_scaleoffset_decode.restype = ctypes.c_int
+        lib.h5c_scaleoffset_decode.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int]
         _lib = lib
         return _lib
 

@@ -60,7 +60,6 @@ another encoder's bytes; they decode to the same arrays.
 from __future__ import annotations
 
 import ctypes
-import importlib
 import json
 import math
 import os
@@ -71,11 +70,12 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from sitator_tpu_torch.io._shared import (N_THREADS, library_usable,
+                                          native_lib, pool_map)
+
 __all__ = ["ZarrArray", "ZarrWriter", "zarr_metadata", "store_format",
            "UnsupportedLayout", "codec_libraries", "blosc_decode",
            "blosc_encode", "zstd_decode", "crc32c"]
-
-N_THREADS = min(8, os.cpu_count() or 1)
 
 BLOSC_COMPRESSORS = {0: "blosclz", 1: "lz4", 2: "snappy", 3: "zlib",
                      4: "zstd"}
@@ -107,30 +107,11 @@ LIBRARIES = {"zarrcodec": "the native codec (io/native/zarrcodec.cpp, "
              "bz2": "Python's bz2 module", "lzma": "Python's lzma module"}
 _ABSENT = 2 ** 64 - 1             # a shard index entry of an absent chunk
 
-_pool = None
-_pool_lock = threading.Lock()
-
 
 class UnsupportedLayout(ValueError):
     """A store layout or codec this reader does not decode here: one it
     does not implement, or one whose library is not usable.  Raised when
     the array is opened."""
-
-
-def _io_pool():
-    global _pool
-    with _pool_lock:
-        if _pool is None:
-            _pool = ThreadPoolExecutor(N_THREADS,
-                                       thread_name_prefix="zarr-io")
-        return _pool
-
-
-def _map(fn, *items):
-    """``fn`` over the items, on the I/O pool where there are several."""
-    if len(items[0]) < 2:
-        return list(map(fn, *items))
-    return list(_io_pool().map(fn, *items))
 
 
 def store_format(path):
@@ -143,34 +124,14 @@ def store_format(path):
 
 
 # ------------------------------------------------------------------ codec
-def _native():
-    from sitator_tpu_torch.io import native
-    return native.get_lib()
-
-
 def _codec():
-    lib = _native()
+    lib = native_lib()
     if lib is None:
         raise RuntimeError(
             "Blosc, zstd and crc32c need the native codec "
             "(sitator_tpu_torch/io/native/zarrcodec.cpp), which is built "
             "with g++ at first use; g++ is not usable here")
     return lib
-
-
-def library_usable(name):
-    """Whether the library ``name`` (a key of :data:`LIBRARIES`) is usable
-    here."""
-    if name in ("bz2", "lzma"):
-        try:
-            importlib.import_module(name)
-        except ImportError:
-            return False
-        return True
-    lib = _native()
-    if lib is None or name == "zarrcodec":
-        return lib is not None
-    return bool(lib.zc_libraries() & {"libz.so.1": 1, "libzstd.so.1": 2}[name])
 
 
 def codec_libraries():
@@ -318,7 +279,7 @@ def _decode_bytes(name, datas, sizes, outs, labels):
     outs = [None if o is None else o.reshape(-1).view(np.uint8)
             for o in outs]
     if name == "crc32c":
-        got = _map(_check_crc32c, datas, labels)
+        got = pool_map(_check_crc32c, datas, labels)
     elif name in ("blosc", "zstd"):
         outs = [o if o is not None else
                 np.empty(s if s is not None else
@@ -336,7 +297,7 @@ def _decode_bytes(name, datas, sizes, outs, labels):
             except (error, EOFError, ValueError) as e:
                 raise ValueError(f"{label}: corrupt {name} data ({e})") \
                     from None
-        got = _map(one, datas, labels)
+        got = pool_map(one, datas, labels)
     for i, (g, s, o, label) in enumerate(zip(got, sizes, outs, labels)):
         if s is not None and g.size != s:
             raise ValueError(f"{label}: {g.size} bytes where the chunk has "
@@ -730,7 +691,7 @@ class ZarrArray:
         per = self._shard.grid
         shard_of = [tuple(i // g for i, g in zip(idx, per)) for idx in idxs]
         shards = sorted(set(shard_of))
-        found = [(s, r) for s, r in zip(shards, _map(self._read_index,
+        found = [(s, r) for s, r in zip(shards, pool_map(self._read_index,
                                                       shards))
                  if r is not None]
         entries = self._shard.entries(
@@ -811,7 +772,7 @@ class ZarrArray:
 
         todo = []
         for idx, loc, (raw, in_place) in zip(idxs, where,
-                                             _map(load, idxs, where)):
+                                             pool_map(load, idxs, where)):
             if raw is None:
                 self._place(out, lo, idx, None)
             elif not in_place:        # else read straight into the output

@@ -462,7 +462,8 @@ def test_native_sources_ship_with_the_package():
     native = ROOT / "sitator_tpu_torch" / "io" / "native"
     assert sorted(p.name for p in native.iterdir()
                   if p.suffix == ".cpp") == ["fastlmp.cpp", "fastxd.cpp",
-                                             "fastxyz.cpp", "zarrcodec.cpp"]
+                                             "fastxyz.cpp", "h5codec.cpp",
+                                             "zarrcodec.cpp"]
     text = (ROOT / "pyproject.toml").read_text()
     assert '"sitator_tpu_torch.io.native" = ["*.cpp"]' in text
     assert 'sitator-tpu-torch = "sitator_tpu_torch.cli:main"' in text
