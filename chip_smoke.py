@@ -16,15 +16,19 @@ Phases; any failure exits non-zero before the result lines:
    ``networkx``, ``h5py``, ``matplotlib``, ``ase`` and ``tqdm`` the machine
    has (``importlib.util.find_spec``); then (``phase_zarr_layouts``, after the build, without arguments
    only) whether ``libz.so.1`` and ``libzstd.so.1`` load and ``bz2`` and
-   ``lzma`` import, and every store of ``tests/data/torch_zarr_layouts/``
-   (zarr v2, zarr v3 and n5 with every codec tensorstore writes, written
-   by it) read by the port bit-equal to its ``.npy``; then
-   (``phase_h5_layouts``) whether the HDF5 codec is built and
-   ``libz.so.1`` loads, and every file of ``tests/data/torch_h5_layouts/``
-   (every libver, storage layout, chunk index and filter h5py writes,
-   written by it) read through ``H5Trajectory`` on the port's own reader,
-   not h5py, bit-equal to its ``.npy``, szip and n-bit refused by name; a
-   layout the machine cannot open fails the run;
+   ``lzma`` import, the Blosc cnames decoded and whether a ``libsnappy``
+   is there (never loaded), and every store of
+   ``tests/data/torch_zarr_layouts/`` (zarr v2, zarr v3 and n5 with every
+   codec tensorstore writes, Blosc-snappy too, written by it) read by the
+   port bit-equal to its ``.npy``; then (``phase_h5_layouts``) whether the
+   HDF5 codec is built and ``libz.so.1`` loads, whether a ``libsz`` or
+   ``libaec`` is there (never loaded), and every layout of
+   ``tests/data/torch_h5_layouts/`` (every libver, storage layout, chunk
+   index and filter h5py writes, n-bit and szip included, virtual
+   datasets, external links and storage, shared messages; written by it)
+   read through ``H5Trajectory`` on the port's own reader, not h5py,
+   bit-equal to its ``.npy``, the plugin filters and the compound type
+   refused by name; a layout the machine cannot open fails the run;
 2. build: compiles ``sitator_tpu_torch/csrc/*.cu`` for ``sm_90a`` into
    ``build/`` (skipped when a library for these sources is there), prints
    each kernel's registers and spills from ``ptxas``, and counts the
@@ -190,9 +194,13 @@ Phases; any failure exits non-zero before the result lines:
    feeder wait), each run's centres, labels and ``n_ij`` equal to the
    memory run's; then HDF5 files (``h5_passes``): the same 4096 frames
    written by this script's writer contiguous and in chunks of 8 frames
-   with shuffle and deflate (seconds, bytes on disk), each read whole by
-   the port's reader (MB/s), and the fit and pass 2 from memory, memmap
-   and the two files in turns, as for the zarr stores;
+   with shuffle and deflate (seconds, bytes on disk), and read through the
+   committed headers of ``tests/data/torch_h5_bench/``: a virtual dataset
+   over four ring segments this script writes (one chunked), external
+   storage in four raw segments (read from their directory) and an
+   external link to the chunked file; each input read whole by the port's
+   reader (MB/s), and the fit and pass 2 from memory, memmap and the five
+   inputs in turns, as for the zarr stores;
 11. the walkthroughs of ``sitator_tpu_torch/examples`` (the 12 scripts of
    ``examples/`` on the port, ``phase_examples``): each runs here on the
    card (``main(["--device", "cuda", ...])``, output captured, counters
@@ -3580,6 +3588,25 @@ def write_h5_trajectory(path, frames, chunk_frames=None):
             f.write(memoryview(frames.reshape(-1).view(np.uint8)))
 
 
+def write_h5_segments(d, frames, turn):
+    """The data the headers of ``tests/data/torch_h5_bench/`` (made by
+    ``tests/_torch_h5_layouts.py::bench_headers``) name, written into the
+    directory ``d``: the ring segments ``seg{k}.h5`` of ``vds.h5`` (segment
+    k holds ``segment_frames(len(frames), k, turn)``; the second chunked in
+    8 frames with shuffle + deflate 4, the others contiguous) and the raw
+    segments ``seg{k}.bin`` of ``external.h5`` (a quarter of the frames
+    each, in order, by ``ndarray.tofile``)."""
+    import os
+    from tests._torch_h5_layouts import segment_frames
+    q = len(frames) // 4
+    for k in range(4):
+        write_h5_trajectory(os.path.join(d, f"seg{k}.h5"),
+                            frames[segment_frames(len(frames), k, turn)],
+                            chunk_frames=8 if k == 1 else None)
+        np.ascontiguousarray(frames[k * q:(k + 1) * q], np.float32).tofile(
+            os.path.join(d, f"seg{k}.bin"))
+
+
 def store_turns(tmp, sources, order, n_frames, block, seeded, kw, what):
     """The streaming fit (K2) and pass 2 (K1) in blocks of ``block`` frames
     from each source in ``order``, then back, with the launch counters
@@ -3761,19 +3788,25 @@ def h5_passes(tmp, decoded, structure, seeded, kw):
     frames, 491 MB of float32) written by this script's own writer
     (``write_h5_trajectory``: the card's machine has no h5py) contiguous,
     and chunked in 8 frames (960 KB, about h5py's own chunk size) with
-    byte shuffle and deflate level 4 (h5py's ``gzip`` default); each file
-    read whole by the port's reader (``H5Dataset.read``: the decode alone,
-    MB/s); then the streaming fit (K2) and pass 2 (K1) in 16 blocks of 256
-    frames from memory, the ``.npy`` memmap and the two files, in the
-    order memory, npy, contiguous, chunked, then back, through
-    ``open_trajectory`` on the port's own reader (``_h5py is None``).
-    Every run's fitted centres, labels and ``n_ij`` equal the first memory
-    run's bit for bit.  Returns the launches."""
+    byte shuffle and deflate level 4 (h5py's ``gzip`` default); and read
+    through the three headers h5py made, committed in
+    ``tests/data/torch_h5_bench/`` and copied beside their data: a virtual
+    dataset over four ring segments of 1024 frames (``write_h5_segments``;
+    the second chunked as above; turned by 128 frames, so blocks cross a
+    segment border and a codec), external storage in four raw segments
+    (``ndarray.tofile``; the run's working directory is theirs, as HDF5
+    resolves them against it) and an external link to the chunked file.
+    Each input read whole by the port's reader (``H5Dataset.read``: the
+    decode alone, MB/s); then the streaming fit (K2) and pass 2 (K1) in 16
+    blocks of 256 frames from memory, the ``.npy`` memmap and the five
+    inputs, in the order memory, npy, contiguous, chunked, virtual,
+    external, link, then back, through ``open_trajectory`` on the port's
+    own reader (``_h5py is None``).  Every run's fitted centres, labels and
+    ``n_ij`` equal the first memory run's bit for bit.  Returns the
+    launches."""
     import os
-    from sitator_tpu_torch.io import (ArrayTrajectory, H5Trajectory,
-                                      NpyTrajectory, open_trajectory)
-    from sitator_tpu_torch.io import h5_store
-    from sitator_tpu_torch.io._shared import N_THREADS
+    import shutil
+    from tests import _torch_h5_layouts as layouts
 
     n_h, block = 2 * len(decoded), 256
     frames = np.concatenate([decoded, decoded])
@@ -3795,17 +3828,63 @@ def h5_passes(tmp, decoded, structure, seeded, kw):
         write(path)
         t_write = time.perf_counter() - t0
         files[name], share[name] = path, os.path.getsize(path) / frames.nbytes
-        reader = open_trajectory(path)
-        check(type(reader) is H5Trajectory and reader._h5py is None,
-              f"open_trajectory({name}) gave {type(reader)} (h5py route: "
-              f"{getattr(reader, '_h5py', None) is not None})")
         print(f"{name} ({what}; this script's writer): {n_h} frames x "
               f"{frames.shape[1]} atoms written in {t_write:.2f} s; "
               f"{os.path.getsize(path) / 1e6:.1f} MB on disk, "
               f"{share[name]:.3f} of the {raw_mb:.1f} MB of float32 frames",
               flush=True)
+    check(frames.shape == layouts.BENCH_SHAPE, f"{frames.shape} frames for "
+          f"headers of {layouts.BENCH_SHAPE}")
+    t0 = time.perf_counter()
+    write_h5_segments(str(tmp), frames, layouts.BENCH_TURN)
+    t_write = time.perf_counter() - t0
+    segments = [str(tmp / f"seg{k}.{x}") for k in range(4)
+                for x in ("h5", "bin")]
+    headers = {"h5 virtual (4 ring segments)": "vds.h5",
+               "h5 external storage (4 raw segments)": "external.h5",
+               "h5 external link (to the chunked file)": "link.h5"}
+    for name, header in headers.items():
+        shutil.copy(os.path.join(layouts.BENCH, header), tmp / header)
+        files[name] = str(tmp / header)
+        share[name] = sum(os.path.getsize(p) for p in segments if p.endswith(
+            ".h5" if header == "vds.h5" else ".bin")) / frames.nbytes
+    share["h5 external link (to the chunked file)"] = share[chunked]
+    print(f"h5 segments (this script's writer): 4 ring segments of "
+          f"{n_h // 4} frames (the second chunked in 8, shuffle + deflate "
+          f"4) and 4 raw segments written in {t_write:.2f} s; the committed "
+          "headers vds.h5, external.h5, link.h5 copied beside them",
+          flush=True)
+    layout = {"h5 contiguous": "contiguous", chunked: "chunked",
+              "h5 virtual (4 ring segments)": "virtual",
+              "h5 external storage (4 raw segments)": "external",
+              "h5 external link (to the chunked file)": "chunked"}
+    home = os.getcwd()
+    os.chdir(tmp)          # external storage resolves against it
+    try:
+        return _h5_reads_and_turns(tmp, frames, npy, files, share, layout,
+                                   seeded, kw, n_h, block, raw_mb)
+    finally:
+        os.chdir(home)
+        for path in [*files.values(), *segments, npy]:
+            os.remove(path)
 
-    # each file read whole by the port's reader: for the chunked file,
+
+def _h5_reads_and_turns(tmp, frames, npy, files, share, layout, seeded, kw,
+                        n_h, block, raw_mb):
+    from sitator_tpu_torch.io import (ArrayTrajectory, H5Trajectory,
+                                      NpyTrajectory, open_trajectory)
+    from sitator_tpu_torch.io import h5_store
+    from sitator_tpu_torch.io._shared import N_THREADS
+    for name, path in files.items():
+        reader = open_trajectory(path)
+        check(type(reader) is H5Trajectory and reader._h5py is None
+              and reader._ds.layout == layout[name],
+              f"open_trajectory({name}) gave {type(reader)} (h5py route: "
+              f"{getattr(reader, '_h5py', None) is not None}; layout "
+              f"{getattr(getattr(reader, '_ds', None), 'layout', None)})")
+        reader.close()
+
+    # each input read whole by the port's reader: for the chunked file,
     # the decode alone (deflate on the I/O pool, then the native unshuffle)
     decode_rate = {}
     for name, path in files.items():
@@ -3841,31 +3920,44 @@ def h5_passes(tmp, decoded, structure, seeded, kw):
               + ", ".join(f"{f:.3f}" for f in feeder[name])
               + f" s; on disk {share[name]:.3f} of the raw bytes",
               flush=True)
-    for path in [*files.values(), npy]:
-        os.remove(path)
     return launches
 
 
 def phase_h5_layouts():
-    """The HDF5 codec census, then every file of
+    """The HDF5 codec census, then every layout of
     ``tests/data/torch_h5_layouts/`` (written by h5py: every libver, layout,
-    chunk index and filter it writes) read through ``H5Trajectory`` on the
-    port's own reader (``_h5py is None``) and held bit for bit to its
-    ``.npy``: the card's machine reads them without h5py.  szip and n-bit
-    must be refused by name; a layout refused otherwise fails the phase."""
+    chunk index and filter it writes, virtual datasets, external links and
+    storage, n-bit, szip and shared messages; a layout of several files in
+    a directory of its own) read through ``H5Trajectory`` on the port's own
+    reader (``_h5py is None``) and held bit for bit to its ``.npy``, from
+    the layout's directory where HDF5 resolves names against the working
+    directory: the card's machine reads them without h5py.  The plugin
+    filters and the compound type must be refused by name (the reference
+    reads none of them); a layout refused otherwise fails the phase."""
+    import contextlib
+    import ctypes.util
+    import os
     from sitator_tpu_torch.io import h5_store
     from sitator_tpu_torch.io.formats import H5Trajectory
     from tests import _torch_h5_layouts as layouts
-    fixtures = ROOT / "tests" / "data" / "torch_h5_layouts"
-    names = sorted(p.stem for p in fixtures.glob("*.h5"))
-    check(len(names) > 50, f"only {len(names)} HDF5 layout fixtures")
+    names = sorted([*layouts.LAYOUTS, *layouts.MULTI])
+    check(len(names) > 100, f"only {len(names)} HDF5 layouts")
+
+    @contextlib.contextmanager
+    def where(name):
+        home = os.getcwd()
+        os.chdir(layouts.cwd_of(name) or home)
+        try:
+            yield layouts.path_of(name), layouts.key_of(name)
+        finally:
+            os.chdir(home)
     refused = {}
     for name in names:
-        try:
-            h5_store.H5Dataset(str(fixtures / f"{name}.h5"),
-                               layouts.key_of(name)).close()
-        except h5_store.UnsupportedLayout as e:
-            refused[name] = str(e)
+        with where(name) as (path, key):
+            try:
+                h5_store.H5Dataset(path, key).close()
+            except h5_store.UnsupportedLayout as e:
+                refused[name] = str(e)
     unexpected = {n: e for n, e in refused.items()
                   if n not in layouts.REFUSED}
     have = h5_store.codec_libraries()
@@ -3873,30 +3965,35 @@ def phase_h5_layouts():
         f"{lib} {'loads' if ok else 'does not load'}"
         if lib.endswith(".so.1") else f"{lib} {'built' if ok else 'not built'}"
         for lib, ok in have.items())
+        + " (its codecs: shuffle, LZF, Fletcher-32, scale-offset, n-bit, "
+        "szip); szip's libraries, which the port does not load: " + ", ".join(
+            f"lib{x} {'present' if ctypes.util.find_library(x) else 'absent'}"
+            for x in ("sz", "aec"))
         + "; HDF5 layouts this machine cannot open: "
         + (json.dumps(unexpected) if unexpected else "none")
         + "; refused by name as meant: " + ", ".join(
             f"{x} ({layouts.REFUSED[x]})" for x in sorted(refused)
             if x in layouts.REFUSED), flush=True)
     check(not unexpected, f"HDF5 layouts refused here: {sorted(unexpected)}")
-    for name, filt in layouts.REFUSED.items():
-        check(filt in refused.get(name, ""),
-              f"{name} was not refused naming {filt}")
+    for name, what in layouts.REFUSED.items():
+        check(what in refused.get(name, ""),
+              f"{name} was not refused naming {what}")
     n = 0
     for name in names:
         if name in layouts.REFUSED:
             continue
-        want = np.load(fixtures / f"{name}.npy")
-        traj = H5Trajectory(str(fixtures / f"{name}.h5"),
-                            layouts.key_of(name))
-        check(traj._h5py is None, f"HDF5 layout {name} took the h5py route")
-        check(traj[:].tobytes() == want.tobytes()
-              and traj[1:len(want) - 1].tobytes() == want[1:-1].tobytes()
-              and traj[-1].tobytes() == want[-1].tobytes()
-              and traj[::3].tobytes() == want[::3].tobytes(),
-              f"HDF5 layout {name}: the port's read differs from the "
-              "frames h5py wrote")
-        traj.close()
+        want = np.load(os.path.join(layouts.FIXTURES, f"{name}.npy"))
+        with where(name) as (path, key):
+            traj = H5Trajectory(path, key)
+            check(traj._h5py is None,
+                  f"HDF5 layout {name} took the h5py route")
+            check(traj[:].tobytes() == want.tobytes()
+                  and traj[1:len(want) - 1].tobytes() == want[1:-1].tobytes()
+                  and traj[-1].tobytes() == want[-1].tobytes()
+                  and traj[::3].tobytes() == want[::3].tobytes(),
+                  f"HDF5 layout {name}: the port's read differs from the "
+                  "frames h5py wrote")
+            traj.close()
         n += 1
     print(f"HDF5 layouts read equal to the frames h5py wrote: {n} "
           f"({', '.join(x for x in names if x not in layouts.REFUSED)})",
@@ -3909,6 +4006,7 @@ def phase_zarr_layouts():
     zarr v3 and n5 with every codec it writes) read by the port and held
     bit for bit to its ``.npy``: the card's machine opens them without
     tensorstore.  A layout this machine cannot open fails the phase."""
+    import ctypes.util
     from sitator_tpu_torch.io import zarr_store
     from sitator_tpu_torch.io.tensorstore_io import TensorstoreTrajectory
     fixtures = ROOT / "tests" / "data" / "torch_zarr_layouts"
@@ -3928,6 +4026,10 @@ def phase_zarr_layouts():
         if lib in ("bz2", "lzma") else
         f"{lib} {'built' if ok else 'not built'}"
         for lib, ok in have.items())
+        + " (Blosc cnames decoded: " + ", ".join(zarr_store.BLOSC_CNAMES)
+        + "; Snappy by the port's own decoder, libsnappy "
+        + ("present" if ctypes.util.find_library("snappy") else "absent")
+        + ", not loaded)"
         + "; zarr layouts this machine cannot open: "
         + (json.dumps(refused) if refused else "none"), flush=True)
     check(not refused, f"zarr layouts refused here: {sorted(refused)}")

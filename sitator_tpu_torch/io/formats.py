@@ -1176,14 +1176,20 @@ class NpzTrajectory(ArrayTrajectory):
 class H5Trajectory(TrajectoryReader):
     """An HDF5 dataset of frames, read as float32 with h5py's indexing.
 
-    ``key`` is a path through groups and links, as H5MD's
+    ``key`` is a path through groups, soft and external links, as H5MD's
     ``particles/all/position/value``; errors keep h5py's types.  The port's
     own reader (:mod:`sitator_tpu_torch.io.h5_store`) serves every layout
-    h5py writes but the szip, n-bit and plugin filters; ``h5py`` is opened
-    only where that reader raises ``UnsupportedLayout`` and h5py imports,
-    and without h5py the ``UnsupportedLayout`` names what is missing.
-    ``_h5py`` is the h5py file of that route, None where the port's reader
-    serves."""
+    the fixtures of ``tests/_torch_h5_layouts.py`` hold: virtual datasets,
+    external storage, the szip, n-bit, scale-offset, LZF, shuffle,
+    Fletcher-32 and deflate filters, integers and floats of any bit layout,
+    shared messages.  It refuses plugin filters (Blosc, zstd, LZ4, ...: the
+    reference reads none without ``hdf5plugin``), compound, string and
+    other non-numeric types (which the reference cannot make float32 of),
+    unlimited virtual mappings and a few rarer layouts, each by name;
+    ``h5py`` is opened only where that reader raises ``UnsupportedLayout``
+    and h5py imports, and without h5py the ``UnsupportedLayout`` names what
+    is missing.  ``_h5py`` is the h5py file of that route, None where the
+    port's reader serves."""
 
     def __init__(self, path, key="positions", structure=None):
         from sitator_tpu_torch.io.h5_store import H5Dataset, UnsupportedLayout
@@ -1195,7 +1201,7 @@ class H5Trajectory(TrajectoryReader):
                 import h5py
             except ImportError:
                 raise UnsupportedLayout(
-                    f"{e}; h5py, which would read it, is not installed") \
+                    f"{e}; h5py, which may read it, is not installed") \
                     from None
             self._h5py = h5py.File(path, "r")
             self._ds = self._h5py[key]

@@ -1,7 +1,7 @@
 """ctypes bindings + on-demand build of the native text decoders
 (counterpart of ``sitator_tpu.io.native``), of the zarr stores' codec
-(Blosc, zstd, crc32c) and of the HDF5 chunks' codec (shuffle, LZF,
-Fletcher-32, scale-offset).
+(Blosc, zstd, Snappy, crc32c) and of the HDF5 chunks' codec (shuffle, LZF,
+Fletcher-32, scale-offset, n-bit, szip).
 
 ``fastxyz.cpp``, ``fastlmp.cpp``, ``fastxd.cpp``, ``zarrcodec.cpp`` and
 ``h5codec.cpp`` are compiled with ``g++`` at first use into
@@ -120,6 +120,9 @@ def get_lib():
         lib.zc_zstd_decode.argtypes = lib.zc_blosc_decode.argtypes
         lib.zc_zstd_content_size.restype = ctypes.c_int64
         lib.zc_zstd_content_size.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+        lib.zc_snappy_decode.restype = ctypes.c_int64
+        lib.zc_snappy_decode.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                         ctypes.c_void_p, ctypes.c_int64]
         lib.zc_crc32c.restype = ctypes.c_uint32
         lib.zc_crc32c.argtypes = [ctypes.c_void_p, ctypes.c_int64]
         lib.zc_libraries.restype = ctypes.c_int
@@ -139,10 +142,12 @@ def get_lib():
                                        ctypes.c_void_p, ctypes.c_int64]
         lib.h5c_fletcher32.restype = ctypes.c_uint32
         lib.h5c_fletcher32.argtypes = [ctypes.c_void_p, ctypes.c_int64]
-        lib.h5c_scaleoffset_decode.restype = ctypes.c_int
-        lib.h5c_scaleoffset_decode.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_int]
+        for name in ("h5c_scaleoffset_decode", "h5c_nbit_decode",
+                     "h5c_szip_decode"):
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                           ctypes.c_int64, ctypes.c_void_p, ctypes.c_int]
         _lib = lib
         return _lib
 

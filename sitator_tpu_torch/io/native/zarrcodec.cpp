@@ -3,7 +3,7 @@
 //
 // The chunks of a zarr v2, zarr v3 or n5 store with blosc compression are
 // Blosc1 frames.  This file decodes that frame format for every compressor
-// c-blosc 1.x writes but Snappy (BloscLZ and LZ4/LZ4HC here; zlib and zstd
+// c-blosc 1.x writes (BloscLZ, LZ4/LZ4HC and Snappy here; zlib and zstd
 // through libz.so.1 and libzstd.so.1), with byte shuffle, bit shuffle and
 // the memcpy flag, and encodes it for LZ4 with byte shuffle, over many chunks
 // at once on a pool of threads.  It also decodes batches of standalone zstd
@@ -17,6 +17,8 @@
 //                    none), every block one job, then the frames assembled;
 //   zc_zstd_decode:  decode n zstd frames into n buffers, one job each;
 //   zc_zstd_content_size: the decoded size a zstd frame declares;
+//   zc_snappy_decode: decode one raw Snappy stream (the format Blosc's
+//                    snappy compressor writes into each stream of a block);
 //   zc_crc32c:       CRC-32C (Castagnoli) of a buffer;
 //   zc_libraries:    which of libz.so.1 (bit 0) and libzstd.so.1 (bit 1)
 //                    load here.
@@ -39,7 +41,9 @@
 // bit shuffle, 0x10 no split, bits 5-7 the compressor format (0 blosclz,
 // 1 lz4 and lz4hc, 2 snappy, 3 zlib, 4 zstd).
 //
-// Anything else (Snappy, a corrupt stream, a missing library) returns a
+// Snappy streams are raw Snappy: a varint of the decoded length, then
+// literals and copies with 1-, 2- and 4-byte offsets; no libsnappy is
+// loaded.  Anything else (a corrupt stream, a missing library) returns a
 // negative status; the codec never hands back bytes it did not decode.
 // Never throws.
 #include <dlfcn.h>
@@ -59,8 +63,8 @@ constexpr int kMaxSplits = 16;       // blosc MAX_SPLITS
 constexpr int kL1 = 32 * 1024;
 constexpr uint8_t kShuffle = 0x01, kMemcpy = 0x02, kBitShuffle = 0x04,
                   kNoSplit = 0x10;
-constexpr int kBloscLZFormat = 0, kLz4Format = 1, kZlibFormat = 3,
-              kZstdFormat = 4;
+constexpr int kBloscLZFormat = 0, kLz4Format = 1, kSnappyFormat = 2,
+              kZlibFormat = 3, kZstdFormat = 4;
 
 // status codes (mirrored in zarr_store.py; -4, once "bit shuffle", is not
 // returned any more)
@@ -192,6 +196,72 @@ int64_t lz4_decode(const uint8_t* src, int64_t slen, uint8_t* dst,
 // not 255); distance ((ctrl & 31) << 8) + the next byte + 1, or, where that
 // byte is 255 and the high bits are all set, 8192 + the next two bytes (big
 // endian).  Returns dlen, or -1 for any malformed input.
+// Raw Snappy: the decoded length as a little-endian base-128 varint, then
+// elements, each a tag byte whose low two bits give its kind: 0 a literal
+// (length - 1 in the upper six bits, or past 59 in the next 1-4 bytes),
+// 1 a copy of 4-11 bytes with an 11-bit offset, 2 and 3 copies of 1-64
+// bytes with a 2- and a 4-byte offset.  The bytes written, or a negative
+// status; the stream must fill exactly the length it declares.
+int64_t snappy_decode(const uint8_t* src, int64_t slen, uint8_t* dst,
+                      int64_t dlen) {
+    const uint8_t* ip = src;
+    const uint8_t* const iend = src + slen;
+    uint64_t n = 0;
+    for (int shift = 0;; shift += 7) {
+        if (ip >= iend || shift > 28) return kCorrupt;
+        const uint8_t b = *ip++;
+        n |= uint64_t(b & 0x7f) << shift;
+        if (!(b & 0x80)) break;
+    }
+    if (n > (uint64_t)dlen) return kSize;
+    uint8_t* op = dst;
+    uint8_t* const oend = dst + n;
+    while (ip < iend) {
+        const uint8_t tag = *ip++;
+        int64_t len, off = 0;
+        switch (tag & 3) {
+            case 0: {
+                len = tag >> 2;
+                if (len >= 60) {
+                    const int w = (int)len - 59;
+                    if (iend - ip < w) return kTruncated;
+                    len = 0;
+                    for (int i = w - 1; i >= 0; --i) len = (len << 8) | ip[i];
+                    ip += w;
+                }
+                ++len;
+                if (iend - ip < len) return kTruncated;
+                if (oend - op < len) return kCorrupt;
+                std::memcpy(op, ip, (size_t)len);
+                op += len;
+                ip += len;
+                continue;
+            }
+            case 1:
+                if (ip >= iend) return kTruncated;
+                len = 4 + ((tag >> 2) & 7);
+                off = (int64_t(tag >> 5) << 8) | *ip++;
+                break;
+            case 2:
+                if (iend - ip < 2) return kTruncated;
+                len = (tag >> 2) + 1;
+                off = ip[0] | (int64_t(ip[1]) << 8);
+                ip += 2;
+                break;
+            default:
+                if (iend - ip < 4) return kTruncated;
+                len = (tag >> 2) + 1;
+                off = (int64_t)load32(ip);
+                ip += 4;
+        }
+        if (off <= 0 || off > op - dst || oend - op < len) return kCorrupt;
+        const uint8_t* ref = op - off;
+        for (int64_t k = 0; k < len; ++k) op[k] = ref[k];
+        op += len;
+    }
+    return op == oend ? (int64_t)n : kCorrupt;
+}
+
 int64_t blosclz_decode(const uint8_t* src, int64_t slen, uint8_t* dst,
                        int64_t dlen) {
     constexpr int64_t kMaxDistance = 8191;
@@ -439,7 +509,7 @@ int parse_header(const uint8_t* p, int64_t len, Frame* f) {
         return kOk;
     }
     switch ((f->flags >> 5) & 7) {
-        case kBloscLZFormat: case kLz4Format: break;
+        case kBloscLZFormat: case kLz4Format: case kSnappyFormat: break;
         case kZlibFormat:
             if (!libraries().uncompress) return kLibrary;
             break;
@@ -461,6 +531,8 @@ bool decode_stream(int format, const uint8_t* src, int64_t slen, uint8_t* dst,
     switch (format) {
         case kBloscLZFormat: return blosclz_decode(src, slen, dst, dlen) == dlen;
         case kLz4Format: return lz4_decode(src, slen, dst, dlen) == dlen;
+        case kSnappyFormat:
+            return snappy_decode(src, slen, dst, dlen) == dlen;
         case kZlibFormat: {
             unsigned long got = (unsigned long)dlen;
             return libraries().uncompress(dst, &got, src,
@@ -690,6 +762,13 @@ int64_t zc_zstd_content_size(const uint8_t* src, int64_t len) {
 
 // CRC-32C (Castagnoli, reflected polynomial 0x82F63B78) of n bytes, as the
 // zarr v3 crc32c codec stores it.
+// One raw Snappy stream into dst (dlen bytes of room): the bytes decoded,
+// or a negative status.
+int64_t zc_snappy_decode(const uint8_t* src, int64_t slen, uint8_t* dst,
+                         int64_t dlen) {
+    return snappy_decode(src, slen, dst, dlen);
+}
+
 uint32_t zc_crc32c(const uint8_t* p, int64_t n) {
     static const auto table = [] {
         std::vector<uint32_t> t(256);

@@ -8,7 +8,7 @@ float and bool data:
 - zarr v2: ``.zarray`` (``dtype``, ``chunks``, ``order`` C or F,
   ``dimension_separator``, ``fill_value``); compressor ``null``, ``zlib``,
   ``gzip``, ``bz2``, ``zstd`` or ``blosc`` (``cname`` blosclz, lz4, lz4hc,
-  zlib or zstd; ``shuffle`` -1, 0, 1 or 2); no filters.
+  snappy, zlib or zstd; ``shuffle`` -1, 0, 1 or 2); no filters.
 - zarr v3: ``zarr.json`` (regular chunk grid, the ``default`` and ``v2``
   chunk key encodings); codecs ``transpose`` (any order), then ``bytes``
   (either endian) or ``sharding_indexed`` (its inner codecs go through this
@@ -41,9 +41,10 @@ unit of a read is the inner chunk: a read reads each shard's index once,
 then only the byte ranges of the inner chunks it needs.
 
 Libraries: the native codec ``io/native/zarrcodec.cpp`` (built with ``g++``
-with the text decoders) decodes Blosc frames (BloscLZ and LZ4 itself, zlib
-and zstd through ``libz.so.1`` and ``libzstd.so.1``, loaded at first use),
-standalone zstd frames (``libzstd.so.1``) and crc32c; Python's ``zlib``,
+with the text decoders) decodes Blosc frames (BloscLZ, LZ4 and Snappy
+itself, no libsnappy loaded; zlib and zstd through ``libz.so.1`` and
+``libzstd.so.1``, loaded at first use), standalone zstd frames
+(``libzstd.so.1``) and crc32c; Python's ``zlib``,
 ``bz2`` and ``lzma`` decode gzip/zlib, bz2 and xz.  A layout this reader
 does not decode, or a codec whose library is not usable here, raises
 :class:`UnsupportedLayout` (a ``ValueError`` naming it) when the array is
@@ -75,15 +76,15 @@ from sitator_tpu_torch.io._shared import (N_THREADS, library_usable,
 
 __all__ = ["ZarrArray", "ZarrWriter", "zarr_metadata", "store_format",
            "UnsupportedLayout", "codec_libraries", "blosc_decode",
-           "blosc_encode", "zstd_decode", "crc32c"]
+           "blosc_encode", "zstd_decode", "snappy_decode", "crc32c"]
 
 BLOSC_COMPRESSORS = {0: "blosclz", 1: "lz4", 2: "snappy", 3: "zlib",
                      4: "zstd"}
 # the Blosc cnames this reader decodes, each with the library it loads
-BLOSC_CNAMES = {"blosclz": None, "lz4": None, "lz4hc": None,
+BLOSC_CNAMES = {"blosclz": None, "lz4": None, "lz4hc": None, "snappy": None,
                 "zlib": "libz.so.1", "zstd": "libzstd.so.1"}
-_STREAM = {"blosclz": "BloscLZ", "lz4": "LZ4", "zlib": "zlib",
-           "zstd": "zstd"}
+_STREAM = {"blosclz": "BloscLZ", "lz4": "LZ4", "snappy": "Snappy",
+           "zlib": "zlib", "zstd": "zstd"}
 _STATUS = {-1: "truncated Blosc frame",
            -2: "unsupported Blosc frame version",
            -5: "Blosc frame of another size than the chunk",
@@ -150,7 +151,7 @@ def _frame_error(frame, status):
     if status == -3:
         return ValueError(
             f"Blosc compressor {name!r} is not supported (the codec "
-            "decodes blosclz, lz4, lz4hc, zlib and zstd frames)")
+            "decodes blosclz, lz4, lz4hc, snappy, zlib and zstd frames)")
     if status == -6:
         return ValueError(f"corrupt {_STREAM.get(name, name)} stream in a "
                           "Blosc frame")
@@ -215,6 +216,20 @@ def crc32c(data):
     buf = (np.ascontiguousarray(data).reshape(-1).view(np.uint8)
            if isinstance(data, np.ndarray) else np.frombuffer(data, np.uint8))
     return int(_codec().zc_crc32c(buf.ctypes.data, buf.size))
+
+
+def snappy_decode(data, n):
+    """A raw Snappy stream (``bytes`` or a uint8 array) decoded into ``n``
+    bytes of room: the decoded bytes; ``ValueError`` for a corrupt or
+    truncated stream."""
+    src = _uint8([data if isinstance(data, np.ndarray)
+                  else np.frombuffer(data, np.uint8)])[0]
+    out = np.empty(max(int(n), 1), np.uint8)
+    got = int(_codec().zc_snappy_decode(src.ctypes.data, src.size,
+                                         out.ctypes.data, int(n)))
+    if got < 0:
+        raise ValueError(f"corrupt Snappy stream (status {got})")
+    return out[:got].tobytes()
 
 
 def blosc_encode(arrays, clevel=5, shuffle=True):

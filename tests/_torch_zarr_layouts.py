@@ -85,7 +85,7 @@ LAYOUTS = {
     **{f"v2_blosc_{cname}_{shuffle}": ("zarr", _v2(
         {"id": "blosc", "cname": cname, "clevel": 5, "shuffle": shuffle}),
         ALL)
-       for cname in ("blosclz", "lz4", "lz4hc", "zlib", "zstd")
+       for cname in ("blosclz", "lz4", "lz4hc", "snappy", "zlib", "zstd")
        for shuffle in (0, 1, 2)},
     "v3_zstd": ("zarr3", _v3([_bytes(), _zstd()]), ALL),
     "v3_zstd_checksum_f8": ("zarr3", _v3([_bytes("big"), _zstd(
