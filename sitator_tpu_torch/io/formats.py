@@ -1310,14 +1310,19 @@ class ChunkedFeeder:
     ``TrajectoryReader`` on worker thread(s) so host IO overlaps device
     compute (SURVEY.md §6.7 — the streaming half of the "context
     parallelism" analogue).  Iterate to get ``(lo, block)`` pairs in order.
+    ``span``, if given, is called with ``lo`` on the worker thread and
+    returns a context manager held around the read of that block (the
+    streaming engine's ``read`` spans).
     """
 
-    def __init__(self, reader, block_frames, start=0, stop=None, depth=2):
+    def __init__(self, reader, block_frames, start=0, stop=None, depth=2,
+                 span=None):
         self.reader = reader
         self.block = int(block_frames)
         self.start = int(start)
         self.stop = len(reader) if stop is None else int(stop)
         self.depth = int(depth)
+        self.span = span
 
     def __iter__(self):
         q = _queue.Queue(maxsize=self.depth)
@@ -1329,7 +1334,12 @@ class ChunkedFeeder:
                     if stop_flag.is_set():
                         return
                     hi = min(lo + self.block, self.stop)
-                    q.put((lo, self.reader[lo:hi]))
+                    if self.span is None:
+                        block = self.reader[lo:hi]
+                    else:
+                        with self.span(lo):
+                            block = self.reader[lo:hi]
+                    q.put((lo, block))
                 q.put(None)
             except BaseException as e:  # surface reader errors to consumer
                 q.put(e)

@@ -60,56 +60,71 @@ from sitator_tpu_torch.parallel.mesh import (ShardedFrames, bind_mesh,
                                              gather_frames, pad_frames,
                                              place_frames, run_sharded,
                                              shard_frames, take_columns)
+from sitator_tpu_torch.io._shared import N_THREADS, pool_counters
 from sitator_tpu_torch.util.errors import (MultipleOccupancyError,
                                            StaticLatticeError)
 from sitator_tpu_torch.util.progress import get_progress_bar
+from sitator_tpu_torch.util.timing import (NO_BLOCK, Span, SpanLog,
+                                           clock_offset_ns,
+                                           profiler_recording, record_run)
 
 logger = logging.getLogger(__name__)
 
 __all__ = ["StreamingLandmarkAnalysis", "pack12_width"]
 
 
-class _Phase:
-    """Accumulate the host wall time of one named engine phase into a dict
-    (``engine.phase_times_``); always on (~100 ns a use).  Phases are
-    disjoint, so their sum against the run's wall time splits it into host
-    dwell categories: feeder, upload (gathering a block's columns into the
-    staging buffers and starting the copy), snapshot (copying the
-    accumulators before an optimistic fold), dispatch_assign, dispatch_fold,
-    drift_fetch, labels_fetch, labels_memmap_write, epoch_spill (the copy of
-    the device accumulators to the host), checkpoint, setup, finalize.
-    These are host clocks, as in the reference: CUDA calls return before the
-    device finishes, so device time shows up in whichever phase waits for
-    it.  In the synchronous loop those are drift_fetch and labels_fetch of
-    the block just dispatched; with run-ahead they wait only for a block
+class _Phase(Span):
+    """One use of a named engine phase of pass 2 (a :class:`Span`): its
+    host wall time goes into ``engine.phase_times_`` and, as a span
+    ``(phase, block, start, end)``, into the run record (``run_trace_``,
+    :func:`~sitator_tpu_torch.util.timing.recent_runs`); always on (about
+    1 µs a use).  While a profiler records at the run's start, each use is
+    also a range ``sitator.pass2.<phase>`` with the argument
+    ``block=<first frame>``.  Phases are disjoint on the engine's thread, so
+    their sum against the run's wall time splits it into host dwell
+    categories: feeder (waiting for the block it hands over), upload
+    (gathering a block's columns into the staging buffers and starting the
+    copy), snapshot (copying the accumulators before an optimistic fold),
+    dispatch_assign, dispatch_fold, drift_fetch, labels_fetch,
+    labels_memmap_write (these three of the block being retired),
+    epoch_spill (the copy of the device accumulators to the host),
+    checkpoint, setup, finalize (these four of no block, -1).  The feeder's
+    thread adds a ``read`` span a block around ``reader[lo:hi]``.
+    These are host clocks, as in the reference: CUDA calls return before
+    the device finishes, so device time shows up in whichever phase waits
+    for it.  In the synchronous loop those are drift_fetch and labels_fetch
+    of the block just dispatched; with run-ahead they wait only for a block
     dispatched ``pipeline_depth`` blocks earlier, and what device time is
     not hidden moves to wherever the host blocks next: a launch that finds
     the stream's queue full (inside dispatch_fold, which enqueues the
-    most), the staging-slot wait in upload, epoch_spill at the end."""
+    most), the staging-slot wait in upload, epoch_spill at the end.  The
+    card's own time a block is in the run record's ``device`` brackets."""
 
-    __slots__ = ("pt", "name", "t0")
-
-    def __init__(self, pt, name):
-        self.pt = pt
-        self.name = name
-
-    def __enter__(self):
-        self.t0 = time.perf_counter()
-
-    def __exit__(self, *exc):
-        self.pt[self.name] = (self.pt.get(self.name, 0.0)
-                              + time.perf_counter() - self.t0)
+    __slots__ = ()
 
 
-def _timed_iter(it, pt, name):
-    it = iter(it)
-    while True:
-        with _Phase(pt, name):
-            try:
-                item = next(it)
-            except StopIteration:
-                return
-        yield item
+def _merge_spans(*tables):
+    """Span tables (:meth:`SpanLog.table`) as one, by start time."""
+    cat = {k: np.concatenate([t[k] for t in tables]) for k in tables[0]}
+    order = np.argsort(cat["start_ns"], kind="stable")
+    return {k: v[order] for k, v in cat.items()}
+
+
+def _bracket_ms(brackets):
+    """The card's milliseconds of each block's assignment and fold from
+    their CUDA events ``(block, 0 assign | 1 fold, start, end)``, summed
+    by block in order of first use (a rolled-back block folds again):
+    ``{"block", "assign_ms", "fold_ms"}`` arrays, or None without events
+    (a CPU device).  Read once the compute stream has passed the events."""
+    if not brackets:
+        return None
+    brackets[-1][3].synchronize()
+    rows = {}
+    for lo, kind, start, end in brackets:
+        rows.setdefault(lo, [0.0, 0.0])[kind] += start.elapsed_time(end)
+    ms = np.array(list(rows.values()), np.float64).reshape(-1, 2)
+    return dict(block=np.fromiter(rows, np.int64, len(rows)),
+                assign_ms=ms[:, 0], fold_ms=ms[:, 1])
 
 
 def _pack12(labels):
@@ -314,10 +329,13 @@ class _Lanes:
 
     def mark(self):
         """An event at the compute stream's present end (None on a CPU
-        device): what was enqueued so far, and nothing enqueued later."""
+        device): what was enqueued so far, and nothing enqueued later.  It
+        keeps its time, for the run record's device brackets."""
         if not self.cuda:
             return None
-        return torch.cuda.current_stream(self.device).record_event()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
 
     def start_download(self, t, produced=None):
         """Begin copying device tensor ``t`` into a pinned host buffer once
@@ -746,7 +764,20 @@ class StreamingLandmarkAnalysis:
     def run(self, sn: SiteNetwork, trajectory, centers=None):
         """``trajectory``: a TrajectoryReader (of NumPy blocks or tensors)
         or an (F, A, 3) array.  Returns an annotated SiteNetwork (the
-        streaming result object)."""
+        streaming result object).
+
+        The run is measured as it goes, at the cost of a few array writes
+        a phase and three CUDA events a block: ``phase_times_`` (host
+        seconds by phase, :class:`_Phase`) and ``run_trace_``, the run
+        record, also kept process-wide by
+        :func:`~sitator_tpu_torch.util.timing.recent_runs` (its keys are
+        documented there): every phase use as a span with its block (the
+        block's first frame), the feeder thread's reads, the card's
+        milliseconds of each block's assignment and fold, and the I/O
+        pool's decode tasks and thread-seconds.  Under a ``torch.profiler``
+        session opened before the call (``util.timing.device_trace``) the
+        spans are ranges ``sitator.pass2.<phase>`` with ``block=<lo>``; the
+        check is made once, at the call."""
         reader = (trajectory if hasattr(trajectory, "__getitem__")
                   and not isinstance(trajectory, np.ndarray)
                   else ArrayTrajectory(np.asarray(trajectory)))
@@ -765,11 +796,17 @@ class StreamingLandmarkAnalysis:
         self.n_sites_ = K
         dev = self.device
         pt = self.phase_times_ = {}
+        offset = clock_offset_ns()
+        profiled = profiler_recording()
+        log = SpanLog(offset, profiled)
+        read_log = SpanLog(offset, profiled)     # the feeder thread's
+        decode0 = pool_counters()
+        t_run = time.perf_counter_ns()
 
-        def ph(name):
-            return _Phase(pt, name)
+        def ph(name, block=NO_BLOCK):
+            return _Phase(pt, name, block, log)
 
-        _setup = _Phase(pt, "setup")   # basis prep, checkpoint probe, memmap
+        _setup = ph("setup")   # basis prep, checkpoint probe, memmap
         _setup.__enter__()
         self.exact_jump_epochs_ = 0
 
@@ -830,12 +867,13 @@ class StreamingLandmarkAnalysis:
         lanes = _Lanes(dev, W + G + 1 if W else 0, B, smesh)
         frame_ids = torch.arange(B, device=dev)
         self.rollbacks_ = 0
+        brackets = []   # (block, 0 assign | 1 fold, start event, end event)
 
-        def fetch_labels(box):
+        def fetch_labels(lo, box):
             """Host copy of one assignment's egress labels, fetched at most
             once per assignment and decoded."""
             if box["np"] is None:
-                with ph("labels_fetch"):
+                with ph("labels_fetch", lo):
                     arr = (box["dev"].cpu().numpy() if box["copy"] is None
                            else lanes.wait(box["copy"]))
                 box["np"] = _unpack12(arr, n_mobile) if egress_pack12 \
@@ -846,8 +884,8 @@ class StreamingLandmarkAnalysis:
             """Spill frames [a, b) of a block's labels to the memmap."""
             if labels_out is None:
                 return
-            lab = fetch_labels(box)
-            with ph("labels_memmap_write"):
+            lab = fetch_labels(lo, box)
+            with ph("labels_memmap_write", lo):
                 labels_out[lo + a:lo + b] = lab[a:b]
 
         def valid_frames(n, a, b):
@@ -862,33 +900,43 @@ class StreamingLandmarkAnalysis:
                 return gather_frames(frames, dev)
             return frames
 
-        def fold(a, b, labels, confs, mobile):
-            """Fold frames [a, b) of one block's assignment (``mobile``: the
-            block's ion frames, whole)."""
+        def fold(lo, a, b, labels, confs, mobile, start=None):
+            """Fold frames [a, b) of the assignment of the block at ``lo``
+            (``mobile``: the block's ion frames, whole); its device bracket
+            starts at ``start`` (an event after the assignment) or now."""
             nonlocal carry
-            with ph("dispatch_fold"):
+            with ph("dispatch_fold", lo):
+                if start is None:
+                    start = lanes.mark()
                 carry = _accum_block(
                     labels, confs, mobile, cell_inv,
                     valid_frames(labels.shape[0], a, b), carry, acc,
                     n_sites=K, max_mobile=self.max_mobile_per_site)
+                if start is not None:
+                    brackets.append((lo, 1, start, lanes.mark()))
 
         def static_columns():
             return static_idx[perm] if self.dynamic_lattice_mapping \
                 else static_idx
 
-        def upload_static(block):
-            with ph("upload"):
+        def upload_static(lo, block):
+            with ph("upload", lo):
                 return lanes.take(block, static_columns())
 
-        def assign(mobile, static):
-            """One block's assignment and the box its egress labels are
-            fetched through."""
-            with ph("dispatch_assign"):
+        def assign(lo, mobile, static):
+            """The assignment of the block at ``lo``, the box its egress
+            labels are fetched through, and an event at its end (None on a
+            CPU device)."""
+            with ph("dispatch_assign", lo):
+                start = lanes.mark()
                 out = _assign_block(mobile, static, route, **assign_kw)
+                end = lanes.mark()
+            if end is not None:
+                brackets.append((lo, 0, start, end))
             box = {"np": None, "dev": out[3], "copy": None}
             if labels_out is not None and self.async_label_copy:
                 box["copy"] = lanes.start_download(out[3])
-            return out, box
+            return out, box, end
 
         def process_block(lo, block, nb, mobile, pre=None):
             """The synchronous per-block path: per-frame drift gating,
@@ -908,10 +956,10 @@ class StreamingLandmarkAnalysis:
                     # (re)assign the whole block — on entry and after a
                     # slot→atom permutation change; labels are fetched
                     # lazily after the first accumulator dispatch
-                    (labels, confs, drift, _), box = assign(
-                        mobile, upload_static(block))
+                    (labels, confs, drift, _), box, _ = assign(
+                        lo, mobile, upload_static(lo, block))
                     if thr_drift is not None:
-                        with ph("drift_fetch"):
+                        with ph("drift_fetch", lo):
                             drift_f = drift[:nb].cpu().numpy()
                     need_assign = False
                 stop = nb
@@ -929,7 +977,7 @@ class StreamingLandmarkAnalysis:
                                 frame=lo + processed + int(off[0]))
                         stop = processed + int(off[0])
                 if stop > processed:
-                    fold(processed, stop, labels, confs, mobile_full)
+                    fold(lo, processed, stop, labels, confs, mobile_full)
                     write_labels(lo, processed, stop, box)
                 if stop < nb:
                     # a few remap attempts are allowed at one frame; any
@@ -960,7 +1008,8 @@ class StreamingLandmarkAnalysis:
                         # the f32 device drift grazed the threshold but the
                         # f64 check finds no offender: accept the frame;
                         # the assignment stays valid (perm unchanged)
-                        fold(stop, stop + 1, labels, confs, mobile_full)
+                        fold(lo, stop, stop + 1, labels, confs,
+                             mobile_full)
                         write_labels(lo, stop, stop + 1, box)
                         processed = stop + 1
                         continue
@@ -995,16 +1044,16 @@ class StreamingLandmarkAnalysis:
         def dispatch(lo, block, nb):
             """Enqueue one block with no host synchronisation."""
             nonlocal carry
-            with ph("upload"):
+            with ph("upload", lo):
                 mobile, static = lanes.upload(
                     block, (mobile_idx, static_columns()))
             snap = None
             if thr_drift is not None:
-                with ph("snapshot"):
+                with ph("snapshot", lo):
                     snap = (carry, _snapshot(acc))
-            (labels, confs, drift, _), box = assign(mobile, static)
-            assigned = lanes.mark()
-            fold(0, nb, labels, confs, full(mobile))
+            (labels, confs, drift, _), box, assigned = assign(lo, mobile,
+                                                              static)
+            fold(lo, 0, nb, labels, confs, full(mobile), start=assigned)
             window.append(dict(lo=lo, nb=nb, block=block, mobile=mobile,
                                labels=labels, confs=confs, drift=drift,
                                box=box, snap=snap, assigned=assigned))
@@ -1028,9 +1077,9 @@ class StreamingLandmarkAnalysis:
                             e["box"]["dev"], e["assigned"])
             drifts = []
             if guard:
-                with ph("drift_fetch"):
-                    drifts = [lanes.wait(t)[:e["nb"]]
-                              for t, e in zip(tickets, entries)]
+                for t, e in zip(tickets, entries):
+                    with ph("drift_fetch", e["lo"]):
+                        drifts.append(lanes.wait(t)[:e["nb"]])
             off_at = next((i for i, dr in enumerate(drifts)
                            if (dr > thr_drift).any()), None)
             for e in entries[:off_at]:
@@ -1063,12 +1112,24 @@ class StreamingLandmarkAnalysis:
                 return {k: v.cpu().numpy() for k, v in acc.items()}
 
         blocks_done = 0
-        feeder = get_progress_bar(
-            ChunkedFeeder(reader, B, start=start_lo), enabled=self.verbose,
-            total=-(-(n_frames - start_lo) // B), desc="streaming",
-            unit="block")
+        read_pt = {}
+        feeder = iter(get_progress_bar(
+            ChunkedFeeder(reader, B, start=start_lo,
+                          span=lambda lo: Span(read_pt, "read", lo,
+                                               read_log)),
+            enabled=self.verbose, total=-(-(n_frames - start_lo) // B),
+            desc="streaming", unit="block"))
         _setup.__exit__()
-        for lo, block in _timed_iter(feeder, pt, "feeder"):
+        next_lo = start_lo
+        while True:
+            # the wait for the block the feeder hands over next (the last
+            # wait, for the feeder's end, is of no block)
+            with ph("feeder", next_lo if next_lo < n_frames else NO_BLOCK):
+                item = next(feeder, None)
+            if item is None:
+                break
+            lo, block = item
+            next_lo = lo + B
             nb = len(block)
             # a short block runs on its own frames, padded only up to a
             # multiple of the mesh size (the padding is masked out)
@@ -1092,7 +1153,8 @@ class StreamingLandmarkAnalysis:
                                           totals, perm)
 
         drain()
-        totals = host_totals()
+        totals = host_totals()   # the compute stream is done here
+        device_ms = _bracket_ms(brackets)
         self.final_state_ = dict(
             totals, carry_last=carry[0].cpu().numpy(),
             carry_res=carry[1].cpu().numpy())
@@ -1106,6 +1168,20 @@ class StreamingLandmarkAnalysis:
         self._check_multiple_occupancy(totals, n_frames)
         with ph("finalize"):
             out = self._finalize(sn, centers, totals, n_frames, labels_out)
+        wall_ns = time.perf_counter_ns() - t_run
+        names = list(log.names)
+        decode1 = pool_counters()
+        self.run_trace_ = dict(
+            phases=names, spans=_merge_spans(log.table(names),
+                                             read_log.table(names)),
+            blocks=np.arange(start_lo, n_frames, B, dtype=np.int64),
+            clock_offset_ns=offset, device=device_ms,
+            decode=dict(tasks=decode1[0] - decode0[0],
+                        busy_s=decode1[1] - decode0[1], threads=N_THREADS),
+            frames=n_frames - start_lo, block_frames=B,
+            start_ns=t_run + offset, wall_s=wall_ns * 1e-9,
+            profiled=profiled)
+        record_run(self.run_trace_)
         return out
 
     def _check_multiple_occupancy(self, host_acc, n_frames):

@@ -11,6 +11,9 @@ until a CUDA tensor reaches a kernel wrapper.
 Every launcher checks device, dtype, shape and contiguity, launches on
 PyTorch's current stream, and raises when the C entry returns a CUDA error
 (a refused launch never runs, and a later synchronise would not report it).
+While a profiler records, each launch runs inside a ``record_function``
+range named after its C entry, so a trace holds a host record of the
+``ctypes`` launches (the profiler sees no runtime call for them).
 A launch goes to the current device (the C entries take its stream, and
 their runtime calls act on it), so every tensor a launcher is given must
 lie on that device: the public wrappers make the inputs' card current, and
@@ -31,6 +34,7 @@ from pathlib import Path
 import torch
 
 from sitator_tpu_torch.ops.kernel_common import skew_cluster_size
+from sitator_tpu_torch.util.timing import profiler_recording, record_function
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build"
@@ -141,7 +145,11 @@ def library():
 
 def _call(name, *args):
     lib = library()
-    err = getattr(lib, name)(*args)
+    if profiler_recording():
+        with record_function(name):
+            err = getattr(lib, name)(*args)
+    else:
+        err = getattr(lib, name)(*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} "
                            f"({lib.sit_error_string(err).decode()})")
