@@ -958,28 +958,175 @@ def phase_kernels(device):
     return res
 
 
+def hop_labels(rng, F, M, S, p_hop, p_unknown):
+    """``(F, M)`` int32 labels of ions that hop to a random site with
+    probability ``p_hop`` a frame, unknown (-1) with ``p_unknown``."""
+    cur = rng.integers(0, S, M)
+    out = np.empty((F, M), np.int32)
+    for f in range(F):
+        cur = np.where(rng.random(M) < p_hop, rng.integers(0, S, M), cur)
+        out[f] = np.where(rng.random(M) < p_unknown, -1, cur)
+    return out
+
+
+def phase_jumps(device):
+    """The jump-scan kernel (``csrc/jump_fold.cu`` through
+    ``ops/jumps.py::jump_fold``) against its plain version (the frame loop,
+    ``_jump_scan``) on the card and the host int64 oracle: at the engine's
+    shape (1024 frames x 739 ions, 1024 sites, with a carry) under both
+    policies, with hops at the benchmark's rate and on every frame; then
+    random chained blocks of uneven length (a strided label view among
+    them).  Integers must be equal.  Times the kernel a 1024-frame block
+    beside its bound and the plain version's time.  Returns the row of the
+    kernel table."""
+    import torch
+    from sitator_tpu_torch.ops import _cuda
+    from sitator_tpu_torch.ops import jumps as tj
+    dev = torch.device(device)
+    rng = np.random.default_rng(22)
+    keys = ("n_ij", "lag_sum", "res_sum", "res_cnt")
+
+    def zeros(S):
+        return tuple(torch.zeros((S, S) if k in ("n_ij", "lag_sum") else S,
+                                 dtype=torch.int64, device=dev)
+                     for k in keys)
+
+    def carry_of(M, S):
+        last = rng.integers(-1, S, M).astype(np.int64)
+        res = np.where(last >= 0, rng.integers(1, 500, M), 0)
+        return last, res.astype(np.int64)
+
+    def on_card(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def same(name, tallies, carry, want, last, res):
+        for k, t in zip(keys, tallies):
+            got = t.cpu().numpy() if torch.is_tensor(t) else t
+            check(np.array_equal(got, want[k]), f"jump fold {name}: {k} "
+                  "differs")
+        check(np.array_equal(carry[0].cpu().numpy(), last)
+              and np.array_equal(carry[1].cpu().numpy(), res),
+              f"jump fold {name}: the carry differs")
+
+    F, M, S = 1024, 739, 1024
+    n0 = tj.jump_fold.launches
+    for policy in ("persist", "break"):
+        for label, p_hop in (("benchmark rate", 0.003), ("every frame", 1.0)):
+            traj = hop_labels(rng, F, M, S, p_hop, 0.003)
+            last0, res0 = carry_of(M, S)
+            want, last, res = tj._jump_stats_block_int64(
+                traj, S, last0.copy(), res0.copy(), policy)
+            t_lab, c_in = on_card(traj), (on_card(last0), on_card(res0))
+            tallies = zeros(S)
+            carry = tj.jump_fold(t_lab, S, c_in, tallies,
+                                 unknown_policy=policy)
+            sync()
+            check(np.array_equal(c_in[0].cpu().numpy(), last0)
+                  and np.array_equal(c_in[1].cpu().numpy(), res0),
+                  "jump fold: the input carry was written")
+            same(f"{policy}, {label}", tallies, carry, want, last, res)
+            *plain, p_last, p_res = tj._jump_scan(
+                t_lab.long(), S, c_in[0], c_in[1], policy)
+            same(f"{policy}, {label}, plain version on the card",
+                 [v[:S, :S] if v.dim() == 2 else v[:S] for v in plain],
+                 (p_last, p_res), want, last, res)
+            print(f"jump fold {F} x {M}, S {S}, carry, {policy}, hops at "
+                  f"{label}: {int(want['n_ij'].sum())} jumps, every tally "
+                  "and the carry == the plain version on the card == the "
+                  "int64 oracle", flush=True)
+
+    n_cases = 0
+    for i in range(24):
+        policy = ("persist", "break")[i % 2]
+        Mi = int(rng.choice([1, 31, 33, 739, 1000]))
+        Si = int(rng.choice([2, 64, 1024]))
+        tallies = zeros(Si)
+        last, res = carry_of(Mi, Si)
+        carry = (on_card(last), on_card(res))
+        tot = {k: 0 for k in keys}
+        for Fi in rng.integers(1, 130, 3):
+            traj = hop_labels(rng, int(Fi), Mi, Si, 0.2, 0.2)
+            traj[:int(rng.integers(0, Fi))] = -1    # starts inside a gap
+            blk, last, res = tj._jump_stats_block_int64(traj, Si, last, res,
+                                                        policy)
+            tot = {k: tot[k] + blk[k] for k in keys}
+            t_lab = on_card(traj)
+            if i % 3 == 0:    # a strided view: rows of a wider block
+                wide = torch.full((len(traj), Mi + 5), -7,
+                                  dtype=torch.int32, device=dev)
+                wide[:, :Mi] = t_lab
+                t_lab = wide[:, :Mi]
+            carry = tj.jump_fold(t_lab, Si, carry, tallies,
+                                 unknown_policy=policy)
+        same(f"chained case {i} (M {Mi}, S {Si}, {policy})", tallies, carry,
+             tot, last, res)
+        n_cases += 1
+    print(f"jump fold: {n_cases} random chained cases (3 blocks of 1-129 "
+          "frames, each starting inside an unknown gap, strided views "
+          "among them) == the int64 oracle", flush=True)
+    for bad, err in ((torch.zeros((4, M), dtype=torch.int64, device=dev),
+                      TypeError),
+                     (torch.zeros((4, M + 1), dtype=torch.int32, device=dev),
+                      ValueError)):
+        raised = False
+        try:
+            tj.jump_fold(bad, S, (on_card(last0), on_card(res0)), zeros(S))
+        except err:
+            raised = True
+        check(raised, f"jump fold took labels {bad.dtype} {tuple(bad.shape)} "
+              f"with a carry of {M}")
+
+    traj = hop_labels(rng, F, M, S, 0.003, 0.003)
+    last0, res0 = carry_of(M, S)
+    t_lab, c_in = on_card(traj), (on_card(last0), on_card(res0))
+    tallies = zeros(S)
+    n_jumps = int(tj._jump_stats_block_int64(
+        traj, S, last0.copy(), res0.copy(), "persist")[0]["n_ij"].sum())
+    ms = timed(lambda: _cuda.jump_fold(t_lab, *c_in, *tallies,
+                                       unknown_policy="persist"), 50)
+    plain_ms = timed(lambda: tj._jump_scan(t_lab.long(), S, *c_in,
+                                           "persist"), 3)
+    bound_ms, bound_by = bound(4 * F * M + 32 * M + 32 * n_jumps)
+    launches = tj.jump_fold.launches - n0
+    print(f"time jump fold a {F}-frame block ({M} ions, {n_jumps} jumps): "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}); launches here {launches}",
+          flush=True)
+    return dict(name="jump fold (carried jump scan, int64 atomics at the "
+                     "jumps)",
+                source="sitator_tpu_torch/csrc/jump_fold.cu",
+                replaces="none: the hot-path form of the reference's "
+                         "lax.scan, sitator_tpu/ops/jumps.py:99",
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
 def reset_launches():
     """Set every kernel wrapper's launch count to 0."""
+    from sitator_tpu_torch.ops import jumps as tj
     from sitator_tpu_torch.ops import landmark_mxu as mx
     from sitator_tpu_torch.ops import landmark_pallas as lp
     mx.mxu_assign_blocks.launches = 0
     mx.mxu_assign_blocks.skew_launches = 0
     mx.mxu_landmark_blocks.launches = 0
     lp.fused_assign_blocks.launches = 0
+    tj.jump_fold.launches = 0
     for fn in (mx.mxu_assign_blocks, mx.mxu_landmark_blocks,
-               lp.fused_assign_blocks):
+               lp.fused_assign_blocks, tj.jump_fold):
         fn.launches_by_card.clear()
 
 
 def read_launches():
     """The launch counts by kernel, after a synchronise."""
+    from sitator_tpu_torch.ops import jumps as tj
     from sitator_tpu_torch.ops import landmark_mxu as mx
     from sitator_tpu_torch.ops import landmark_pallas as lp
     sync()
     return dict(K1=mx.mxu_assign_blocks.launches,
                 K2=mx.mxu_landmark_blocks.launches,
                 K3=lp.fused_assign_blocks.launches,
-                K1s=mx.mxu_assign_blocks.skew_launches)
+                K1s=mx.mxu_assign_blocks.skew_launches,
+                fold=tj.jump_fold.launches)
 
 
 def read_launches_by_card():
@@ -1497,6 +1644,9 @@ def phase_streaming(device):
         launches = read_launches()
         check(sla.route_ == "mxu", f"streaming route {sla.route_}")
         check(launches["K1"] > 0, "streaming run did not launch K1")
+        check(launches["fold"] == sla.run_trace_["fold"]["launches"] > 0,
+              f"streaming run: jump fold launches {launches['fold']}, run "
+              f"record {sla.run_trace_['fold']}")
         labels = np.array(np.load(Path(tmp) / "labels.npy"))
         phases = dict(sla.phase_times_)
     fps = n_frames / t_run
@@ -1518,6 +1668,9 @@ def phase_streaming(device):
     check(np.array_equal(out.n_ij, want["n_ij"]),
           "streaming n_ij differs from the int64 oracle on its labels")
     check(out.n_ij.sum() > 0, "streaming: no jumps")
+    check(sla.run_trace_["fold"]["jumps"] == int(want["n_ij"].sum()),
+          f"streaming run record: {sla.run_trace_['fold']} jumps, the "
+          f"oracle {int(want['n_ij'].sum())}")
     check(np.array_equal(out.occupancies,
                          np.bincount(labels[labels >= 0], minlength=K)
                          / n_frames),
@@ -1632,7 +1785,8 @@ def phase_northstar(device):
     check(card["eng"].route_ == host["eng"].route_ == "mxu",
           f"north-star routes {card['eng'].route_}, {host['eng'].route_}")
     check(fit_launches["K2"] >= 1, f"north-star fit launches {fit_launches}")
-    want = dict(K1=2 * NS_BLOCKS, K2=fit_launches["K2"], K3=0, K1s=0)
+    want = dict(K1=2 * NS_BLOCKS, K2=fit_launches["K2"], K3=0, K1s=0,
+                fold=2 * NS_BLOCKS)
     check(launches == want, f"north-star launches {launches}, want {want}")
     # (5) no host round trip for the card's pool
     check(card["eng"].staged_blocks_ == 0,
@@ -5431,13 +5585,26 @@ def main():
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if sys.argv[1:] == ["jumps"]:
+        fold = phase_jumps("cuda")
+        launches, _, _ = phase_streaming("cuda")
+        print(json.dumps({"kernels": [dict(fold, route="cuda",
+                                           launches=launches["fold"])]}),
+              flush=True)
+        print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}; the "
-              "arguments are 'cards' and 'examples'", file=sys.stderr)
+              "arguments are 'cards', 'examples' and 'jumps'",
+              file=sys.stderr)
         return 2
     phase_zarr_layouts()
     phase_h5_layouts()
     res = phase_kernels("cuda")
+    fold = phase_jumps("cuda")
     paths = {}
     paths["slice"], fps = phase_slice("cuda")
     paths["K1s"] = phase_skew("cuda")
@@ -5472,6 +5639,9 @@ def main():
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"],
                             library_ms=r["library_ms"], **extra))
+    n = sum(p.get("fold", 0) for p in paths.values())
+    check(n > 0, "the jump fold was launched on no path")
+    kernels.append(dict(fold, route="cuda", launches=n))
     print(f"bench step frames/s (median of 5): {json.dumps(bench_fps)}; "
           f"pipeline frames/s: K1 {fps:.1f}, K3 {gather_fps:.1f}; streaming "
           f"pass 2 frames/s: K1 {stream_fps:.1f} (depth 2 {depth_fps[2]:.1f}, "

@@ -55,7 +55,7 @@ from sitator_tpu_torch.core import SiteNetwork
 from sitator_tpu_torch.io import ArrayTrajectory, ChunkedFeeder
 from sitator_tpu_torch.ops import landmark as lmops
 from sitator_tpu_torch.ops.cluster import dotprod_fit
-from sitator_tpu_torch.ops.jumps import _jump_stats
+from sitator_tpu_torch.ops.jumps import jump_fold
 from sitator_tpu_torch.parallel.mesh import (ShardedFrames, bind_mesh,
                                              gather_frames, pad_frames,
                                              place_frames, run_sharded,
@@ -428,8 +428,12 @@ def _accum_block(labels, confs, mobile, cell_inv, valid, carry, acc, *,
     all-unknown (label −1), which by the jump scan's unknown-frame policy
     neither emits jumps nor advances residences and keeps the carry — so
     block padding and partial folds are exact.  ``carry = (last, res)``
-    chains across calls.  Per-site sums go through ``index_add_`` (atomic
-    adds on the card); slot ``n_sites`` collects the unassigned."""
+    chains across calls; the returned carry is a new pair of tensors (the
+    given one is not written).  Per-site sums go through ``index_add_``
+    (atomic adds on the card); slot ``n_sites`` collects the unassigned and
+    is the only occupancy count.  The jump tallies go straight into
+    ``acc`` through :func:`~sitator_tpu_torch.ops.jumps.jump_fold`: on a
+    card one kernel launch, after the sums on the same stream."""
     labels = torch.where(valid[:, None], labels, -1)
     S = n_sites
     known = labels >= 0
@@ -440,10 +444,8 @@ def _accum_block(labels, confs, mobile, cell_inv, valid, carry, acc, *,
     acc["conf"].index_add_(0, flat, w.double())
     acc["cos"].index_add_(0, flat, (w[:, None] * torch.cos(frac)).double())
     acc["sin"].index_add_(0, flat, (w[:, None] * torch.sin(frac)).double())
-    stats = _jump_stats(labels, n_sites, init_last=carry[0],
-                        init_res=carry[1])
-    for k in ("n_ij", "lag_sum", "res_sum", "res_cnt"):
-        acc[k] += stats[k]
+    carry = jump_fold(labels, S, carry, tuple(
+        acc[k] for k in ("n_ij", "lag_sum", "res_sum", "res_cnt")))
     if max_mobile is not None:
         # (frame, site) cells holding more than max_mobile assigned ions
         B = labels.shape[0]
@@ -453,7 +455,7 @@ def _accum_block(labels, confs, mobile, cell_inv, valid, carry, acc, *,
                              device=flat.device)
         per_fs.index_add_(0, cells.reshape(-1), torch.ones_like(flat))
         acc["mo_viol"] += (per_fs.view(B, S + 1)[:, :S] > max_mobile).sum()
-    return stats["last_sites"], stats["last_res"]
+    return carry
 
 
 class StreamingLandmarkAnalysis:
@@ -844,6 +846,8 @@ class StreamingLandmarkAnalysis:
             if self.verbose:
                 logger.info("resuming streaming run at frame %d", start_lo)
 
+        jumps0 = int(np.sum(host_acc.get("res_cnt", 0)))   # resumed
+        folds0 = jump_fold.launches
         acc = _zero_accumulators(K, self.max_mobile_per_site)
         for k, v in host_acc.items():
             if k in acc:
@@ -1178,6 +1182,8 @@ class StreamingLandmarkAnalysis:
             clock_offset_ns=offset, device=device_ms,
             decode=dict(tasks=decode1[0] - decode0[0],
                         busy_s=decode1[1] - decode0[1], threads=N_THREADS),
+            fold=dict(launches=jump_fold.launches - folds0,
+                      jumps=int(totals["res_cnt"].sum()) - jumps0),
             frames=n_frames - start_lo, block_frames=B,
             start_ns=t_run + offset, wall_s=wall_ns * 1e-9,
             profiled=profiled)

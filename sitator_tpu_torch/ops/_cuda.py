@@ -68,6 +68,9 @@ _SIGNATURES = {
     "sit_assign_skew_wgmma": [_P] * 12 + [_I] * 8 + [_P, _I, _I, _I, _P],
     # nc, UP, s_tile, vmax, &stages, &smem, &clusters
     "sit_assign_skew_wgmma_occupancy": [_I] * 4 + [_P] * 3,
+    # labels, F, M, ld, last_in, res_in, last_out, res_out, n_ij, lag_sum,
+    # res_sum, res_cnt, S, brk, stream
+    "sit_jump_fold": [_P] + [_I] * 3 + [_P] * 8 + [_I] * 2 + [_P],
 }
 
 
@@ -433,3 +436,35 @@ def assign_skew_wgmma(mob, vpu, midx, mmul, kill, anchors, centers_b,
           p.data_ptr(), int(triclinic), int(r2_cutoff), int(preshift),
           _stream())
     return labels, confs
+
+
+def jump_fold(labels, last, res, n_ij, lag_sum, res_sum, res_cnt, *,
+              unknown_policy):
+    """The carried jump scan of ``labels (F, M)`` (int32, the assignment's
+    dtype; rows may be strided) from the carry ``last``, ``res (M,)`` int64:
+    every jump adds to ``n_ij``, ``lag_sum (S, S)`` and ``res_sum``,
+    ``res_cnt (S,)`` (int64) in place.  Returns the new carry ``(last,
+    res)`` in fresh tensors; the given carry is not written."""
+    F, M = labels.shape
+    S = n_ij.shape[0]
+    err = launch_device_error(
+        labels.device,
+        torch.cuda.current_device() if labels.is_cuda else None)
+    if err is not None:
+        raise ValueError(f"labels: {err}")
+    if labels.dtype != torch.int32:
+        raise TypeError(f"labels must be torch.int32, got {labels.dtype}")
+    if M > 1 and labels.stride(1) != 1:
+        raise ValueError("labels' rows must be contiguous")
+    last_out = torch.empty(M, device=labels.device, dtype=torch.int64)
+    res_out = torch.empty_like(last_out)
+    _call("sit_jump_fold", labels.data_ptr(), F, M, labels.stride(0),
+          _check(last, "last", torch.int64, (M,)),
+          _check(res, "res", torch.int64, (M,)),
+          last_out.data_ptr(), res_out.data_ptr(),
+          _check(n_ij, "n_ij", torch.int64, (S, S)),
+          _check(lag_sum, "lag_sum", torch.int64, (S, S)),
+          _check(res_sum, "res_sum", torch.int64, (S,)),
+          _check(res_cnt, "res_cnt", torch.int64, (S,)), S,
+          int(unknown_policy == "break"), _stream())
+    return last_out, res_out

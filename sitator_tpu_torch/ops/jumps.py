@@ -1,11 +1,15 @@
 """Jump statistics (counterpart of ``sitator_tpu.ops.jumps``).
 
 The per-ion "last known site" carry runs over the frames of a ``(F, M)``
-label block with vectorised per-ion state, and every per-event tally (hop
-counts ``n_ij``, residence sums, jump-lag sums) is a scatter-add into dense
-``(S+1, S+1)`` accumulators (slot ``S`` is the dummy for non-events).  The
-tallies are int64, so no block bound or wrap guard is needed; every value
-equals the reference's int64 oracle (:func:`_jump_stats_block_int64`).
+label block.  On a card the carried scan is one kernel launch
+(:func:`jump_fold`, ``csrc/jump_fold.cu``): one thread an ion, the carry in
+registers, int64 atomics at the jumps alone.  On the CPU it is the plain
+version (:func:`_jump_scan`): a loop over frames with vectorised per-ion
+state, every per-event tally (hop counts ``n_ij``, residence sums, jump-lag
+sums) a scatter-add into dense ``(S+1, S+1)`` accumulators (slot ``S`` is
+the dummy for non-events).  The tallies are int64, so no block bound or
+wrap guard is needed; every value equals the reference's int64 oracle
+(:func:`_jump_stats_block_int64`).
 
 Unknown frames (``-1``) follow ``unknown_policy``: 'persist' (default —
 an ion's previous site persists across unknown gaps, and unknown frames
@@ -13,6 +17,8 @@ neither emit jumps nor advance residence) or 'break' (an unknown frame
 forgets the previous site; the next assignment starts a fresh residence).
 """
 from __future__ import annotations
+
+from collections import Counter
 
 import numpy as np
 import torch
@@ -67,10 +73,10 @@ def jump_stats(traj, n_sites, init_last=None, init_res=None,
 
 def _jump_stats(traj, n_sites, init_last=None, init_res=None,
                 unknown_policy="persist"):
-    """The sequential form: a loop over frames carrying ``(last, res)``."""
-    _check_policy(unknown_policy)
-    traj = traj.to(torch.int64)
-    F, M = traj.shape
+    """The sequential form: the carried scan (:func:`jump_fold`: the kernel
+    on a CUDA tensor, which takes int32 labels, the frame loop on a CPU
+    tensor) and the occupancy."""
+    M = traj.shape[1]
     S = n_sites
     dev = traj.device
     last = (torch.full((M,), -1, dtype=torch.int64, device=dev)
@@ -78,9 +84,26 @@ def _jump_stats(traj, n_sites, init_last=None, init_res=None,
             else torch.as_tensor(init_last, device=dev).to(torch.int64))
     res = (torch.zeros(M, dtype=torch.int64, device=dev) if init_res is None
            else torch.as_tensor(init_res, device=dev).to(torch.int64))
+    tallies = (torch.zeros((S, S), dtype=torch.int64, device=dev),
+               torch.zeros((S, S), dtype=torch.int64, device=dev),
+               torch.zeros(S, dtype=torch.int64, device=dev),
+               torch.zeros(S, dtype=torch.int64, device=dev))
+    last, res = jump_fold(traj, S, (last.contiguous(), res.contiguous()),
+                          tallies, unknown_policy=unknown_policy)
+    return dict(zip(("n_ij", "lag_sum", "res_sum", "res_cnt"), tallies),
+                occ_counts=_occupancy(traj.long(), S)[:S], last_sites=last,
+                last_res=res)
+
+
+def _jump_scan(traj, S, last, res, unknown_policy):
+    """The plain carried scan: a loop over the frames of ``traj (F, M)``
+    (int64) carrying ``(last, res)`` (int64 ``(M,)``).  Returns the tallies
+    ``n_ij``, ``lag_sum`` ``(S+1, S+1)``, ``res_sum``, ``res_cnt``
+    ``(S+1,)`` (slot ``S`` the dummy) and the new ``last``, ``res``."""
+    dev = traj.device
     empty = torch.zeros(0, dtype=torch.int64, device=dev)
     rows_from, rows_to, rows_one, rows_res = [empty], [empty], [empty], [empty]
-    for f in range(F):
+    for f in range(traj.shape[0]):
         s_f = traj[f]
         known = s_f >= 0
         have_last = last >= 0
@@ -97,13 +120,43 @@ def _jump_stats(traj, n_sites, init_last=None, init_res=None,
             res = torch.where(known, res, 0)  # carry is void after a gap
         else:
             last = torch.where(known, s_f, last)
-    n_ij, lag, res_sum, res_cnt = _tally(
-        S, torch.cat(rows_from), torch.cat(rows_to), torch.cat(rows_one),
-        torch.cat(rows_res), dev)
-    occ = _occupancy(traj, S)
-    return dict(n_ij=n_ij[:S, :S], lag_sum=lag[:S, :S], res_sum=res_sum[:S],
-                res_cnt=res_cnt[:S], occ_counts=occ[:S], last_sites=last,
-                last_res=res)
+    return (*_tally(S, torch.cat(rows_from), torch.cat(rows_to),
+                    torch.cat(rows_one), torch.cat(rows_res), dev), last, res)
+
+
+def jump_fold(traj, n_sites, carry, tallies, unknown_policy="persist"):
+    """Fold the ``(F, M)`` label block ``traj`` into ``tallies = (n_ij,
+    lag_sum, res_sum, res_cnt)`` (int64, ``(S, S)``, ``(S, S)``, ``(S,)``,
+    ``(S,)``), in place, from ``carry = (last_sites, last_res)`` (int64
+    ``(M,)``).  Returns the new carry; the given one is not written, and on
+    a card the new one is in fresh tensors.  Occupancy is not counted.
+
+    On a CUDA tensor this launches ``csrc/jump_fold.cu`` on the labels'
+    card: the labels int32 (the assignment's dtype; another raises), the
+    rest on that card.  ``.launches`` counts the launches,
+    ``.launches_by_card`` the same by card index.  On a CPU tensor it runs
+    the plain frame loop (:func:`_jump_scan`)."""
+    _check_policy(unknown_policy)
+    last, res = carry
+    if traj.is_cuda:
+        from sitator_tpu_torch.ops import _cuda
+        with torch.cuda.device(traj.device):
+            out = _cuda.jump_fold(traj, last, res, *tallies,
+                                  unknown_policy=unknown_policy)
+        jump_fold.launches += 1
+        jump_fold.launches_by_card[traj.device.index] += 1
+        return out
+    S = n_sites
+    *sums, last, res = _jump_scan(traj.to(torch.int64), S,
+                                  last.to(torch.int64), res.to(torch.int64),
+                                  unknown_policy)
+    for t, v in zip(tallies, sums):
+        t += v[:S, :S] if v.dim() == 2 else v[:S]
+    return last, res
+
+
+jump_fold.launches = 0
+jump_fold.launches_by_card = Counter()
 
 
 def _jump_stats_block_int64(traj, S, last, res, unknown_policy):
@@ -164,8 +217,11 @@ def jump_stats_exact(traj, n_sites, init_last=None, init_res=None,
                 res_cnt=np.zeros(S, np.int64),
                 occ_counts=np.zeros(S, np.int64))
     for lo in range(0, F, block_frames):
-        blk = _jump_stats(torch.from_numpy(traj[lo:lo + block_frames]).to(
-            device), S, init_last=torch.from_numpy(last).to(device),
+        # int32: the kernel's label dtype (the frame loop widens to int64)
+        blk = _jump_stats(
+            torch.from_numpy(np.ascontiguousarray(
+                traj[lo:lo + block_frames], np.int32)).to(device), S,
+            init_last=torch.from_numpy(last).to(device),
             init_res=torch.from_numpy(res).to(device),
             unknown_policy=unknown_policy)
         last = blk.pop("last_sites").cpu().numpy()

@@ -109,7 +109,8 @@ def _block_stats(labels, n_sites, valid, carry):
     """Jump statistics for one block.  ``valid (F,)`` masks padding frames
     to label −1 (exact no-ops under the unknown-frame policy).  ``carry =
     (last_sites, last_res)`` chains residences across blocks through the
-    sequential form; without it the prefix form runs."""
+    carried scan (one kernel launch on a card); without it the prefix form
+    runs."""
     if valid is not None:
         labels = torch.where(
             torch.as_tensor(valid, device=labels.device)[:, None], labels, -1)

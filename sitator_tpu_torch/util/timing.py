@@ -236,6 +236,9 @@ def recent_runs():
       CUDA events on the compute stream;
     - ``decode``: the I/O pool's tasks and thread-seconds over the run
       (``tasks``, ``busy_s``) and its size (``threads``);
+    - ``fold``: the jump-scan kernel's launches in the run (``launches``,
+      ``ops.jumps.jump_fold.launches``; 0 on a CPU device, where the plain
+      loop runs) and the jumps the run tallied (``jumps``);
     - ``frames`` (of the run), ``block_frames``, ``start_ns`` and
       ``wall_s`` (the run's, from set-up to finalize), ``profiled``
       (whether a profiler recorded at the run's start)."""
