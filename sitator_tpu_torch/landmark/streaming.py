@@ -66,7 +66,8 @@ from sitator_tpu_torch.util.errors import (MultipleOccupancyError,
 from sitator_tpu_torch.util.progress import get_progress_bar
 from sitator_tpu_torch.util.timing import (NO_BLOCK, Span, SpanLog,
                                            clock_offset_ns,
-                                           profiler_recording, record_run)
+                                           profiler_recording, record_run,
+                                           stage_marks)
 
 logger = logging.getLogger(__name__)
 
@@ -110,21 +111,27 @@ def _merge_spans(*tables):
     return {k: v[order] for k, v in cat.items()}
 
 
+_BRACKETS = ("assign_ms", "fold_ms", "lv_ms")   # by a bracket's kind
+
+
 def _bracket_ms(brackets):
-    """The card's milliseconds of each block's assignment and fold from
-    their CUDA events ``(block, 0 assign | 1 fold, start, end)``, summed
-    by block in order of first use (a rolled-back block folds again):
-    ``{"block", "assign_ms", "fold_ms"}`` arrays, or None without events
-    (a CPU device).  Read once the compute stream has passed the events."""
+    """The card's milliseconds of each block's assignment and fold, and of
+    the assignment's landmark stage, from their CUDA events ``(block, 0
+    assign | 1 fold | 2 landmark stage, start, end)``, summed by block in
+    order of first use (a rolled-back block folds again): ``{"block",
+    "assign_ms", "fold_ms"}`` arrays, and ``"lv_ms"`` where a landmark
+    stage was bracketed, or None without events (a CPU device).  Read once
+    the compute stream has passed the events."""
     if not brackets:
         return None
     brackets[-1][3].synchronize()
     rows = {}
     for lo, kind, start, end in brackets:
-        rows.setdefault(lo, [0.0, 0.0])[kind] += start.elapsed_time(end)
-    ms = np.array(list(rows.values()), np.float64).reshape(-1, 2)
+        rows.setdefault(lo, [0.0, 0.0, 0.0])[kind] += start.elapsed_time(end)
+    ms = np.array(list(rows.values()), np.float64).reshape(-1, 3)
+    kinds = {kind for _, kind, _, _ in brackets} | {0, 1}
     return dict(block=np.fromiter(rows, np.int64, len(rows)),
-                assign_ms=ms[:, 0], fold_ms=ms[:, 1])
+                **{_BRACKETS[k]: ms[:, k] for k in sorted(kinds)})
 
 
 def _pack12(labels):
@@ -591,6 +598,7 @@ class StreamingLandmarkAnalysis:
         self.checkpoint_every = int(checkpoint_every)
         self.verbose = verbose
         self.n_sites_ = None
+        self.gate_ = None
 
     def _use_fused(self):
         if self.use_fused == "auto":
@@ -600,10 +608,11 @@ class StreamingLandmarkAnalysis:
     def _engine_basis(self, sn, verts, vmask, static_idx):
         """The unique-atom basis on the device, or None when the basis
         shares too few vertices (the gate shared with the other engines,
-        its preshift budget tied to the drift guard)."""
-        from sitator_tpu_torch.ops.landmark_mxu import (basis_from_jax,
-                                                        prepare_engine_basis)
-        basis = prepare_engine_basis(
+        its preshift budget tied to the drift guard); the gate's decision
+        is kept as ``gate_``."""
+        from sitator_tpu_torch.ops.landmark_mxu import (_engine_gate,
+                                                        basis_from_jax)
+        basis, self.gate_ = _engine_gate(
             verts, vmask, sn.centers, sn.structure.cell,
             midpoint=self.cutoff_midpoint, steepness=self.cutoff_steepness,
             cutoff_shape=self.cutoff_shape,
@@ -727,6 +736,7 @@ class StreamingLandmarkAnalysis:
         verts, vmask = sn.padded_vertices()
         cell_np = sn.structure.cell
         route = "dense"
+        self.gate_ = None
         plan = dict(centers=torch.as_tensor(centers, device=dev))
         if self._use_fused():
             route = "gather"
@@ -769,14 +779,15 @@ class StreamingLandmarkAnalysis:
         streaming result object).
 
         The run is measured as it goes, at the cost of a few array writes
-        a phase and three CUDA events a block: ``phase_times_`` (host
+        a phase and four CUDA events a block: ``phase_times_`` (host
         seconds by phase, :class:`_Phase`) and ``run_trace_``, the run
         record, also kept process-wide by
         :func:`~sitator_tpu_torch.util.timing.recent_runs` (its keys are
         documented there): every phase use as a span with its block (the
         block's first frame), the feeder thread's reads, the card's
-        milliseconds of each block's assignment and fold, and the I/O
-        pool's decode tasks and thread-seconds.  Under a ``torch.profiler``
+        milliseconds of each block's assignment, its landmark stage and
+        its fold, the fused-route gate's decision, and the I/O pool's
+        decode tasks and thread-seconds.  Under a ``torch.profiler``
         session opened before the call (``util.timing.device_trace``) the
         spans are ranges ``sitator.pass2.<phase>`` with ``block=<lo>``; the
         check is made once, at the call."""
@@ -931,12 +942,20 @@ class StreamingLandmarkAnalysis:
             """The assignment of the block at ``lo``, the box its egress
             labels are fetched through, and an event at its end (None on a
             CPU device)."""
+            lv_end = []     # the landmark stage's first mark (one device)
+
+            def lv_done():
+                if not lv_end and smesh is None:
+                    lv_end.append(lanes.mark())
             with ph("dispatch_assign", lo):
                 start = lanes.mark()
-                out = _assign_block(mobile, static, route, **assign_kw)
+                with stage_marks(lv_done):
+                    out = _assign_block(mobile, static, route, **assign_kw)
                 end = lanes.mark()
             if end is not None:
                 brackets.append((lo, 0, start, end))
+                if lv_end:
+                    brackets.append((lo, 2, start, lv_end[0]))
             box = {"np": None, "dev": out[3], "copy": None}
             if labels_out is not None and self.async_label_copy:
                 box["copy"] = lanes.start_download(out[3])
@@ -1179,7 +1198,7 @@ class StreamingLandmarkAnalysis:
             phases=names, spans=_merge_spans(log.table(names),
                                              read_log.table(names)),
             blocks=np.arange(start_lo, n_frames, B, dtype=np.int64),
-            clock_offset_ns=offset, device=device_ms,
+            clock_offset_ns=offset, device=device_ms, gate=self.gate_,
             decode=dict(tasks=decode1[0] - decode0[0],
                         busy_s=decode1[1] - decode0[1], threads=N_THREADS),
             fold=dict(launches=jump_fold.launches - folds0,

@@ -34,7 +34,8 @@ from pathlib import Path
 import torch
 
 from sitator_tpu_torch.ops.kernel_common import skew_cluster_size
-from sitator_tpu_torch.util.timing import profiler_recording, record_function
+from sitator_tpu_torch.util.timing import (profiler_recording,
+                                           record_function, stage_mark)
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build"
@@ -341,8 +342,10 @@ def assign_tail(lv, centers, threshold, *, peak_clip, mxu_bf16,
     centres ``centers (SP, KP)``: :func:`row_prep`, :func:`sims_argmax`
     (on the tensor cores when ``mxu_bf16``, against ``centers_b`` when
     given), :func:`argmax_merge`.  Returns (labels int32, confs float32),
-    both ``(rows,)``."""
+    both ``(rows,)``.  The landmark stage ends with :func:`row_prep`
+    (``util.timing.stage_mark``)."""
     inv_norm, lvb = row_prep(lv, peak_clip=peak_clip, bf16_copy=mxu_bf16)
+    stage_mark()
     part_val, part_idx = sims_argmax(lvb if mxu_bf16 else lv, inv_norm,
                                      centers, centers_b)
     return argmax_merge(part_val, part_idx, threshold)

@@ -48,6 +48,9 @@ from sitator_tpu_torch.ops.kernel_common import (as_f32, cell_array,
 
 logger = logging.getLogger(__name__)
 
+# the largest cost ratio (unique-atom work over gather work) that takes K1
+MAX_COST_RATIO = 0.75
+
 __all__ = ["prepare_mxu_basis", "prepare_engine_basis", "choose_s_tile",
            "mxu_assign_blocks", "mxu_supported", "permute_centers",
            "mxu_landmark_blocks", "basis_from_jax", "membership_lists"]
@@ -251,6 +254,19 @@ def prepare_engine_basis(verts, vmask, site_pos, cell, *, midpoint,
     (``vibration_margin = max(3, 2·budget)``; ``drift_budget=None``
     disables preshift), or None when the basis shares too few vertices
     for the unique-atom route (:func:`mxu_supported`)."""
+    return _engine_gate(verts, vmask, site_pos, cell, midpoint=midpoint,
+                        steepness=steepness, cutoff_shape=cutoff_shape,
+                        static_ref=static_ref, drift_budget=drift_budget,
+                        s_tile=s_tile)[0]
+
+
+def _engine_gate(verts, vmask, site_pos, cell, *, midpoint, steepness,
+                 cutoff_shape, static_ref=None, drift_budget=None,
+                 s_tile="auto"):
+    """:func:`prepare_engine_basis`'s basis (or None) and the gate's
+    decision, taken or refused: ``route`` ('mxu' for K1, 'gather' for
+    K3), ``cost_ratio`` and the most K1 takes (``max_cost_ratio``),
+    ``s_tile``, ``UP``, ``n_sites`` and ``vertex_slots``."""
     vib = (max(3.0, 2.0 * float(drift_budget))
            if drift_budget is not None else 3.0)
     if s_tile == "auto":
@@ -265,14 +281,19 @@ def prepare_engine_basis(verts, vmask, site_pos, cell, *, midpoint,
         midpoint=midpoint, steepness=steepness, cutoff_shape=cutoff_shape,
         vibration_margin=vib)
     ok = mxu_supported(basis)
+    S, V = np.shape(verts)
+    gate = dict(route="mxu" if ok else "gather",
+                cost_ratio=basis["cost_ratio"],
+                max_cost_ratio=MAX_COST_RATIO, s_tile=basis["s_tile"],
+                UP=basis["UP"], n_sites=int(S), vertex_slots=int(V))
     logger.debug(
         "fused-route gate: mxu=%s (cost_ratio %.3f), preshift=%s "
         "(drift budget %s)", ok, basis["cost_ratio"],
         basis["preshift"] if ok else "-", drift_budget)
-    return basis if ok else None
+    return (basis if ok else None), gate
 
 
-def mxu_supported(basis, max_cost_ratio=0.75) -> bool:
+def mxu_supported(basis, max_cost_ratio=MAX_COST_RATIO) -> bool:
     """True when the unique-atom formulation does less elementwise work than
     the gather kernel (vertex sharing is high enough)."""
     return basis["cost_ratio"] <= max_cost_ratio

@@ -33,6 +33,7 @@ from sitator_tpu_torch.ops.kernel_common import (as_f32,
                                                  row_prep_plain,
                                                  supports_cell,
                                                  tiled_assign_plain)
+from sitator_tpu_torch.util.timing import stage_mark
 
 __all__ = ["fused_assign_blocks", "prepare_vertex_planes", "supports_cell",
            "kernel_cell"]
@@ -109,7 +110,9 @@ def _gather_assign_cuda(mob, vp, mask, cpad, params, *, s_tile, triclinic,
     the clip or f32 operands it writes the f32 lv and K1's whole tail runs
     (``assign_tail``: the clip needs each row's second-largest value before
     the norm).  ``s_tile`` only sets the site padding here: one launch
-    covers every site."""
+    covers every site.  The landmark stage ends with ``lv_gather`` on the
+    bf16 route, with ``row_prep`` on the other (``util.timing.
+    stage_mark``)."""
     from sitator_tpu_torch.ops import _cuda
     B, _, MP = mob.shape
     kw = dict(triclinic=triclinic, r2_cutoff=r2_cutoff, full_mask=full_mask)
@@ -117,6 +120,7 @@ def _gather_assign_cuda(mob, vp, mask, cpad, params, *, s_tile, triclinic,
     if mxu_bf16 and not peak_clip:
         lvb, inv_norm = _cuda.lv_gather(mob, vp, mask, params, bf16=True,
                                         **kw)
+        stage_mark()
         labels, confs = _cuda.argmax_merge(
             *_cuda.sims_argmax(lvb, inv_norm, cpad), thr)
     else:

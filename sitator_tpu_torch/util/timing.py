@@ -19,6 +19,13 @@ phases block by block.  A finished pass 2 leaves its run record on the
 engine (``run_trace_``) and in :func:`recent_runs`, the last
 ``RECENT_RUNS`` records of the process, newest last: how code that holds
 no engine, such as a long-lived analysis process, reads a run.
+
+:func:`stage_marks` and :func:`stage_mark` let a caller bracket the
+landmark stage of an assignment it does not launch itself: the kernel
+wrappers call ``stage_mark()`` once the stage's last kernel is enqueued,
+and the engine, which opened ``stage_marks`` around its assignment, records
+a CUDA event there.  Outside ``stage_marks`` a mark costs one attribute
+lookup.
 """
 from __future__ import annotations
 
@@ -40,6 +47,7 @@ RECENT_RUNS = 8
 
 _recent = collections.deque(maxlen=RECENT_RUNS)
 _recent_lock = threading.Lock()
+_stage = threading.local()
 
 
 class StageTimer:
@@ -209,6 +217,26 @@ class Span:
             self.range_ = None
 
 
+@contextlib.contextmanager
+def stage_marks(mark):
+    """While open, :func:`stage_mark` on this thread calls ``mark()``
+    (the innermost ``stage_marks`` wins)."""
+    outer = getattr(_stage, "mark", None)
+    _stage.mark = mark
+    try:
+        yield
+    finally:
+        _stage.mark = outer
+
+
+def stage_mark():
+    """The landmark stage of the work in progress has been enqueued: tell
+    the open :func:`stage_marks` on this thread, if any."""
+    mark = getattr(_stage, "mark", None)
+    if mark is not None:
+        mark()
+
+
 def record_run(record):
     """Keep ``record`` (a finished run's) among :func:`recent_runs`."""
     with _recent_lock:
@@ -233,7 +261,15 @@ def recent_runs():
     - ``device``: None on a CPU device, else per block (``block``) the
       card's milliseconds from the start of its assignment to its end
       (``assign_ms``) and from there to the end of its fold (``fold_ms``),
-      CUDA events on the compute stream;
+      CUDA events on the compute stream; with the kernel routes (K1, K3)
+      on one device also from the start of its assignment to the end of
+      its landmark stage (``lv_ms``: ``lv_tile`` and ``row_prep`` on K1,
+      ``lv_gather`` on K3, before the similarity product);
+    - ``gate``: the fused-route gate's decision
+      (``ops.landmark_mxu._engine_gate``: ``route``, ``cost_ratio``,
+      ``max_cost_ratio``, ``s_tile``, ``UP``, ``n_sites``,
+      ``vertex_slots``), whether it took K1 or refused it; None where the
+      kernels are off (the dense route asks no gate);
     - ``decode``: the I/O pool's tasks and thread-seconds over the run
       (``tasks``, ``busy_s``) and its size (``threads``);
     - ``fold``: the jump-scan kernel's launches in the run (``launches``,

@@ -203,9 +203,8 @@ def test_run_gather_route_matches_reference(md_system, centers,
     mode."""
     md, seeds = md_system
     import sitator_tpu.ops.landmark_mxu as jmx
-    for mod in (jmx, tmx):
-        monkeypatch.setattr(mod, "prepare_engine_basis",
-                            lambda *a, **k: None)
+    monkeypatch.setattr(jmx, "prepare_engine_basis", lambda *a, **k: None)
+    monkeypatch.setattr(tmx, "_engine_gate", lambda *a, **k: (None, None))
     eng = _port(block_frames=128, use_fused=True)
     got = eng.run(seeds, md.traj[:256], centers=centers)
     assert eng.route_ == "gather"

@@ -311,6 +311,106 @@ def test_device_brackets_sum_by_block():
     assert tst._bracket_ms([]) is None
 
 
+def test_device_brackets_with_the_landmark_stage():
+    class Ev:
+        def __init__(self, t):
+            self.t = t
+
+        def elapsed_time(self, end):
+            return end.t - self.t
+
+        def synchronize(self):
+            pass
+
+    e = [Ev(t) for t in (0.0, 1.0, 1.5, 4.0, 5.0, 5.75, 6.0, 7.0)]
+    got = tst._bracket_ms([(0, 0, e[0], e[2]), (0, 2, e[0], e[1]),
+                           (0, 1, e[2], e[3]), (100, 0, e[4], e[6]),
+                           (100, 2, e[4], e[5]), (100, 1, e[6], e[7])])
+    assert got["lv_ms"].tolist() == [1.0, 0.75]
+    assert got["assign_ms"].tolist() == [1.5, 1.0]
+    assert got["fold_ms"].tolist() == [2.5, 1.0]
+    # no landmark stage bracketed (a mesh, the dense route): no lv_ms
+    assert "lv_ms" not in tst._bracket_ms([(0, 0, e[0], e[1]),
+                                           (0, 1, e[1], e[2])])
+
+
+def test_stage_marks_reach_their_own_thread_only():
+    import threading
+    seen = []
+    timing.stage_mark()                        # outside: nothing happens
+    with timing.stage_marks(lambda: seen.append("outer")):
+        timing.stage_mark()
+        with timing.stage_marks(lambda: seen.append("inner")):
+            timing.stage_mark()
+            t = threading.Thread(target=timing.stage_mark)
+            t.start()
+            t.join()
+        timing.stage_mark()
+    timing.stage_mark()
+    assert seen == ["outer", "inner", "outer"]
+
+
+def test_engine_brackets_its_landmark_stage(md_system, tmp_path,
+                                            monkeypatch):
+    """With events (a card's; stand-ins here) the engine brackets each
+    block's assignment from its start to the landmark stage's mark."""
+    class Ev:
+        clock = [0.0]
+
+        def __init__(self):
+            Ev.clock[0] += 1.0
+            self.t = Ev.clock[0]
+
+        def elapsed_time(self, end):
+            return end.t - self.t
+
+        def synchronize(self):
+            pass
+
+    monkeypatch.setattr(tst._Lanes, "mark", lambda self: Ev())
+    real = tst._assign_block
+
+    def assign(*args, **kw):
+        out = real(*args, **kw)
+        timing.stage_mark()   # where a kernel route marks
+        timing.stage_mark()   # a second mark is not kept
+        return out
+    monkeypatch.setattr(tst, "_assign_block", assign)
+    dev = _run(md_system, tmp_path / "l.npy").run_trace_["device"]
+    assert dev["block"].tolist() == list(range(0, F, B))
+    # start, the stage's first mark, end: one tick to the mark, two to
+    # the end
+    assert dev["lv_ms"].tolist() == [1.0] * (F // B)
+    assert dev["assign_ms"].tolist() == [2.0] * (F // B)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_run_record_keeps_the_gate(md_system, tmp_path, fused):
+    from sitator_tpu_torch.ops import landmark_mxu as tmx
+    eng = _run(md_system, tmp_path / "l.npy", use_fused=fused)
+    gate = eng.run_trace_["gate"]
+    if not fused:
+        assert gate is None and eng.route_ == "dense"
+        return
+    sn = md_system[1]
+    verts, vmask = sn.padded_vertices()
+    static = sn.static_mask
+    basis, want = tmx._engine_gate(
+        verts, vmask, sn.centers, sn.structure.cell,
+        midpoint=eng.cutoff_midpoint,
+        steepness=eng.cutoff_steepness, cutoff_shape=eng.cutoff_shape,
+        static_ref=sn.structure.positions[static],
+        drift_budget=eng.static_movement_threshold)
+    assert gate == want
+    assert (basis is None) == (eng.route_ == "gather")
+    assert gate["route"] == eng.route_
+    assert (gate["cost_ratio"] <= gate["max_cost_ratio"]) == (
+        eng.route_ == "mxu")
+    assert gate["n_sites"] == len(md_system[1].centers)
+    assert set(gate) == {"route", "cost_ratio", "max_cost_ratio", "s_tile",
+                         "UP", "n_sites", "vertex_slots"}
+
+
 def test_benchmark_capture_still_sees_each_phase(md_system, tmp_path):
     from portbench.harness import spec, trace
     eng = port.StreamingLandmarkAnalysis(
