@@ -73,6 +73,13 @@ logger = logging.getLogger(__name__)
 
 __all__ = ["StreamingLandmarkAnalysis", "pack12_width"]
 
+# The mean width, in columns, of an index array's runs of consecutive
+# columns from which one slab copy a run stages a block no slower than
+# ``np.take``'s copy item by item; below it ``np.take`` is faster (each
+# slab copy pays a fixed cost a frame).  Set from a lone-copy probe of
+# both on an H100's host, where they tie at 32 (PERF.md §6).
+SLAB_MIN_COLUMNS = 32
+
 
 class _Phase(Span):
     """One use of a named engine phase of pass 2 (a :class:`Span`): its
@@ -215,6 +222,13 @@ class _Lanes:
     have finished (their events), and the ring is longer than the run-ahead
     window, so a block still in flight never shares a slot.
 
+    A host block's columns go into a slot by runs of consecutive columns,
+    one strided slab copy a run, where the runs are long enough
+    (:meth:`_runs`), else by ``np.take``; the slot holds the same bytes
+    either way.  ``stage`` counts the bytes staged each way and the host
+    seconds of these copies alone (``slab_bytes``, ``take_bytes``,
+    ``copy_s``).
+
     A block that is a tensor on a device (a reader that hands out frames
     already on the card) takes no slot: its columns are gathered where it
     lies (:meth:`take`).  ``staged`` counts the blocks that went through
@@ -228,7 +242,9 @@ class _Lanes:
         self.slots = [{} for _ in range(n_slots)]
         self.cursor = 0
         self.staged = 0
+        self.stage = dict(slab_bytes=0, take_bytes=0, copy_s=0.0)
         self.columns = {}       # index arrays on the devices blocks lie on
+        self.runs = {}          # runs of host index arrays (:meth:`_runs`)
         self._streams = {}
 
     def _stream(self, name, device=None):
@@ -270,10 +286,20 @@ class _Lanes:
                 buf = slot[i] = torch.empty(shape, dtype=torch.float32,
                                             pin_memory=self.cuda)
             view = buf[:nb]
-            if block.dtype == np.float32:
-                np.take(block, idx, axis=1, out=view.numpy(), mode="clip")
+            out = view.numpy()
+            runs = self._runs(idx)
+            t0 = time.perf_counter()
+            if runs is not None:
+                for j, a, w in runs:
+                    np.copyto(out[:, j:j + w], block[:, a:a + w],
+                              casting="unsafe")
+            elif block.dtype == np.float32:
+                np.take(block, idx, axis=1, out=out, mode="clip")
             else:
-                view.numpy()[...] = block[:, idx]
+                out[...] = block[:, idx]
+            self.stage["copy_s"] += time.perf_counter() - t0
+            self.stage["take_bytes" if runs is None
+                       else "slab_bytes"] += out.nbytes
             staged.append(view)
         if not self.cuda:
             out = [b.clone() for b in staged]
@@ -290,6 +316,25 @@ class _Lanes:
         for t in out:   # allocated on the upload stream, used on this one
             t.record_stream(compute)
         return out
+
+    def _runs(self, idx):
+        """``idx``'s maximal runs of consecutive increasing columns, as
+        ``(slot column, block column, width)``; None where the runs average
+        fewer than ``SLAB_MIN_COLUMNS`` columns (an interleaved species
+        order, a permuted lattice): there ``np.take`` is the faster copy.
+        Found once an index array and kept by its bytes (a remapped lattice
+        makes new arrays)."""
+        key = (idx.dtype.str, idx.tobytes())
+        if key not in self.runs:
+            if len(self.runs) >= 8:
+                self.runs.clear()
+            starts = np.flatnonzero(np.diff(idx, prepend=idx[:1] - 2) != 1)
+            widths = np.diff(starts, append=len(idx))
+            self.runs[key] = (
+                list(zip(starts.tolist(), idx[starts].tolist(),
+                         widths.tolist()))
+                if len(idx) >= SLAB_MIN_COLUMNS * len(starts) else None)
+        return self.runs[key]
 
     def take(self, block, idx):
         """``block[:, idx]`` as float32 frames on the device (frame shards
@@ -786,11 +831,13 @@ class StreamingLandmarkAnalysis:
         documented there): every phase use as a span with its block (the
         block's first frame), the feeder thread's reads, the card's
         milliseconds of each block's assignment, its landmark stage and
-        its fold, the fused-route gate's decision, and the I/O pool's
-        decode tasks and thread-seconds.  Under a ``torch.profiler``
-        session opened before the call (``util.timing.device_trace``) the
-        spans are ranges ``sitator.pass2.<phase>`` with ``block=<lo>``; the
-        check is made once, at the call."""
+        its fold, the fused-route gate's decision, the upload's staging
+        of blocks into its pinned slots (bytes by route, copy seconds),
+        and the I/O pool's decode tasks and thread-seconds.  Under a
+        ``torch.profiler`` session opened before the call
+        (``util.timing.device_trace``) the spans are ranges
+        ``sitator.pass2.<phase>`` with ``block=<lo>``; the check is made
+        once, at the call."""
         reader = (trajectory if hasattr(trajectory, "__getitem__")
                   and not isinstance(trajectory, np.ndarray)
                   else ArrayTrajectory(np.asarray(trajectory)))
@@ -1203,6 +1250,7 @@ class StreamingLandmarkAnalysis:
                         busy_s=decode1[1] - decode0[1], threads=N_THREADS),
             fold=dict(launches=jump_fold.launches - folds0,
                       jumps=int(totals["res_cnt"].sum()) - jumps0),
+            stage=dict(lanes.stage),
             frames=n_frames - start_lo, block_frames=B,
             start_ns=t_run + offset, wall_s=wall_ns * 1e-9,
             profiled=profiled)

@@ -275,6 +275,13 @@ def recent_runs():
     - ``fold``: the jump-scan kernel's launches in the run (``launches``,
       ``ops.jumps.jump_fold.launches``; 0 on a CPU device, where the plain
       loop runs) and the jumps the run tallied (``jumps``);
+    - ``stage``: the run-ahead upload's staging of host blocks into its
+      slots (``streaming._Lanes.upload``): the bytes copied as slabs, one
+      a run of consecutive columns (``slab_bytes``), the bytes copied by
+      ``np.take`` (``take_bytes``), and the host seconds of these copies
+      alone (``copy_s``, the wait for a free slot left out); zeros where
+      no block went through the slots (``pipeline_depth=0``, blocks
+      already on the device);
     - ``frames`` (of the run), ``block_frames``, ``start_ns`` and
       ``wall_s`` (the run's, from set-up to finalize), ``profiled``
       (whether a profiler recorded at the run's start)."""

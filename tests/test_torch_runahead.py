@@ -318,3 +318,136 @@ def test_lanes_on_cpu_copy_out_of_the_staging_ring():
     t = torch.arange(6).reshape(2, 3)
     np.testing.assert_array_equal(
         tst._Lanes.wait(lanes.start_download(t)), t.numpy())
+
+
+# Staging cases over blocks of 6W columns, W the slab copies' least mean
+# run width: (block kind, (mobile, static) index arrays, whether each goes
+# by slab copies)
+W = tst.SLAB_MIN_COLUMNS
+N_COLS = 6 * W
+STAGING = {
+    "one_run": ("float32", (np.arange(5 * W, N_COLS), np.arange(5 * W)),
+                (True, True)),
+    "several_runs": ("float32", (np.r_[5 * W:N_COLS, 2 * W:3 * W],
+                                 np.r_[0:2 * W, 3 * W:5 * W]),
+                     (True, True)),
+    "interleaved": ("float32", (np.arange(1, N_COLS, 2),
+                                np.arange(0, N_COLS, 2)), (False, False)),
+    "permuted": ("float32", (np.arange(5 * W, N_COLS),
+                             np.random.default_rng(3).permutation(5 * W)),
+                 (True, False)),
+    "float64": ("float64", (np.arange(5 * W, N_COLS), np.arange(5 * W)),
+                (True, True)),
+    "short": ("short", (np.arange(5 * W, N_COLS), np.arange(5 * W)),
+              (True, True)),
+    "strided": ("strided", (np.r_[5 * W:N_COLS, 2 * W:3 * W],
+                            np.r_[0:2 * W, 3 * W:5 * W]), (True, True)),
+}
+
+
+def _staging_blocks(kind, rng):
+    """Three blocks of 4 frames (3 for ``short``) over ``N_COLS`` columns,
+    with a NaN and a negative zero: float32, float64, or a view with
+    strided frames and reversed columns (``strided``)."""
+    if kind == "strided":
+        blocks = [rng.normal(size=(8, N_COLS, 3)).astype(np.float32)[::2, ::-1]
+                  for _ in range(3)]
+    else:
+        shape = (3 if kind == "short" else 4, N_COLS, 3)
+        dt = np.float64 if kind == "float64" else np.float32
+        blocks = [rng.normal(size=shape).astype(dt) for _ in range(3)]
+    blocks[0][0, 0, 0] = np.nan
+    blocks[0][1, 1, 1] = -0.0
+    return blocks
+
+
+@pytest.mark.parametrize("case", list(STAGING))
+def test_lanes_stage_runs_as_slabs_bit_equal_to_take(case):
+    """Staging by runs of consecutive columns (one slab copy a run) or by
+    ``np.take`` leaves the slot's buffers and the uploaded frames bit-equal
+    to ``np.take`` of the block (``block[:, idx]`` cast to float32 for
+    another dtype), and the counter splits the staged bytes by route."""
+    kind, columns, slabs = STAGING[case]
+    lanes = tst._Lanes(torch.device("cpu"), 2, 4)
+    blocks = _staging_blocks(kind, np.random.default_rng(1))
+    slab_bytes = take_bytes = 0
+    for k, b in enumerate(blocks):
+        ups = lanes.upload(b, columns)
+        slot = lanes.slots[k % 2]
+        for i, (idx, up, slab) in enumerate(zip(columns, ups, slabs)):
+            want = (np.take(b, idx, axis=1, mode="clip")
+                    if b.dtype == np.float32 else
+                    b[:, idx].astype(np.float32))
+            staged = slot[i][:len(b)].numpy()
+            assert up.dtype == torch.float32
+            for got in (up.numpy(), staged):
+                np.testing.assert_array_equal(got.view(np.uint32),
+                                              want.view(np.uint32))
+            if slab:
+                slab_bytes += want.nbytes
+            else:
+                take_bytes += want.nbytes
+    assert lanes.stage["slab_bytes"] == slab_bytes
+    assert lanes.stage["take_bytes"] == take_bytes
+    assert lanes.stage["copy_s"] > 0.0
+    # the runs are found once an index array
+    assert len(lanes.runs) == len({i.tobytes() for i in columns})
+
+
+def _interleaved(md, seeds):
+    """The system with its atoms reordered so that the mobile atoms sit
+    among the static ones (each kind keeps its own order), and the map of
+    old atom indices to new ones (``traj[:, order]`` is its trajectory)."""
+    static, mobile = (np.flatnonzero(md.static_mask),
+                      np.flatnonzero(md.mobile_mask))
+    key = np.r_[np.arange(len(static)) / len(static),
+                (np.arange(len(mobile)) + 0.5) / len(mobile)]
+    order = np.r_[static, mobile][np.argsort(key, kind="stable")]
+    new = np.empty_like(order)
+    new[order] = np.arange(len(order))
+    sn = SiteNetwork(md.structure[order], md.static_mask[order],
+                     md.mobile_mask[order])
+    sn.centers = seeds.centers
+    sn.vertices = [new[v] for v in seeds.vertices]
+    return sn, order
+
+
+@pytest.mark.parametrize("depth,name", [(0, "swap"), (2, "plain"),
+                                        (2, "swap"), (3, "two_swaps")])
+def test_interleaved_atom_order_changes_nothing(md_system, centers,
+                                                baselines, tmp_path,
+                                                monkeypatch, depth, name):
+    """Pass 2 over the same system with its static atoms first and with the
+    atoms interleaved (so the upload's mobile columns are no longer runs of
+    consecutive columns and stage by ``np.take``) gives the same labels,
+    integer tallies, float sums and carry, at every depth.  The system's
+    27 static and 4 mobile atoms are narrower than the slab copies' least
+    mean run width, which is lowered here so that both routes run."""
+    monkeypatch.setattr(tst, "SLAB_MIN_COLUMNS", 4)
+    md, seeds = md_system
+    traj = _swapped(md, TRAJS[name], 500)
+    eng0, want, lab0 = baselines[name]
+    sn, order = _interleaved(md, seeds)
+    assert not np.array_equal(order, np.arange(len(order)))
+    runs = {}
+    for tag, system, frames in (("static_first", seeds, traj),
+                                ("interleaved", sn, traj[:, order])):
+        eng, got, lab = _run(system, frames, centers,
+                             tmp_path / f"{tag}.npy", pipeline_depth=depth,
+                             dynamic_lattice_mapping=True)
+        np.testing.assert_array_equal(lab, lab0, err_msg=tag)
+        _assert_identical(got, want)
+        np.testing.assert_array_equal(eng.lattice_mapping_,
+                                      eng0.lattice_mapping_)
+        for k in ("carry_last", "carry_res"):
+            np.testing.assert_array_equal(eng.final_state_[k],
+                                          eng0.final_state_[k], err_msg=k)
+        runs[tag] = eng.run_trace_["stage"]
+    if depth:
+        assert runs["interleaved"]["take_bytes"] > 0
+        if name == "plain":     # static and mobile atoms: a run each
+            assert runs["static_first"]["take_bytes"] == 0
+            assert runs["static_first"]["slab_bytes"] == 500 * 3 * 4 * 31
+    else:   # the synchronous loop stages nothing
+        assert runs["interleaved"] == runs["static_first"] == dict(
+            slab_bytes=0, take_bytes=0, copy_s=0.0)
