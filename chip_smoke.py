@@ -77,7 +77,7 @@ Phases; any failure exits non-zero before the result lines:
    synchronisations and host-to-device copies in one timed rep (fewer
    copies than blocks), the step on site centres (the modes' labels equal
    outside the margin gate, ``n_ij`` equal to the int64 oracle),
-   ``ab_s_tile``, ``ab_centers_bf16`` and ``ab_skew`` at their defaults
+   ``ab_s_tile`` and ``ab_skew`` at their defaults
    and ``validate_preshift_streaming`` (K2 in the fit, K1 in pass 2,
    against the dense route);
 6. ``StreamingLandmarkAnalysis`` at the bench width over 1024 frames:
@@ -106,10 +106,9 @@ Phases; any failure exits non-zero before the result lines:
    for a depth-2 run (it must not grow with the number of blocks), one
    pass at each depth under ``torch.profiler``, a short run with two
    static atoms exchanged inside the second of four blocks
-   (``dynamic_lattice_mapping``: depth 2, also with ``retire_group=2`` and
-   ``async_label_copy``, equals depth 0 and the unswapped run, the
-   permutation included, after one rollback), the accumulator copy taken
-   before each optimistic fold; ``merge_network`` on the streamed result
+   (``dynamic_lattice_mapping``: depth 2 equals depth 0 and the unswapped
+   run, the permutation included, after one rollback), the accumulator
+   copy taken before each optimistic fold; ``merge_network`` on the streamed result
    and ``DiffusionPathwayAnalysis`` on the merged network;
    ``ConductionBottleneckAnalysis`` on the merged network (its Brandes,
    no networkx) held to a plain-Python float64 Brandes in the same process
@@ -612,8 +611,10 @@ def gather_work(a, M, S, V, K):
 def k1_stages(a, M, reps):
     """Each stage of K1 timed alone on these inputs (CUDA events, ms): the
     lv tiles, row prep (norm and the bf16 copy), the centres' bf16 copy,
-    the tensor-core product with its per-block arg-max, the merge; and the
-    bf16 ``torch.matmul`` of the same product (the library yardstick)."""
+    the tensor-core product with its per-block arg-max (``sims_argmax``,
+    which makes the centres' bf16 copy first, as every call does), the
+    merge; and the bf16 ``torch.matmul`` of the same product (the library
+    yardstick)."""
     import torch
     from sitator_tpu_torch.ops import _cuda
     B, _, MP = a["mob"].shape
@@ -632,13 +633,13 @@ def k1_stages(a, M, reps):
     lv_tile()
     inv, lvb = _cuda.row_prep(rows, peak_clip=False, bf16_copy=True)
     cb = _cuda.centers_bf16(a["cpad"])
-    pv, pi = _cuda.sims_argmax(lvb, inv, a["cpad"], cb)
+    pv, pi = _cuda.sims_argmax(lvb, inv, a["cpad"])
     ms = dict(
         lv_tile=timed(lv_tile, reps),
         row_prep=timed(lambda: _cuda.row_prep(rows, peak_clip=False,
                                               bf16_copy=True), reps),
         centers_bf16=timed(lambda: _cuda.centers_bf16(a["cpad"]), reps),
-        sims_wgmma=timed(lambda: _cuda.sims_argmax(lvb, inv, a["cpad"], cb),
+        sims_wgmma=timed(lambda: _cuda.sims_argmax(lvb, inv, a["cpad"]),
                          reps),
         argmax_merge=timed(lambda: _cuda.argmax_merge(pv, pi, THR), reps))
     library = timed(lambda: torch.matmul(lvb, cb.t()), reps)
@@ -647,7 +648,7 @@ def k1_stages(a, M, reps):
         lv_tile=bound(*unique_atom_work(a, M)),     # inputs and outputs
         row_prep=bound(6 * R * SP),     # f32 read, bf16 write
         centers_bf16=bound(6 * SP * KP),
-        sims_wgmma=bound(2 * (R + KP) * SP, 2.0 * R * SP * KP),
+        sims_wgmma=bound(2 * R * SP + 4 * SP * KP, 2.0 * R * SP * KP),
         argmax_merge=bound(16 * R * -(-KP // 256)))
     print("K1 stages at the bench width (ms per 32-frame block, CUDA "
           "events; the stage's bound in brackets): " + ", ".join(
@@ -698,19 +699,21 @@ def k3_routes(a, label):
 def k3_stages(a, M, S, V, reps):
     """Each stage of K3's default (bf16) route timed alone (CUDA events,
     ms): the gather stage (lv, norm, bf16 copy), the centres' bf16 copy,
-    the tensor-core product with its per-block arg-max, the merge; and the
-    bf16 ``torch.matmul`` of the same product (the library yardstick)."""
+    the tensor-core product with its per-block arg-max (``sims_argmax``,
+    which makes the centres' bf16 copy first, as every call does), the
+    merge; and the bf16 ``torch.matmul`` of the same product (the library
+    yardstick)."""
     import torch
     from sitator_tpu_torch.ops import _cuda
     B, _, MP = a["mob"].shape
     SP = a["vp"].shape[3]
     lvb, inv = gather_rows(a, True)
     cb = _cuda.centers_bf16(a["cpad"])
-    pv, pi = _cuda.sims_argmax(lvb, inv, a["cpad"], cb)
+    pv, pi = _cuda.sims_argmax(lvb, inv, a["cpad"])
     ms = dict(
         lv_gather=timed(lambda: gather_rows(a, True), reps),
         centers_bf16=timed(lambda: _cuda.centers_bf16(a["cpad"]), reps),
-        sims_wgmma=timed(lambda: _cuda.sims_argmax(lvb, inv, a["cpad"], cb),
+        sims_wgmma=timed(lambda: _cuda.sims_argmax(lvb, inv, a["cpad"]),
                          reps),
         argmax_merge=timed(lambda: _cuda.argmax_merge(pv, pi, THR), reps))
     library = timed(lambda: torch.matmul(lvb, cb.t()), reps)
@@ -721,7 +724,7 @@ def k3_stages(a, M, S, V, reps):
                              + a["mask"].numel()) + 2 * rows * S + 4 * rows,
                         0.0, rows * S * (PAIR_OPS * V + 2)),
         centers_bf16=bound(6 * SP * KP),
-        sims_wgmma=bound(2 * (R + KP) * SP, 2.0 * R * SP * KP),
+        sims_wgmma=bound(2 * R * SP + 4 * SP * KP, 2.0 * R * SP * KP),
         argmax_merge=bound(16 * R * -(-KP // 256)))
     print("K3 stages at the bench width (ms per 32-frame block, CUDA "
           "events; the stage's bound in brackets): " + ", ".join(
@@ -1348,13 +1351,12 @@ def phase_bench(device):
     and host-to-device copies in one timed rep; the same step on the
     site-centre system, where the three modes' labels must agree outside
     the margin gate and their ``n_ij`` equal the int64 oracle of their
-    labels (and each other where the labels agree); then ``ab_s_tile``,
-    ``ab_centers_bf16`` and ``ab_skew`` at their defaults and
+    labels (and each other where the labels agree); then ``ab_s_tile``
+    and ``ab_skew`` at their defaults and
     ``validate_preshift_streaming``.  Returns the launch counts and the
     bench's frames/s by mode."""
     from sitator_tpu_torch.ops.jumps import _jump_stats_block_int64
-    from sitator_tpu_torch.tools import (ab_centers_bf16, ab_s_tile,
-                                         ab_skew, bench, bench_config)
+    from sitator_tpu_torch.tools import ab_s_tile, ab_skew, bench, bench_config
     from sitator_tpu_torch.tools import validate_preshift_streaming as vps
 
     import torch
@@ -1454,9 +1456,7 @@ def phase_bench(device):
     check(sum(n.sum() for n in want_n) > 0, "site centres: no jump")
 
     ab = {}
-    for name, module in (("ab_s_tile", ab_s_tile),
-                         ("ab_centers_bf16", ab_centers_bf16),
-                         ("ab_skew", ab_skew)):
+    for name, module in (("ab_s_tile", ab_s_tile), ("ab_skew", ab_skew)):
         before = read_launches()
         ab[name], seconds = run_tool(name, module)
         print(f"{name}: {seconds:.1f} s; launches {launches_since(before)}",
@@ -1473,7 +1473,6 @@ def phase_bench(device):
     launches = read_launches()
     print(f"bench path: frames/s by mode {json.dumps(fps)}; A/B ratios: "
           f"s_tile 256/128 {ab['ab_s_tile']['ratio_256_over_128']:.4f}, "
-          f"bf16/f32 centres {ab['ab_centers_bf16']['speedup_bf16']:.4f}, "
           f"K1s/K1 {ab['ab_skew']['ratio']:.4f}; launches {launches}",
           flush=True)
     return launches, fps
@@ -1999,13 +1998,6 @@ def phase_network(device, ctx):
         s0, o0, l0, t0 = run_streaming(ctx, tmp, "swap0", pipeline_depth=0,
                                        **dl)
         s2, o2, l2, t2 = run_streaming(ctx, tmp, "swap2", **dl)
-        sg, og, lg, _ = run_streaming(ctx, tmp, "swap2g", retire_group=2,
-                                      async_label_copy=True, **dl)
-        check_same_streaming("lattice exchange, retire_group=2 with "
-                             "async_label_copy vs depth 0", og, o0, lg, l0)
-        check(np.array_equal(sg.lattice_mapping_, s0.lattice_mapping_)
-              and sg.rollbacks_ == 1, "lattice exchange, retire_group=2: "
-              f"rollbacks {sg.rollbacks_} or another permutation")
         check_same_streaming("lattice exchange, depth 2 vs 0", o2, o0, l2, l0)
         check(np.array_equal(s2.lattice_mapping_, s0.lattice_mapping_)
               and s2.lattice_mapping_[a] == b and s2.lattice_mapping_[b] == a,
@@ -2015,9 +2007,8 @@ def phase_network(device, ctx):
         check_same_streaming("lattice exchange vs the unswapped run", o2,
                              plain[1], l2, plain[2])
         print(f"lattice exchange at frame {T} of 256 (4 blocks of 64): depth "
-              f"2 (also with retire_group=2 and async_label_copy) == depth 0 "
-              f"== the unswapped run (labels, integers, floats within 1e-9, "
-              f"permutation); rollbacks at depth 2: "
+              f"2 == depth 0 == the unswapped run (labels, integers, floats "
+              f"within 1e-9, permutation); rollbacks at depth 2: "
               f"{s2.rollbacks_}; {t2:.3f} s against {t0:.3f} s at depth 0 "
               f"and {plain[3]:.3f} s unswapped {lap()}", flush=True)
 
@@ -4325,10 +4316,8 @@ def hold_first_launches(name, kept):
                                   "preshift")},
             M=kw["mob"].shape[2], inv_order=torch.arange(
                 n_st * s_tile, device=kw["mob"].device))
-        centers = (kw["cpad"].T if kw["cpad"] is not None
-                   else kw["centers_b"].float())
         margin, top1 = top2_margin(
-            lv, centers, "clip" if kw["peak_clip"] else "none")
+            lv, kw["cpad"].T, "clip" if kw["peak_clip"] else "none")
         errs[key] = compare_assign(label, out, mx._mxu_assign_plain(**kw),
                                    margin, top1, kw["mxu_bf16"])
     return errs

@@ -25,9 +25,7 @@ Differences from the reference, none of which changes a result:
 
 - the integer tallies are int64 and the float sums float64 on the device, so
   the reference's epoch spill into exact host totals and its exact-mode
-  routing of hazardous epochs through a host int64 jump scan are not needed:
-  ``spill_every`` is kept as an attribute that changes nothing, and
-  ``exact_jump_epochs_`` is always 0;
+  routing of hazardous epochs through a host int64 jump scan are not needed;
 - the run-ahead dispatcher (``pipeline_depth > 0``, the default) snapshots
   the accumulators by copying them (tensors are folded in place here), and
   moves frames, labels and drift over two copy streams and pinned buffers
@@ -250,8 +248,7 @@ class _Lanes:
     def _stream(self, name, device=None):
         """The copy stream ``name`` of ``device`` (default: the engine's),
         created at its first use: a run that never uploads or downloads
-        through the lanes (``pipeline_depth=0`` without
-        ``async_label_copy``) creates none."""
+        through the lanes (``pipeline_depth=0``) creates none."""
         key = (name, self.device if device is None else device)
         if key not in self._streams:
             self._streams[key] = torch.cuda.Stream(key[1])
@@ -389,16 +386,13 @@ class _Lanes:
         ev.record(torch.cuda.current_stream(self.device))
         return ev
 
-    def start_download(self, t, produced=None):
+    def start_download(self, t, produced):
         """Begin copying device tensor ``t`` into a pinned host buffer once
-        ``produced`` (a :meth:`mark` taken after the kernels that wrote it;
-        taken now when None) has passed, so the copy waits for those
-        kernels only and not for work enqueued since; returns a ticket for
-        :meth:`wait`."""
+        ``produced`` (a :meth:`mark` taken after the kernels that wrote it)
+        has passed, so the copy waits for those kernels only and not for
+        work enqueued since; returns a ticket for :meth:`wait`."""
         if not self.cuda:
             return t, None
-        if produced is None:
-            produced = self.mark()
         down = self._stream("down")
         with torch.cuda.stream(down):
             down.wait_event(produced)
@@ -420,7 +414,7 @@ def _assign_block(mobile, static, route, *, centers, midpoint, steepness,
                   threshold, cutoff_shape, cell, cell_inv, kcell,
                   static_ref, basis=None, verts=None, vmask=None, A=None,
                   active=None, full_mask=False, want_drift=True,
-                  egress_int16=False, egress_pack12=False, mesh=None):
+                  egress="int32", mesh=None):
     """Assign one streamed block: (labels, confs, drift, labels_egress).
 
     ``route``: 'mxu' (unique-atom kernel K1; ``centers`` column-permuted to
@@ -430,9 +424,10 @@ def _assign_block(mobile, static, route, *, centers, midpoint, steepness,
     With ``mesh`` (several shards; ``mobile`` / ``static`` then
     :class:`ShardedFrames`) the assignment and the drift run once per frame
     shard and come back gathered on the mesh's first device.  The egress
-    copy of the labels is what leaves the device: int16 (any practical site
-    count fits) or the 12-bit pack on top of it; the labels themselves stay
-    int32 for the accumulators."""
+    copy of the labels is what leaves the device, in the format ``egress``
+    ('pack12' | 'int16' | 'int32', set by the site count in
+    :meth:`StreamingLandmarkAnalysis._assign_setup`); the labels themselves
+    stay int32 for the accumulators."""
 
     def local(mobile, static, centers, basis, verts, vmask, A, active,
               static_ref, cell, cell_inv):
@@ -464,10 +459,10 @@ def _assign_block(mobile, static, route, *, centers, midpoint, steepness,
     labels, confs, drift = run_sharded(
         local, mesh, 2, mobile, static, centers, basis, verts, vmask, A,
         active, static_ref, cell, cell_inv, n_outputs=3)
-    if egress_pack12:
+    if egress == "pack12":
         labels_eg = _pack12(labels)
     else:
-        labels_eg = labels.to(torch.int16) if egress_int16 else labels
+        labels_eg = labels.to(torch.int16) if egress == "int16" else labels
     return labels, confs, drift, labels_eg
 
 
@@ -535,8 +530,6 @@ class StreamingLandmarkAnalysis:
         re-assigned from that frame, as in :class:`LandmarkAnalysis`); the
         permutation rides the checkpoint.
     use_fused : 'auto' (the kernels on CUDA) | True | False (dense route).
-    egress_pack12 : pack spilled labels 4-per-3 into int16 words on the
-        device (needs fewer than 4096 sites) before the device→host copy.
     pipeline_depth : blocks kept in flight by the optimistic run-ahead
         dispatcher (default 2, as in the reference; 0 is the fully
         synchronous loop).  Each block's upload, assignment and whole-block
@@ -555,15 +548,6 @@ class StreamingLandmarkAnalysis:
         and agree within 1e-12 relative on CUDA, where ``index_add_`` adds
         atomically in arrival order and is not bit-stable from run to run
         at any depth.
-    retire_group : in-flight blocks retired together, with their
-        downloads started back to back on the download stream; the window
-        grows to ``pipeline_depth + retire_group`` blocks.  An offender
-        rolls back to its own copy, so results do not depend on it.
-        Default 1; ignored when ``pipeline_depth=0``.
-    async_label_copy : start the device→host copy of a block's egress
-        labels right after its assignment (on the download stream, so it
-        overlaps the fold) instead of at retirement; needs
-        ``store_labels``.  Off by default, as in the reference.
     mesh : optional :class:`~sitator_tpu_torch.parallel.mesh.FrameMesh`
         whose first device is ``device``; ``block_frames`` must be a
         multiple of its size.  Pass 2 splits each block into frame shards:
@@ -578,9 +562,11 @@ class StreamingLandmarkAnalysis:
     bit-cast into trailing egress columns, one fetch instead of two at
     retirement) is left out: a fetch here is a copy on its own stream and
     an event wait, and the drift of a block is 1 KB, so there is no round
-    trip to save.
-    With int64/float64 accumulators on the device there is no epoch spill:
-    ``spill_every`` changes no result, and ``exact_jump_epochs_`` is 0.
+    trip to save.  Nor are the reference's settings of the retirement and
+    the label egress: blocks retire one at a time, a block's labels start
+    their copy to the host when it retires, and they leave the device in
+    the narrowest format the site count allows (the 12-bit pack below 4096
+    sites, int16 below 2^15, else int32), as at the reference's defaults.
 
     A reader may hand out tensors in place of NumPy blocks: frames already
     on the card stay there (their columns are gathered on the card, with no
@@ -602,9 +588,7 @@ class StreamingLandmarkAnalysis:
                  multiple_occupancy_action="warn",
                  static_movement_threshold=1.0,
                  dynamic_lattice_mapping=False, use_fused="auto",
-                 async_label_copy=False, pipeline_depth=2,
-                 retire_group=1, egress_pack12=True, verbose=True,
-                 device="cuda"):
+                 pipeline_depth=2, verbose=True, device="cuda"):
         self.mesh, self.device = bind_mesh(mesh, device)
         self.cutoff_midpoint = float(cutoff_midpoint)
         self.cutoff_steepness = float(cutoff_steepness)
@@ -633,12 +617,7 @@ class StreamingLandmarkAnalysis:
             raise ValueError("dynamic_lattice_mapping needs a "
                              "static_movement_threshold")
         self.use_fused = use_fused  # 'auto' | True | False
-        self.async_label_copy = bool(async_label_copy)
         self.pipeline_depth = int(pipeline_depth)
-        self.retire_group = max(1, int(retire_group))
-        self.egress_int16 = "auto"  # 'auto' (site count < 2^15) | bool
-        self.egress_pack12 = bool(egress_pack12)
-        self.spill_every = None     # no epoch spill: changes no result
         self.checkpoint_path = checkpoint_path
         self.checkpoint_every = int(checkpoint_every)
         self.verbose = verbose
@@ -800,9 +779,10 @@ class StreamingLandmarkAnalysis:
                 verts, vmask, len(static_idx)).to(dev),
                 active=torch.ones(K, dtype=torch.bool, device=dev))
         from sitator_tpu_torch.ops.kernel_common import kernel_cell
-        # int16 egress: any practical site count fits, and site indices
-        # >= 2^15 must never wrap; the 12-bit pack on top needs K < 4096
-        egress_int16 = bool(self.egress_int16) and K < (1 << 15)
+        # the narrowest egress the labels fit: the 12-bit pack holds labels
+        # up to 4094 (biased by one), and int16 must never wrap a site index
+        egress = ("pack12" if K < 4096 else
+                  "int16" if K < (1 << 15) else "int32")
         return route, dict(
             midpoint=self.cutoff_midpoint, steepness=self.cutoff_steepness,
             threshold=self.assignment_threshold,
@@ -814,9 +794,7 @@ class StreamingLandmarkAnalysis:
             static_ref=torch.as_tensor(sn.structure.positions[static_idx],
                                        dtype=torch.float32, device=dev),
             want_drift=self.static_movement_threshold is not None,
-            egress_int16=egress_int16,
-            egress_pack12=self.egress_pack12 and egress_int16 and K < 4096,
-            mesh=mesh, **plan)
+            egress=egress, mesh=mesh, **plan)
 
     def run(self, sn: SiteNetwork, trajectory, centers=None):
         """``trajectory``: a TrajectoryReader (of NumPy blocks or tensors)
@@ -868,7 +846,6 @@ class StreamingLandmarkAnalysis:
 
         _setup = ph("setup")   # basis prep, checkpoint probe, memmap
         _setup.__enter__()
-        self.exact_jump_epochs_ = 0
 
         mobile_idx = np.flatnonzero(sn.mobile_mask)
         static_idx = np.flatnonzero(sn.static_mask)
@@ -877,7 +854,7 @@ class StreamingLandmarkAnalysis:
         route, assign_kw = self._assign_setup(sn, centers, smesh)
         self.route_ = route
         cell_inv = assign_kw["cell_inv"]
-        egress_pack12 = assign_kw["egress_pack12"]
+        pack12 = assign_kw["egress"] == "pack12"
 
         start_lo = 0
         carry_np = (np.full((n_mobile,), -1, np.int64),
@@ -925,8 +902,7 @@ class StreamingLandmarkAnalysis:
         thr_drift = self.static_movement_threshold
 
         W = max(0, self.pipeline_depth)
-        G = self.retire_group if W else 1
-        lanes = _Lanes(dev, W + G + 1 if W else 0, B, smesh)
+        lanes = _Lanes(dev, W + 2 if W else 0, B, smesh)
         frame_ids = torch.arange(B, device=dev)
         self.rollbacks_ = 0
         brackets = []   # (block, 0 assign | 1 fold, start event, end event)
@@ -938,8 +914,7 @@ class StreamingLandmarkAnalysis:
                 with ph("labels_fetch", lo):
                     arr = (box["dev"].cpu().numpy() if box["copy"] is None
                            else lanes.wait(box["copy"]))
-                box["np"] = _unpack12(arr, n_mobile) if egress_pack12 \
-                    else arr
+                box["np"] = _unpack12(arr, n_mobile) if pack12 else arr
             return box["np"]
 
         def write_labels(lo, a, b, box):
@@ -1003,10 +978,7 @@ class StreamingLandmarkAnalysis:
                 brackets.append((lo, 0, start, end))
                 if lv_end:
                     brackets.append((lo, 2, start, lv_end[0]))
-            box = {"np": None, "dev": out[3], "copy": None}
-            if labels_out is not None and self.async_label_copy:
-                box["copy"] = lanes.start_download(out[3])
-            return out, box, end
+            return out, {"np": None, "dev": out[3], "copy": None}, end
 
         def process_block(lo, block, nb, mobile, pre=None):
             """The synchronous per-block path: per-frame drift gating,
@@ -1128,54 +1100,43 @@ class StreamingLandmarkAnalysis:
                                labels=labels, confs=confs, drift=drift,
                                box=box, snap=snap, assigned=assigned))
 
-        def retire_many(g):
-            """Retire the ``g`` oldest in-flight blocks: their downloads
-            are started together, drift is checked oldest first, and an
-            offender at group index ``i`` rolls the accumulators back to
-            ITS pre-block copy and replays it and every later in-flight
-            block through the synchronous path."""
+        def retire():
+            """Retire the oldest in-flight block: its drift and egress
+            labels start their downloads, and a drift offender rolls the
+            accumulators back to its pre-block copy and replays it and
+            every later in-flight block through the synchronous path."""
             nonlocal carry, acc
-            entries = window[:g]
-            del window[:g]
-            guard = thr_drift is not None
-            tickets = [lanes.start_download(e["drift"], e["assigned"])
-                       for e in entries if guard]
+            e = window.pop(0)
+            ticket = (lanes.start_download(e["drift"], e["assigned"])
+                      if thr_drift is not None else None)
             if labels_out is not None:
-                for e in entries:
-                    if e["box"]["copy"] is None:
-                        e["box"]["copy"] = lanes.start_download(
-                            e["box"]["dev"], e["assigned"])
-            drifts = []
-            if guard:
-                for t, e in zip(tickets, entries):
-                    with ph("drift_fetch", e["lo"]):
-                        drifts.append(lanes.wait(t)[:e["nb"]])
-            off_at = next((i for i, dr in enumerate(drifts)
-                           if (dr > thr_drift).any()), None)
-            for e in entries[:off_at]:
+                e["box"]["copy"] = lanes.start_download(e["box"]["dev"],
+                                                        e["assigned"])
+            drift = None
+            if ticket is not None:
+                with ph("drift_fetch", e["lo"]):
+                    drift = lanes.wait(ticket)[:e["nb"]]
+            if drift is None or not (drift > thr_drift).any():
                 write_labels(e["lo"], 0, e["nb"], e["box"])
-            if off_at is None:
                 return
-            # rollback: the blocks before the offender passed the guard and
-            # keep their folds; restore the offender's pre-block copy and
-            # replay it and every later in-flight block synchronously
-            # (raises StaticLatticeError or remaps, exactly like the
-            # synchronous engine).  The offender's assignment predates any
-            # remap and is reused; later blocks re-assign under the updated
-            # permutation.
+            # rollback: restore the offender's pre-block copy and replay it
+            # and every later in-flight block synchronously (raises
+            # StaticLatticeError or remaps, exactly like the synchronous
+            # engine).  The offender's assignment predates any remap and is
+            # reused; later blocks re-assign under the updated permutation.
             self.rollbacks_ += 1
-            carry, acc = entries[off_at]["snap"]
-            redo = entries[off_at:] + window
+            carry, acc = e["snap"]
+            redo = [e] + window
             window.clear()
             for i, r in enumerate(redo):
                 process_block(
                     r["lo"], r["block"], r["nb"], r["mobile"],
-                    pre=(r["labels"], r["confs"], drifts[off_at], r["box"])
+                    pre=(r["labels"], r["confs"], drift, r["box"])
                     if i == 0 else None)
 
         def drain():
             while window:
-                retire_many(min(G, len(window)))
+                retire()
 
         def host_totals():
             with ph("epoch_spill"):
@@ -1210,8 +1171,8 @@ class StreamingLandmarkAnalysis:
                 process_block(lo, block, nb, mobile)
             else:
                 dispatch(lo, block, nb)
-                while len(window) >= W + G:
-                    retire_many(G)
+                while len(window) > W:
+                    retire()
             blocks_done += 1
             if ckpt is not None and blocks_done % self.checkpoint_every == 0:
                 # in-flight blocks must retire (or roll back) before their

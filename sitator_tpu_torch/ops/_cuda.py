@@ -280,25 +280,20 @@ def centers_bf16(centers):
     return centers.t().to(torch.bfloat16).contiguous()
 
 
-def sims_argmax(lv, inv_norm, centers, centers_b=None):
+def sims_argmax(lv, inv_norm, centers):
     """Tail stage 2: per row, the max and first arg-max of ``sims ·
-    inv_norm`` over each block of centre columns.  The dtype of ``lv
-    (rows, SP)`` picks the kernel: bf16 rows run on the tensor cores over
-    256-column blocks against ``centers_b`` (:func:`centers_bf16`, made here
-    when None); f32 rows on the FMA pipes over 128-column blocks against the
-    f32 ``centers (SP, KP)``, which may be None on the tensor cores when
-    ``centers_b`` is given.  Returns ``(part_val, part_idx)``, ``(rows,
+    inv_norm`` over each block of the f32 ``centers (SP, KP)``'s columns.
+    The dtype of ``lv (rows, SP)`` picks the kernel: bf16 rows run on the
+    tensor cores over 256-column blocks against the centres' bf16 operand
+    (:func:`centers_bf16`, made here); f32 rows on the FMA pipes over
+    128-column blocks.  Returns ``(part_val, part_idx)``, ``(rows,
     n_kb)``."""
     rows, SP = lv.shape
     bf16 = lv.dtype == torch.bfloat16
-    if centers is None and not (bf16 and centers_b is not None):
-        raise ValueError("the f32 centres are needed unless bf16 rows come "
-                         "with centers_b")
-    KP = centers_b.shape[0] if centers is None else centers.shape[1]
+    KP = centers.shape[1]
     if KP % 128:
         raise ValueError("centers must be padded to a multiple of 128")
-    if centers is not None:
-        _check(centers, "centers", torch.float32, (SP, KP))
+    _check(centers, "centers", torch.float32, (SP, KP))
     dev = lv.device
     n_kb = -(-KP // 256) if bf16 else KP // 128
     part_val = torch.empty((rows, n_kb), device=dev, dtype=torch.float32)
@@ -312,8 +307,7 @@ def sims_argmax(lv, inv_norm, centers, centers_b=None):
     if rows % 128 or SP % 64:
         raise ValueError("the tensor-core tail needs rows % 128 == 0 and "
                          f"SP % 64 == 0 (rows={rows}, SP={SP})")
-    if centers_b is None:
-        centers_b = centers_bf16(centers)
+    centers_b = centers_bf16(centers)
     _call("sit_sims_wgmma", _check(lv, "lvb", torch.bfloat16, (rows, SP)),
           _check(centers_b, "centers_b", torch.bfloat16, (KP, SP)),
           _check(inv_norm, "inv_norm", torch.float32, (rows,)),
@@ -335,19 +329,17 @@ def argmax_merge(part_val, part_idx, threshold):
     return labels, confs
 
 
-def assign_tail(lv, centers, threshold, *, peak_clip, mxu_bf16,
-                centers_b=None):
+def assign_tail(lv, centers, threshold, *, peak_clip, mxu_bf16):
     """Cosine assignment of every row of ``lv (rows, SP)`` (clipped in
     place at its second-largest value when ``peak_clip``) to the padded
     centres ``centers (SP, KP)``: :func:`row_prep`, :func:`sims_argmax`
-    (on the tensor cores when ``mxu_bf16``, against ``centers_b`` when
-    given), :func:`argmax_merge`.  Returns (labels int32, confs float32),
-    both ``(rows,)``.  The landmark stage ends with :func:`row_prep`
-    (``util.timing.stage_mark``)."""
+    (on the tensor cores when ``mxu_bf16``), :func:`argmax_merge`.
+    Returns (labels int32, confs float32), both ``(rows,)``.  The landmark
+    stage ends with :func:`row_prep` (``util.timing.stage_mark``)."""
     inv_norm, lvb = row_prep(lv, peak_clip=peak_clip, bf16_copy=mxu_bf16)
     stage_mark()
     part_val, part_idx = sims_argmax(lvb if mxu_bf16 else lv, inv_norm,
-                                     centers, centers_b)
+                                     centers)
     return argmax_merge(part_val, part_idx, threshold)
 
 

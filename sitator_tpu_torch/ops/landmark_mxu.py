@@ -367,34 +367,6 @@ def _members(basis, A):
     return lists
 
 
-def _centers_operand(basis, centers_perm, device):
-    """The centres' tensor-core operand, zero-padded and K-major ``(KP,
-    SP)`` bf16 (what ``_cuda.centers_bf16`` makes of the padded f32
-    columns, rounded the same way), made once per centres tensor and device
-    and kept in the basis dict (key ``centers_b``, by device) while that
-    tensor is unchanged: the same object (held here, so its memory is not
-    reused) at the same version counter (an in-place write bumps it).
-    Centres that are not a tensor are converted anew on every call."""
-    by_dev = basis.setdefault("centers_b", {})
-    src = centers_perm if torch.is_tensor(centers_perm) else None
-    hit = by_dev.get(device)
-    if src is not None and hit is not None and hit[0] is src \
-            and hit[1] == src._version:
-        made = hit[3]
-        if made is not None:
-            torch.cuda.current_stream(device).wait_event(made)
-        return hit[2]
-    c = as_f32(centers_perm, device)
-    K, S = c.shape
-    cb = torch.zeros((_round_up(K, 128), basis["n_st"] * basis["s_tile"]),
-                     dtype=torch.bfloat16, device=device)
-    cb[:K, :S] = c
-    made = (torch.cuda.current_stream(device).record_event()
-            if cb.is_cuda else None)
-    by_dev[device] = (src, None if src is None else src._version, cb, made)
-    return cb
-
-
 def _cell_on(basis, cell, device):
     """The float32 NumPy ``cell`` as the (3, 3) matrix and its inverse on
     ``device``, made once per basis, cell and device and kept in the basis
@@ -526,15 +498,10 @@ def _mxu_lv_cuda(mob, vpu, A, kill, params, anchors, *, M, inv_order,
 
 def _mxu_assign_plain(mob, vpu, A, kill, cpad, params, anchors, *,
                       triclinic, r2_cutoff, peak_clip, preshift, mxu_bf16,
-                      members=None, centers_b=None):
+                      members=None):
     """Plain version of K1, and of K1s (which computes the same function,
     only with its tiles overlapped): labels/confs ``(B, MP)``, tile by
-    tile (``members`` is unused, as in :func:`_mxu_lv_plain`).  Without
-    ``cpad`` the columns of ``centers_b`` (:func:`_centers_operand`) are
-    the centres: the same values as ``cpad`` rounded to bf16, in its
-    layout."""
-    if cpad is None:
-        cpad = centers_b.t().contiguous()
+    tile (``members`` is unused, as in :func:`_mxu_lv_plain`)."""
     B, _, MP = mob.shape
     n_st, UP, s_tile = A.shape
     cell, mid, steep, thr = load_cell_params(params.to(mob.device),
@@ -553,13 +520,12 @@ def _mxu_assign_plain(mob, vpu, A, kill, cpad, params, anchors, *,
 
 def _mxu_assign_cuda(mob, vpu, A, kill, cpad, params, anchors, *,
                      triclinic, r2_cutoff, peak_clip, preshift, mxu_bf16,
-                     members, centers_b=None):
+                     members):
     """K1 on the card: ``lv_tile`` writes the block's lv tiles in kd order to
     scratch (summing over the membership lists), then ``assign_tail`` clips
     (optionally), normalises, multiplies by the centres (on the tensor cores
-    with bf16 operands, against ``centers_b`` when given) and takes the
-    arg-max.  Keeping lv on chip, as the TPU kernel does in VMEM, is later
-    work."""
+    with bf16 operands) and takes the arg-max.  Keeping lv on chip, as the
+    TPU kernel does in VMEM, is later work."""
     from sitator_tpu_torch.ops import _cuda
     B, _, MP = mob.shape
     n_st, _, s_tile = A.shape
@@ -571,31 +537,29 @@ def _mxu_assign_cuda(mob, vpu, A, kill, cpad, params, anchors, *,
                   preshift=preshift)
     labels, confs = _cuda.assign_tail(
         lv.view(B * MP, SP), cpad, float(params[-1]), peak_clip=peak_clip,
-        mxu_bf16=mxu_bf16, centers_b=centers_b)
+        mxu_bf16=mxu_bf16)
     return labels.view(B, MP), confs.view(B, MP)
 
 
 def _mxu_assign_skew_cuda(mob, vpu, A, kill, cpad, params, anchors, *,
                           triclinic, r2_cutoff, peak_clip, preshift,
-                          mxu_bf16, members, centers_b=None):
+                          mxu_bf16, members):
     """K1s on the card, the lv kept on chip.  With bf16 similarity operands
     (the default) one ``assign_skew_wgmma`` call (a cluster launch per 2048
     centre columns): a thread-block cluster per 64-row tile whose CTAs each own
     256 centre columns, share the tile's lv through distributed shared
     memory (each CTA computes 64 / cluster-size of its rows, summing over
     the membership lists ``members``) and run the product on the tensor
-    cores against the centres' K-major bf16 copy (``centers_b`` when
-    given).  With f32 operands the FMA kernel ``assign_skew``: the centres
-    in chunks of up to 1024 columns (a power of two times 128), so they are
-    padded to whole chunks here."""
+    cores against the centres' K-major bf16 copy.  With f32 operands the
+    FMA kernel ``assign_skew``: the centres in chunks of up to 1024 columns
+    (a power of two times 128), so they are padded to whole chunks here."""
     if peak_clip:
         raise ValueError(_SKEW_CLIP)
     from sitator_tpu_torch.ops import _cuda
     B, _, MP = mob.shape
     if mxu_bf16:
         labels, confs = _cuda.assign_skew_wgmma(
-            mob, vpu, *members, kill, anchors,
-            _cuda.centers_bf16(cpad) if centers_b is None else centers_b,
+            mob, vpu, *members, kill, anchors, _cuda.centers_bf16(cpad),
             params, triclinic=triclinic, r2_cutoff=r2_cutoff,
             preshift=preshift)
         return labels.view(B, MP), confs.view(B, MP)
@@ -656,12 +620,10 @@ def _lv_inputs(mobile, static, basis, cell, *, midpoint, steepness,
 def _assign_inputs(mobile, static, basis, cell, centers_perm, *, midpoint,
                    steepness, threshold, mxu_bf16=True,
                    cutoff_shape="logistic", peak_evening="none",
-                   centers_store_f32=True, skew=False):
+                   skew=False):
     """Keyword arguments of :func:`_mxu_assign_cuda`,
     :func:`_mxu_assign_skew_cuda` and :func:`_mxu_assign_plain`, with the
-    centres transposed and zero-padded to ``(SP, KP)`` (``cpad``), or, with
-    bf16 operands and ``centers_store_f32=False``, as the kept bf16 operand
-    ``centers_b`` of :func:`_centers_operand` (``cpad`` None).
+    centres transposed and zero-padded to ``(SP, KP)`` in f32 (``cpad``).
     ``skew=True`` with ``peak_evening='clip'`` raises: K1s has no two-pass
     (clip) form, and quietly running K1 instead would corrupt a K1-vs-K1s
     comparison."""
@@ -674,9 +636,6 @@ def _assign_inputs(mobile, static, basis, cell, centers_perm, *, midpoint,
     dev = mobile.device
     common = dict(r2_cutoff=cutoff_shape == "logistic_r2",
                   peak_clip=peak_evening == "clip", mxu_bf16=mxu_bf16)
-    if mxu_bf16 and not centers_store_f32:
-        return dict(args, cpad=None, centers_b=_centers_operand(
-            basis, centers_perm, dev), **common)
     centers_perm = as_f32(centers_perm, dev)
     K, S = centers_perm.shape
     cpad = torch.zeros((basis["n_st"] * basis["s_tile"], _round_up(K, 128)),
@@ -711,7 +670,7 @@ mxu_landmark_blocks.launches_by_card = Counter()
 def mxu_assign_blocks(mobile, static, basis, cell, centers_perm, *,
                       midpoint, steepness, threshold, mxu_bf16=True,
                       cutoff_shape="logistic", peak_evening="none",
-                      centers_store_f32=True, skew=False):
+                      skew=False):
     """Fused landmark + normalise + assign through the unique-atom kernel
     (K1, or K1s with ``skew=True``: the same function with
     ``peak_evening='none'`` only, the lv kept on chip).  ``basis`` from
@@ -723,22 +682,18 @@ def mxu_assign_blocks(mobile, static, basis, cell, centers_perm, *,
     index of the card it ran on); on CPU tensors it runs the plain
     version.  A launch runs on the inputs' card, whichever is current.
 
-    ``centers_store_f32=False`` (with bf16 operands; ignored in f32) rounds
-    the centres to the product's bf16 operand once and keeps it in the
-    basis dict while ``centers_perm`` is the same unchanged tensor, instead
-    of padding them in f32 and casting them on every call (the reference's
-    ``centers_store_f32``).  The product reads the same bf16 values either
-    way, so labels and confidences are bit-equal; the default and the
-    engines keep ``True``.  The reference's ``a_bf16`` and ``interpret``
+    The reference's ``a_bf16``, ``centers_store_f32`` and ``interpret``
     are not here: the port sums the membership lists in f32 (no membership
-    matmul to round, and the preshift bound assumes f32), and interpret
+    matmul to round, and the preshift bound assumes f32); it pads the
+    centres in f32 and casts them to the product's bf16 operand once a
+    call, which gives the labels of either setting of the reference's
+    centre store (the product reads the same bf16 values); and interpret
     mode is the TPU's."""
     args = _assign_inputs(mobile, static, basis, cell, centers_perm,
                           midpoint=midpoint, steepness=steepness,
                           threshold=threshold, mxu_bf16=mxu_bf16,
                           cutoff_shape=cutoff_shape,
-                          peak_evening=peak_evening,
-                          centers_store_f32=centers_store_f32, skew=skew)
+                          peak_evening=peak_evening, skew=skew)
     M = mobile.shape[1]
     if not mobile.is_cuda:
         labels, confs = _mxu_assign_plain(**args)

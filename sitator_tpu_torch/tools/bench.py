@@ -1,9 +1,10 @@
-"""The headline measurement on one card: frames/s of the literal landmark +
-assign + jump step at the 10k-atom bench configuration
+"""The bench step on one card: frames/s of the literal landmark + assign +
+jump step over 32-frame blocks at the 10k-atom bench configuration
 (:mod:`~sitator_tpu_torch.tools.bench_config`: 9261 static simple-cubic
 atoms, 739 mobile ions, 9261 landmarks x 8 vertices, 1024 random unit
 centres, the ``logistic_r2`` cutoff), the counterpart of the repository's
-``bench.py``.
+``bench.py``.  It is not the headline: ``portbench/`` (``BENCHMARK.json``)
+measures the engine's pass 2, which is what users run.
 
 Each block of ``BLOCK`` frames goes through one assignment route, then the
 prefix form of the jump statistics (``ops/jumps.py::_jump_stats_parallel``:
@@ -160,7 +161,7 @@ def mxu_assigner(system, device, centers=None, *, s_tile="auto", basis=None,
     """K1 on ``basis`` (default :func:`mxu_basis` at ``s_tile``).  Returns
     ``(assign, basis)``: ``assign(static, mobile)`` gives ``(labels,
     confs)`` of a block on ``device``; ``basis`` is the host basis.  ``kw``
-    goes to ``mxu_assign_blocks`` (``centers_store_f32``, ``skew``)."""
+    goes to ``mxu_assign_blocks`` (``skew``)."""
     from sitator_tpu_torch.ops import landmark_mxu as mx
     from sitator_tpu_torch.ops.kernel_common import kernel_cell
     if basis is None:

@@ -473,25 +473,14 @@ def parse_args(argv):
                     help="where the engine runs (default cuda; cpu only "
                          "for wiring checks)")
     ap.add_argument("--ab", action="store_true",
-                    help="same-process async/sync/no-labels comparison")
+                    help="same-process labels/no-labels comparison")
     ap.add_argument("--pipeline-depth", type=int, default=None,
                     help="engine pipeline_depth for the main timed run "
                          "(default: the engine's)")
     ap.add_argument("--ab-pipeline", action="store_true",
                     help="same-process alternating depth 0 / depth 2")
     ap.add_argument("--ab-depth", action="store_true",
-                    help="same-process alternating depth 2 / depth 4 / "
-                         "depth 2 + async label copy")
-    ap.add_argument("--ab-egress", action="store_true",
-                    help="same-process alternating int16 / int32 label "
-                         "egress")
-    ap.add_argument("--ab-pack12", action="store_true",
-                    help="same-process alternating 12-bit packed / plain "
-                         "int16 label egress")
-    ap.add_argument("--ab-retire", action="store_true",
-                    help="same-process alternating retire_group 1 / 4")
-    ap.add_argument("--retire-group", type=int, default=None,
-                    help="engine retire_group for the main timed run")
+                    help="same-process alternating depth 2 / depth 4")
     ap.add_argument("--ab-pack", action="store_true",
                     help="packed vs separate drift retirement: not in the "
                          "port (exits 2)")
@@ -583,16 +572,9 @@ def main(argv=None):
           f"K={warm.n_sites_} occ_sum={float(np.sum(out.occupancies)):.2f}",
           flush=True)
 
-    def timed(tag, n_blocks, labels=True, async_labels=False, depth=None,
-              egress="auto", group=None, pack12=None, reader=None):
+    def timed(tag, n_blocks, labels=True, depth=None, reader=None):
         n_frames = n_blocks * B
         eng = engine(tag, labels=labels)
-        eng.async_label_copy = async_labels
-        eng.egress_int16 = egress
-        if pack12 is not None:
-            eng.egress_pack12 = pack12
-        if group is not None:
-            eng.retire_group = group
         if depth is not None:
             eng.pipeline_depth = depth
         t0 = time.perf_counter()
@@ -621,7 +603,7 @@ def main(argv=None):
         torch.cuda.reset_peak_memory_stats(dev)
     fps, dt, n_frames, eng, out = timed(
         "main", args.blocks, labels=not args.no_labels,
-        depth=args.pipeline_depth, group=args.retire_group, reader=reader)
+        depth=args.pipeline_depth, reader=reader)
     at_end = memory_now(dev)
     res.update(value=fps, unit="frames/sec", n_frames=n_frames, wall_s=dt,
                labels_memmap=not args.no_labels, block_frames=B,
@@ -711,7 +693,6 @@ def main(argv=None):
 
     if args.ab:
         nb = max(32, args.blocks // 2)
-        res["ab_async_labels_fps"] = timed("a", nb, async_labels=True)[0]
         res["ab_sync_labels_fps"] = timed("b", nb)[0]
         res["ab_no_labels_fps"] = timed("c", nb, labels=False)[0]
 
@@ -736,25 +717,7 @@ def main(argv=None):
                                     / res["ab_pipeline_sync_fps"])
     if args.ab_depth:
         ab_segments("ab_depth", [("d2", dict(depth=2)),
-                                 ("d4", dict(depth=4)),
-                                 ("d2a", dict(depth=2, async_labels=True))])
-    if args.ab_retire:
-        print("# ab_retire: g4p (retire_group 4 with packed_retire) is not "
-              "in the port; g1 and g4 run", flush=True)
-        ab_segments("ab_retire", [("g1", dict(group=1)),
-                                  ("g4", dict(group=4))])
-        res["ab_retire_ratio"] = (res["ab_retire_g4_fps"]
-                                  / res["ab_retire_g1_fps"])
-    if args.ab_egress:
-        ab_segments("ab_egress", [("i16", dict(egress=True)),
-                                  ("i32", dict(egress=False))])
-        res["ab_egress_ratio"] = (res["ab_egress_i16_fps"]
-                                  / res["ab_egress_i32_fps"])
-    if args.ab_pack12:
-        ab_segments("ab_pack12", [("p12", dict(pack12=True)),
-                                  ("i16", dict(pack12=False))])
-        res["ab_pack12_ratio"] = (res["ab_pack12_p12_fps"]
-                                  / res["ab_pack12_i16_fps"])
+                                 ("d4", dict(depth=4))])
 
     print(json.dumps(res), flush=True)
     with open(os.path.join(wd, "northstar_result.json"), "w") as f:

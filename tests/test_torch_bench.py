@@ -1,18 +1,16 @@
 """The port's chip-measurement tools (``sitator_tpu_torch.tools``: ``bench``,
-``ab_s_tile``, ``ab_centers_bf16``, ``ab_skew``,
-``validate_preshift_streaming``) on the CPU at small sizes, held to the
-JAX package on the same NumPy inputs:
+``ab_s_tile``, ``ab_skew``, ``validate_preshift_streaming``) on the CPU at
+small sizes, held to the JAX package on the same NumPy inputs:
 
 - the bench step per mode (K1, K3, the dense route; then the prefix-form
   jump statistics and the checksum) against the reference's functions called
   as ``bench.py``'s step body calls them (the Pallas kernels in interpret
   mode): labels equal wherever the f32 top-2 margin exceeds 8e-3 and the best
   similarity is not within 1e-2 of the threshold, ``n_ij`` and the checksum
-  equal.  The frames are the bench's, with the ions moved to each other's
-  sites inside each block so that jumps are tallied;
+  equal; K1 against both of the reference's ``centers_store_f32``
+  settings.  The frames are the bench's, with the ions moved to each
+  other's sites inside each block so that jumps are tallied;
 - the FLOP count on the port's bench-width basis equal to the reference's;
-- ``centers_store_f32=False`` bit-equal to ``True``, its kept operand reused
-  and remade when the centres change;
 - each A/B tool at a lattice of 20 cells (the smallest where the preshift
   bound holds at both tiles), both sides equal and held to the reference's
   K1 step (its checksum, and for ``ab_skew`` its labels outside the gate),
@@ -42,10 +40,7 @@ from sitator_tpu.ops import landmark_mxu as jmx
 from sitator_tpu.ops.jumps import _jump_stats_parallel as jax_jump_stats
 from sitator_tpu.ops.landmark_pallas import fused_assign_blocks as jax_fused
 
-from sitator_tpu_torch.ops import landmark_mxu as tmx
-from sitator_tpu_torch.ops.kernel_common import kernel_cell
-from sitator_tpu_torch.tools import (ab_centers_bf16, ab_s_tile, ab_skew,
-                                     bench, bench_config)
+from sitator_tpu_torch.tools import ab_s_tile, ab_skew, bench, bench_config
 from sitator_tpu_torch.tools import validate_preshift_streaming as vps
 
 from tests._torch_common import first_math_calls_on_one_thread, networks
@@ -79,9 +74,10 @@ def small():
     return sy, centers, static, mobile
 
 
-def _jax_labels(mode, sy, centers, static, mobile):
+def _jax_labels(mode, sy, centers, static, mobile, centers_store_f32=True):
     """The reference's step body on each block: labels, ``n_ij`` and the
-    checksum ``n_ij.sum() + labels.sum()``."""
+    checksum ``n_ij.sum() + labels.sum()``; K1 with the reference's
+    ``centers_store_f32``."""
     cell = np.asarray(sy.cell)
     cell_diag = jnp.asarray(np.diag(cell).astype(np.float32))
     verts = np.asarray(sy.verts)
@@ -112,8 +108,9 @@ def _jax_labels(mode, sy, centers, static, mobile):
         kw = dict(midpoint=bench.MIDPOINT, steepness=bench.STEEPNESS,
                   threshold=bench.ASSIGN_THR, cutoff_shape=bench.CUTOFF)
         if mode == "mxu":
-            labels, _ = jmx.mxu_assign_blocks(mo, st, bd, cell_diag, c_mxu,
-                                              interpret=True, **kw)
+            labels, _ = jmx.mxu_assign_blocks(
+                mo, st, bd, cell_diag, c_mxu, interpret=True,
+                centers_store_f32=centers_store_f32, **kw)
         elif mode == "fused":
             labels, _ = jax_fused(mo, st, jnp.asarray(verts),
                                   jnp.ones_like(verts, dtype=bool),
@@ -138,13 +135,19 @@ def _jax_labels(mode, sy, centers, static, mobile):
     return out
 
 
-@pytest.mark.parametrize("mode", bench.MODES)
-def test_bench_step_matches_reference(small, mode):
+@pytest.mark.parametrize("mode,store", [
+    ("mxu", True), ("mxu", False)] + [(m, True) for m in bench.MODES
+                                      if m != "mxu"])
+def test_bench_step_matches_reference(small, mode, store):
+    """Each mode against the reference's step; the port's one K1 route
+    against both of the reference's ways to store the centres (``store``:
+    its ``centers_store_f32``)."""
     sy, centers, static, mobile = small
     blocks = bench.device_blocks(static, mobile, "cpu", BLOCK)
     assign, basis = bench.ASSIGNERS[mode](sy, "cpu", centers)
     got, total = bench.run_blocks(assign, blocks, len(centers))
-    want = _jax_labels(mode, sy, centers, static, mobile)
+    want = _jax_labels(mode, sy, centers, static, mobile,
+                       centers_store_f32=store)
     margin, top1 = bench.top2_margin(sy, blocks, centers)
     labels = np.concatenate([g[0].numpy() for g in got])
     ref_labels = np.concatenate([w[0] for w in want])
@@ -194,49 +197,6 @@ def test_device_peak_by_card_name():
     assert bench.device_peak_bf16("NVIDIA A100-SXM4-80GB") is None
 
 
-def test_centers_store_f32_is_bit_equal(small):
-    sy, centers, static, mobile = small
-    basis = bench.mxu_basis(sy)
-    c = torch.as_tensor(tmx.permute_centers(centers, basis))
-    st, mo = torch.as_tensor(static[:BLOCK]), torch.as_tensor(mobile[:BLOCK])
-    kw = dict(midpoint=bench.MIDPOINT, steepness=bench.STEEPNESS,
-              threshold=bench.ASSIGN_THR, cutoff_shape=bench.CUTOFF)
-    cell = kernel_cell(sy.cell)
-    want = tmx.mxu_assign_blocks(mo, st, basis, cell, c, **kw)
-    got = tmx.mxu_assign_blocks(mo, st, basis, cell, c,
-                                centers_store_f32=False, **kw)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
-    kept = basis["centers_b"][torch.device("cpu")][2]
-    assert kept.dtype == torch.bfloat16 and kept.shape == (128, 128)
-    tmx.mxu_assign_blocks(mo, st, basis, cell, c, centers_store_f32=False,
-                          **kw)
-    assert basis["centers_b"][torch.device("cpu")][2] is kept
-    # an in-place change of the centres is seen: the operand is remade
-    c[:, :5] = c[:, 5:10].clone()
-    got = tmx.mxu_assign_blocks(mo, st, basis, cell, c,
-                                centers_store_f32=False, **kw)
-    want = tmx.mxu_assign_blocks(mo, st, basis, cell, c.clone(), **kw)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
-    assert basis["centers_b"][torch.device("cpu")][2] is not kept
-    # the reference's parameter on the same inputs: labels equal
-    jb = jmx.prepare_mxu_basis(np.asarray(sy.verts),
-                               np.ones_like(sy.verts, bool), sy.sites,
-                               sy.cell, s_tile=basis["s_tile"])
-    jl, jc = jmx.mxu_assign_blocks(
-        jnp.asarray(mobile[:BLOCK]), jnp.asarray(static[:BLOCK]), jb,
-        jnp.asarray(np.diag(sy.cell).astype(np.float32)),
-        jnp.asarray(jmx.permute_centers(centers, jb)),
-        centers_store_f32=False, interpret=True, **kw)
-    ml, mc = tmx.mxu_assign_blocks(
-        mo, st, basis, cell,
-        torch.as_tensor(tmx.permute_centers(centers, basis)),
-        centers_store_f32=False, **kw)
-    np.testing.assert_array_equal(ml.numpy(), np.asarray(jl))
-    np.testing.assert_allclose(mc.numpy(), np.asarray(jc), atol=1e-2)
-
-
 @pytest.fixture(scope="module")
 def preshift_case():
     sy = bench_config.build_system(n_cells=20, n_ions=20, k_centers=32)
@@ -279,18 +239,6 @@ def test_ab_s_tile_refuses_a_basis_without_preshift(small):
         ab_s_tile.ab(sy, "cpu", centers=centers, rounds=1,
                      blocks=bench.device_blocks(static, mobile, "cpu",
                                                 BLOCK))
-
-
-def test_ab_centers_bf16_sides_bit_equal(preshift_case, preshift_ref):
-    sy, centers, blocks = preshift_case
-    res = ab_centers_bf16.ab(sy, "cpu", centers=centers, blocks=blocks,
-                             rounds=2)
-    assert res["bit_equal"] and res["checksums_equal"]
-    assert [name for name, _ in res["segments"]] == [
-        "f32_centers", "bf16_centers"] * 2
-    assert res["speedup_bf16"] > 0
-    # the checksum is the reference's K1 step
-    assert res["checksum"] == preshift_ref[1]
 
 
 def test_ab_skew_sides_equal(preshift_case, preshift_ref, monkeypatch):
@@ -388,7 +336,7 @@ def test_hung_probe_times_out(monkeypatch, capsys, no_exec):
     assert "timed out after 0.2 s" in err and out.strip() == ""
 
 
-@pytest.mark.parametrize("tool", [ab_s_tile, ab_centers_bf16, ab_skew, vps])
+@pytest.mark.parametrize("tool", [ab_s_tile, ab_skew, vps])
 def test_tools_exit_1_without_a_card(tool, capsys):
     assert not torch.cuda.is_available()
     assert tool.main([]) == 1

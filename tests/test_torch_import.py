@@ -651,8 +651,8 @@ BENCH_TOOLS = textwrap.dedent("""
     sys.meta_path.insert(0, Blocker())
     import torch
     torch.set_num_threads(1)
-    from sitator_tpu_torch.tools import (ab_centers_bf16, ab_s_tile,
-                                         ab_skew, bench, bench_config,
+    from sitator_tpu_torch.tools import (ab_s_tile, ab_skew, bench,
+                                         bench_config,
                                          validate_preshift_streaming)
     sy = bench_config.build_system(n_cells=4, n_ions=6, k_centers=16)
     centers = bench.site_centers(sy, "cpu")
@@ -660,8 +660,7 @@ BENCH_TOOLS = textwrap.dedent("""
                                 blocks=bench.bench_blocks(sy, "cpu", 2, 3),
                                 reps=1)[2] for mode in bench.MODES}
     assert len(set(sums.values())) == 1, sums
-    for tool in (bench, ab_s_tile, ab_centers_bf16, ab_skew,
-                 validate_preshift_streaming):
+    for tool in (bench, ab_s_tile, ab_skew, validate_preshift_streaming):
         assert tool.main([]) == 1            # no card here
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "sitator_tpu",

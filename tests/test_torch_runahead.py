@@ -2,9 +2,9 @@
 the CPU, where the same window, retirement and rollback logic runs without
 streams and events.
 
-Contract held here: at every ``pipeline_depth`` and ``retire_group`` the
-spilled labels, every integer statistic, the lattice permutation and the
-checkpoint cursor are IDENTICAL to the synchronous loop (depth 0), and on a
+Contract held here: at every ``pipeline_depth`` the spilled labels, every
+integer statistic, the lattice permutation and the checkpoint cursor are
+IDENTICAL to the synchronous loop (depth 0), and on a
 CPU device so are the float sums (site centres, ratios): every comparison
 between depths is ``assert_array_equal``.  Against the JAX engine (at its
 own default depth) integers and labels are equal; ratios ``rtol=1e-6`` and
@@ -30,8 +30,9 @@ torch.set_num_threads(2)
 KW = dict(cutoff_midpoint=4.0, cutoff_steepness=3.0, verbose=False)
 ATTRS = ("n_ij", "total_corrected_residences", "occupancies", "p_ij",
          "jump_lag", "residence_times", "centers")
-# (pipeline_depth, retire_group)
-WINDOWS = [(1, 1), (2, 1), (3, 1), (2, 2), (3, 2), (6, 3)]
+# run-ahead depths: windows of depth + 1 = 2, 3, 4, 5, 7 and 9 blocks, the
+# last two longer than a 5-block run
+DEPTHS = [1, 2, 3, 4, 6, 8]
 
 
 @pytest.fixture(scope="module")
@@ -99,14 +100,14 @@ def baselines(md_system, centers, tmp_path_factory):
 
 
 @pytest.mark.parametrize("name", list(TRAJS))
-@pytest.mark.parametrize("depth,group", WINDOWS)
-def test_depth_and_group_invariance(md_system, centers, baselines, tmp_path,
-                                    name, depth, group):
+@pytest.mark.parametrize("depth", DEPTHS)
+def test_depth_invariance(md_system, centers, baselines, tmp_path, name,
+                          depth):
     md, seeds = md_system
     eng0, want, lab0 = baselines[name]
     eng, got, lab = _run(seeds, _swapped(md, TRAJS[name], 500), centers,
                          tmp_path / "l.npy", pipeline_depth=depth,
-                         retire_group=group, dynamic_lattice_mapping=True)
+                         dynamic_lattice_mapping=True)
     np.testing.assert_array_equal(lab, lab0)
     _assert_identical(got, want)
     np.testing.assert_array_equal(eng.lattice_mapping_, eng0.lattice_mapping_)
@@ -143,9 +144,9 @@ def test_default_depth_matches_reference_engine(md_system, centers,
 
 
 @pytest.mark.parametrize("store", [True, False])
-@pytest.mark.parametrize("depth,group", [(0, 1)] + WINDOWS)
+@pytest.mark.parametrize("depth", [0] + DEPTHS)
 def test_drift_offender_raises_at_same_frame(md_system, centers, tmp_path,
-                                             depth, group, store):
+                                             depth, store):
     """Without dynamic mapping an offender found at retirement raises the
     synchronous loop's error: the same frame, which is the JAX engine's."""
     md, seeds = md_system
@@ -153,13 +154,12 @@ def test_drift_offender_raises_at_same_frame(md_system, centers, tmp_path,
     bad[233:, np.flatnonzero(md.static_mask)[0]] += 3.0
     eng = port.StreamingLandmarkAnalysis(
         device="cpu", block_frames=100, pipeline_depth=depth,
-        retire_group=group,
         store_labels=str(tmp_path / "l.npy") if store else None, **KW)
     with pytest.raises(StaticLatticeError) as ei:
         eng.run(seeds, bad, centers=centers)
     assert ei.value.frame == 233
     assert eng.rollbacks_ == (1 if depth else 0)
-    if depth == 2 and group == 1 and store:
+    if depth == 2 and store:
         with pytest.raises(Exception) as ej:
             JaxStreaming(block_frames=100, **KW).run(seeds, bad,
                                                      centers=centers)
@@ -204,10 +204,10 @@ class FlakyReader(ArrayTrajectory):
         return super().__getitem__(key)
 
 
-@pytest.mark.parametrize("depth,group,name", [(3, 1, "plain"), (2, 2, "swap"),
-                                              (1, 1, "two_swaps")])
+@pytest.mark.parametrize("depth,name", [(3, "plain"), (2, "swap"),
+                                        (1, "two_swaps")])
 def test_checkpoint_resume_under_run_ahead(md_system, centers, baselines,
-                                           tmp_path, depth, group, name):
+                                           tmp_path, depth, name):
     """A checkpoint drains the window first, so its cursor and state are
     the synchronous loop's, and the resumed run equals the uninterrupted
     depth-0 run."""
@@ -216,10 +216,10 @@ def test_checkpoint_resume_under_run_ahead(md_system, centers, baselines,
     _, want, lab0 = baselines[name]
     ckpt = str(tmp_path / "run.ckpt")
     cks = {}
-    for d, g in ((0, 1), (depth, group)):
+    for d in (0, depth):
         eng = port.StreamingLandmarkAnalysis(
             device="cpu", block_frames=100, checkpoint_path=ckpt,
-            checkpoint_every=2, pipeline_depth=d, retire_group=g,
+            checkpoint_every=2, pipeline_depth=d,
             dynamic_lattice_mapping=True,
             store_labels=str(tmp_path / f"l{d}.npy"), **KW)
         with pytest.raises(Interrupt):
@@ -235,31 +235,6 @@ def test_checkpoint_resume_under_run_ahead(md_system, centers, baselines,
     assert set(cks[depth]) == set(cks[0])
     for k in cks[0]:
         np.testing.assert_array_equal(cks[depth][k], cks[0][k], err_msg=k)
-
-
-@pytest.mark.parametrize("depth", [0, 2])
-def test_async_label_copy_acts_and_changes_nothing(md_system, centers,
-                                                   baselines, tmp_path,
-                                                   monkeypatch, depth):
-    md, seeds = md_system
-    started = []
-    real = tst._Lanes.start_download
-
-    def spy(self, t, produced=None):
-        started.append(tuple(t.shape))
-        return real(self, t, produced)
-
-    monkeypatch.setattr(tst._Lanes, "start_download", spy)
-    _, want, lab0 = baselines["swap"]
-    eng, got, lab = _run(seeds, _swapped(md, TRAJS["swap"], 500), centers,
-                         tmp_path / "l.npy", pipeline_depth=depth,
-                         async_label_copy=True, dynamic_lattice_mapping=True)
-    np.testing.assert_array_equal(lab, lab0)
-    _assert_identical(got, want)
-    # one eager egress copy per assignment: 5 blocks, and the blocks
-    # assigned again after the exchange
-    width = tst.pack12_width(lab.shape[1])
-    assert sum(s == (100, width) for s in started) >= 6
 
 
 def test_fused_route_identical_across_depths(md_system, centers, tmp_path):
@@ -317,7 +292,7 @@ def test_lanes_on_cpu_copy_out_of_the_staging_ring():
                                       b[:, idx[1]].astype(np.float32))
     t = torch.arange(6).reshape(2, 3)
     np.testing.assert_array_equal(
-        tst._Lanes.wait(lanes.start_download(t)), t.numpy())
+        tst._Lanes.wait(lanes.start_download(t, lanes.mark())), t.numpy())
 
 
 # Staging cases over blocks of 6W columns, W the slab copies' least mean

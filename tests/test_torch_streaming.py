@@ -144,7 +144,7 @@ def test_run_dense_matches_reference(md_system, centers, tmp_path):
                         **KW).run(seeds, md.traj, centers=centers)
     eng = _port(block_frames=100, store_labels=str(tmp_path / "t.npy"))
     got = eng.run(seeds, md.traj, centers=centers)
-    assert eng.route_ == "dense" and eng.exact_jump_epochs_ == 0
+    assert eng.route_ == "dense"
     _assert_same_result(got, want)
     np.testing.assert_array_equal(np.load(tmp_path / "t.npy"),
                                   np.load(tmp_path / "j.npy"))
@@ -233,21 +233,41 @@ def test_streaming_agrees_with_pipeline(md_system, centers, tmp_path):
     np.testing.assert_array_equal(np.load(tmp_path / "l.npy"), labels)
 
 
-@pytest.mark.parametrize("pack12,int16", [(False, True), (True, True),
-                                          (True, False)])
-def test_label_egress_variants(md_system, centers, tmp_path, pack12,
-                               int16):
-    """int16 egress, the 12-bit pack on top, and int32 egress spill the same
-    labels."""
+@pytest.mark.parametrize("K,egress,runs", [
+    (4095, "pack12", True), (4096, "int16", True), (32767, "int16", False),
+    (32768, "int32", False)])
+def test_egress_follows_site_count(md_system, centers, tmp_path, monkeypatch,
+                                   K, egress, runs):
+    """The labels leave the device in the narrowest format the site count
+    allows: the 12-bit pack below 4096 sites, int16 below 2^15, else int32.
+    Where the accumulators of K sites are small enough to run, the spilled
+    labels equal those of an int32 egress; the fitted centres are the last
+    of the K (the others random unit vectors), so the labels reach the top
+    of the format's range."""
     md, seeds = md_system
-    ref = tmp_path / "ref.npy"
-    _port(block_frames=100, store_labels=str(ref), egress_pack12=False).run(
-        seeds, md.traj[:300], centers=centers)
-    eng = _port(block_frames=100, store_labels=str(tmp_path / "v.npy"),
-                egress_pack12=pack12)
-    eng.egress_int16 = int16
-    eng.run(seeds, md.traj[:300], centers=centers)
-    np.testing.assert_array_equal(np.load(tmp_path / "v.npy"), np.load(ref))
+    rng = np.random.default_rng(K)
+    extra = rng.standard_normal((K - len(centers), centers.shape[1]))
+    extra /= np.linalg.norm(extra, axis=1, keepdims=True)
+    big = np.concatenate([extra, centers]).astype(np.float32)
+    kw = dict(block_frames=100, static_movement_threshold=None)
+    assert _port(**kw)._assign_setup(seeds, big)[1]["egress"] == egress
+    if not runs:
+        return
+    _port(store_labels=str(tmp_path / "v.npy"), **kw).run(
+        seeds, md.traj[:200], centers=big)
+    real = tst.StreamingLandmarkAnalysis._assign_setup
+
+    def int32(self, *a, **k):
+        route, plan = real(self, *a, **k)
+        return route, dict(plan, egress="int32")
+
+    monkeypatch.setattr(tst.StreamingLandmarkAnalysis, "_assign_setup",
+                        int32)
+    _port(store_labels=str(tmp_path / "ref.npy"), **kw).run(
+        seeds, md.traj[:200], centers=big)
+    lab = np.load(tmp_path / "v.npy")
+    assert lab.max() >= K - len(centers)
+    np.testing.assert_array_equal(lab, np.load(tmp_path / "ref.npy"))
 
 
 def test_phase_times_populated(md_system, centers, tmp_path):
@@ -401,8 +421,7 @@ def test_pack12_words_match_reference():
                                       lab.astype(np.int16))
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(pipeline_depth=2),
-                                dict(async_label_copy=True)])
+@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(pipeline_depth=2)])
 def test_not_ported_arguments_raise(kw):
     """A ``mesh`` that is not a frame mesh raises (frame meshes are taken:
     ``tests/test_torch_mesh.py``); the run-ahead arguments, which raised
