@@ -52,9 +52,10 @@ Phases; any failure exits non-zero before the result lines:
    the clip (the FMA K1s), a triclinic case and cases with 384 and 2176
    centres (K1s clusters of 1, 2, 4 and 8 CTAs, the last in two passes).
    In each case K1 is held to K3 and K1s to K1 (labels outside the gate;
-   whether they are bit-equal is printed), and K3's bf16 route (the
-   gather stage writes the norm and the bf16 copy) bit for bit to its f32
-   route + ``row_prep``;
+   whether they are bit-equal is printed), and K1's and K3's bf16 routes
+   (the landmark stage, ``lv_tile``'s whole-row form or the gather stage,
+   writes the norm and the bf16 copy) bit for bit to their f32 routes +
+   ``row_prep``;
 4. the slice end to end through the user entry points, with the launch
    counters reset first and read after: ``LandmarkAnalysis`` (K2) then
    ``JumpAnalysis``; ``SpmdLandmarkPipeline`` over 8 blocks x 32 frames with
@@ -608,34 +609,55 @@ def gather_work(a, M, S, V, K):
     return nbytes, 2.0 * rows * S * K, rows * S * (PAIR_OPS * V + 2)
 
 
+def k1_rows(a):
+    """K1's landmark stage in ``lv_tile``'s whole-row form on these kernel
+    inputs: ``(lvb, inv_norm)``."""
+    from sitator_tpu_torch.ops import _cuda
+    return _cuda.lv_tile(a["mob"], a["vpu"], *a["members"], a["kill"],
+                         a["anchors"], a["params"], triclinic=a["triclinic"],
+                         r2_cutoff=a["r2_cutoff"], preshift=a["preshift"])
+
+
+def k1_f32_rows(a, lv=None):
+    """K1's landmark stage in ``lv_tile``'s f32 form on these kernel inputs:
+    the f32 rows ``(B * MP, SP)`` (written into ``lv (B, MP, SP)`` when
+    given)."""
+    import torch
+    from sitator_tpu_torch.ops import _cuda
+    B, _, MP = a["mob"].shape
+    n_st, _, s_tile = a["A"].shape
+    SP = n_st * s_tile
+    if lv is None:
+        lv = torch.empty((B, MP, SP), device="cuda")
+    _cuda.lv_tile(a["mob"], a["vpu"], *a["members"], a["kill"],
+                  a["anchors"], a["params"], triclinic=a["triclinic"],
+                  r2_cutoff=a["r2_cutoff"], preshift=a["preshift"],
+                  col_map=torch.arange(SP, dtype=torch.int32, device="cuda"),
+                  out=lv)
+    return lv.view(B * MP, SP)
+
+
 def k1_stages(a, M, reps):
     """Each stage of K1 timed alone on these inputs (CUDA events, ms): the
-    lv tiles, row prep (norm and the bf16 copy), the centres' bf16 copy,
-    the tensor-core product with its per-block arg-max (``sims_argmax``,
-    which makes the centres' bf16 copy first, as every call does), the
-    merge; and the bf16 ``torch.matmul`` of the same product (the library
-    yardstick)."""
+    whole-row ``lv_tile`` of the default route (lv, norm, bf16 copy); the
+    f32 ``lv_tile`` and row prep (norm and the bf16 copy) of the clip and
+    f32 routes; the centres' bf16 copy, the tensor-core product with its
+    per-block arg-max (``sims_argmax``, which makes the centres' bf16 copy
+    first, as every call does), the merge; and the bf16 ``torch.matmul``
+    of the same product (the library yardstick)."""
     import torch
     from sitator_tpu_torch.ops import _cuda
     B, _, MP = a["mob"].shape
     n_st, _, s_tile = a["A"].shape
     SP = n_st * s_tile
     lv = torch.empty((B, MP, SP), device="cuda")
-    rows = lv.view(B * MP, SP)
-    col_map = torch.arange(SP, dtype=torch.int32, device="cuda")
-
-    def lv_tile():
-        _cuda.lv_tile(a["mob"], a["vpu"], *a["members"], a["kill"],
-                      a["anchors"], col_map, lv, a["params"],
-                      triclinic=a["triclinic"], r2_cutoff=a["r2_cutoff"],
-                      preshift=a["preshift"])
-
-    lv_tile()
-    inv, lvb = _cuda.row_prep(rows, peak_clip=False, bf16_copy=True)
+    rows = k1_f32_rows(a, lv)
+    lvb, inv = k1_rows(a)
     cb = _cuda.centers_bf16(a["cpad"])
     pv, pi = _cuda.sims_argmax(lvb, inv, a["cpad"])
     ms = dict(
-        lv_tile=timed(lv_tile, reps),
+        lv_tile_rows=timed(lambda: k1_rows(a), reps),
+        lv_tile=timed(lambda: k1_f32_rows(a, lv), reps),
         row_prep=timed(lambda: _cuda.row_prep(rows, peak_clip=False,
                                               bf16_copy=True), reps),
         centers_bf16=timed(lambda: _cuda.centers_bf16(a["cpad"]), reps),
@@ -644,8 +666,11 @@ def k1_stages(a, M, reps):
         argmax_merge=timed(lambda: _cuda.argmax_merge(pv, pi, THR), reps))
     library = timed(lambda: torch.matmul(lvb, cb.t()), reps)
     R, KP = B * MP, a["cpad"].shape[1]
+    nbytes, _, f32 = unique_atom_work(a, M)
+    real = B * M * int((a["kill"] == 0).sum())   # the f32 lv it writes
     bounds = dict(                      # each stage as a function of its own
-        lv_tile=bound(*unique_atom_work(a, M)),     # inputs and outputs
+        lv_tile_rows=bound(nbytes - 2 * real + 4 * B * M, 0.0, f32),
+        lv_tile=bound(nbytes, 0.0, f32),            # inputs and outputs
         row_prep=bound(6 * R * SP),     # f32 read, bf16 write
         centers_bf16=bound(6 * SP * KP),
         sims_wgmma=bound(2 * R * SP + 4 * SP * KP, 2.0 * R * SP * KP),
@@ -654,9 +679,44 @@ def k1_stages(a, M, reps):
           "events; the stage's bound in brackets): " + ", ".join(
               f"{k} {v:.3f} [{bounds[k][0]:.3f} {bounds[k][1]}]"
               for k, v in ms.items())
-          + f"; bf16 torch.matmul of the same product {library:.3f}",
-          flush=True)
+          + f"; bf16 torch.matmul of the same product {library:.3f}; the "
+          f"whole-row lv_tile against the f32 lv_tile + row_prep "
+          f"{ms['lv_tile_rows']:.3f} / "
+          f"{ms['lv_tile'] + ms['row_prep']:.3f}", flush=True)
     return ms, library
+
+
+def k1_routes(a, label):
+    """K1's bf16 route (``lv_tile``'s whole-row form forms the norm and the
+    bf16 copy) bit for bit against its f32 route (the f32 ``lv_tile`` +
+    ``row_prep``): inv_norm, the bf16 copy, and the labels and confidences
+    of the tail on each."""
+    import torch
+    from sitator_tpu_torch.ops import _cuda
+    lvb, inv = k1_rows(a)
+    lv = k1_f32_rows(a)
+    inv2, lvb2 = _cuda.row_prep(lv, peak_clip=False, bf16_copy=True)
+    thr = float(a["params"][-1])
+    got = _cuda.argmax_merge(*_cuda.sims_argmax(lvb, inv, a["cpad"]), thr)
+    want = _cuda.assign_tail(lv, a["cpad"], thr, peak_clip=False,
+                             mxu_bf16=True)
+    sync()
+    same = dict(inv_norm=torch.equal(inv.view(torch.int32),
+                                     inv2.view(torch.int32)),
+                bf16_copy=torch.equal(lvb.view(torch.int16),
+                                      lvb2.view(torch.int16)),
+                labels=torch.equal(got[0], want[0]),
+                confs=torch.equal(got[1].view(torch.int32),
+                                  want[1].view(torch.int32)))
+    check(all(same.values()), f"{label}: K1's whole-row route differs "
+          f"from its f32 route + row_prep: {same}")
+    n_st, _, s_tile = a["A"].shape
+    killed = int((a["kill"] > 0).sum())
+    print(f"  {label} K1 whole-row route == f32 route + row_prep bit for "
+          f"bit (inv_norm, bf16 copy, labels, confs over {lv.shape[0]} "
+          f"rows; {n_st} tiles of {s_tile}, {killed} killed columns, "
+          f"preshift={a['preshift']}, triclinic={a['triclinic']})",
+          flush=True)
 
 
 def gather_rows(a, bf16):
@@ -773,11 +833,12 @@ def tail_partition_cases():
 
 def kernel_cases(sy, centers, device, *, peak_evening, n_lv_frames,
                  s_tile_gather, full_mask, label, reps, bf16=True,
-                 labels="check"):
+                 labels="check", cutoff=CUTOFF, steep=STEEP):
     """K2, K1, K1s (``peak_evening='none'`` only) and K3 against their plain
-    versions on one system with the given centres; K1 against K3, and K1s
-    against K1.  Returns {kernel: {err, ms, plain_ms, bound_ms, bound_by,
-    library_ms}} (all but err only when ``reps``).  ``labels`` as in
+    versions on one system with the given centres, cutoff shape and
+    steepness; K1 against K3, and K1s against K1.  Returns {kernel: {err,
+    ms, plain_ms, bound_ms, bound_by, library_ms}} (all but err only when
+    ``reps``) and the basis's ``preshift``.  ``labels`` as in
     :func:`compare_assign`."""
     import torch
     from sitator_tpu_torch.ops import landmark_mxu as mx
@@ -787,7 +848,7 @@ def kernel_cases(sy, centers, device, *, peak_evening, n_lv_frames,
     kcell = kernel_cell(sy["cell"])
     basis = mx.prepare_engine_basis(
         sy["verts"], np.ones_like(sy["verts"], bool), sy["site_pos"],
-        sy["cell"], midpoint=MID, steepness=STEEP, cutoff_shape=CUTOFF,
+        sy["cell"], midpoint=MID, steepness=steep, cutoff_shape=cutoff,
         static_ref=sy["static_ref"], drift_budget=3.0)
     check(basis is not None, f"{label}: basis shares too few vertices")
     basis = mx.basis_from_jax(basis, device)
@@ -797,7 +858,7 @@ def kernel_cases(sy, centers, device, *, peak_evening, n_lv_frames,
     print(f"{label}: B={mobile.shape[0]} M={M} N={static.shape[1]} S={S} "
           f"K={K} s_tile={basis['s_tile']} n_st={basis['n_st']} "
           f"UP={basis['UP']} preshift={basis['preshift']} "
-          f"peak={peak_evening} bf16={bf16}", flush=True)
+          f"peak={peak_evening} bf16={bf16} cutoff={cutoff}", flush=True)
     out = {}
 
     def timings(key, kernel, plain, work, library_ms):
@@ -808,8 +869,8 @@ def kernel_cases(sy, centers, device, *, peak_evening, n_lv_frames,
                             library_ms=library_ms)
 
     a2 = mx._lv_inputs(mobile[:n_lv_frames], static[:n_lv_frames], basis,
-                       kcell, midpoint=MID, steepness=STEEP,
-                       cutoff_shape=CUTOFF)
+                       kcell, midpoint=MID, steepness=steep,
+                       cutoff_shape=cutoff)
     lv_k = mx._mxu_lv_cuda(**a2)
     sync()
     lv_p = mx._mxu_lv_plain(**a2)
@@ -821,21 +882,23 @@ def kernel_cases(sy, centers, device, *, peak_evening, n_lv_frames,
     # reference margins from the kernel-checked landmark vectors
     lv_all = torch.cat([mx._mxu_lv_cuda(**mx._lv_inputs(
         mobile[i:i + n_lv_frames], static[i:i + n_lv_frames], basis, kcell,
-        midpoint=MID, steepness=STEEP, cutoff_shape=CUTOFF))
+        midpoint=MID, steepness=steep, cutoff_shape=cutoff))
         for i in range(0, mobile.shape[0], n_lv_frames)])
     margin, top1 = top2_margin(lv_all, centers, peak_evening)
     del lv_all, lv_k
 
     a1 = mx._assign_inputs(mobile, static, basis, kcell,
                            mx.permute_centers(centers, basis),
-                           midpoint=MID, steepness=STEEP, threshold=THR,
-                           mxu_bf16=bf16, cutoff_shape=CUTOFF,
+                           midpoint=MID, steepness=steep, threshold=THR,
+                           mxu_bf16=bf16, cutoff_shape=cutoff,
                            peak_evening=peak_evening)
     k1 = [x[:, :M] for x in mx._mxu_assign_cuda(**a1)]
     sync()
     p1 = [x[:, :M] for x in mx._mxu_assign_plain(**a1)]
     out["K1"] = dict(err=compare_assign(f"{label} K1", k1, p1, margin, top1,
                                         bf16, labels))
+    if bf16 and peak_evening == "none":
+        k1_routes(a1, label)
     if reps:
         out["stages"], library = k1_stages(a1, M, reps)
     timings("K1", lambda: mx._mxu_assign_cuda(**a1),
@@ -876,8 +939,8 @@ def kernel_cases(sy, centers, device, *, peak_evening, n_lv_frames,
         try:
             mx.mxu_assign_blocks(mobile, static, basis, kcell,
                                  mx.permute_centers(centers, basis),
-                                 midpoint=MID, steepness=STEEP,
-                                 threshold=THR, cutoff_shape=CUTOFF,
+                                 midpoint=MID, steepness=steep,
+                                 threshold=THR, cutoff_shape=cutoff,
                                  peak_evening=peak_evening, skew=True)
         except ValueError as e:
             check("skew" in str(e), f"{label}: skew with clip raised {e!r}")
@@ -889,9 +952,9 @@ def kernel_cases(sy, centers, device, *, peak_evening, n_lv_frames,
 
     a3 = lp._gather_inputs(mobile, static, sy["verts"],
                            np.ones_like(sy["verts"], bool), kcell,
-                           centers, midpoint=MID, steepness=STEEP,
+                           centers, midpoint=MID, steepness=steep,
                            threshold=THR, s_tile=s_tile_gather,
-                           mxu_bf16=bf16, cutoff_shape=CUTOFF,
+                           mxu_bf16=bf16, cutoff_shape=cutoff,
                            peak_evening=peak_evening, full_mask=full_mask)
     k3 = [x[:, :M] for x in lp._gather_assign_cuda(**a3)]
     sync()
@@ -906,6 +969,7 @@ def kernel_cases(sy, centers, device, *, peak_evening, n_lv_frames,
             lambda: lp._gather_assign_plain(**a3),
             gather_work(a3, M, S, V, K), library if reps else None)
     compare_assign(f"{label} K1 vs K3", k1, k3, margin, top1, bf16, labels)
+    out["preshift"] = basis["preshift"]
     return out
 
 
@@ -914,8 +978,9 @@ def phase_kernels(device):
     the bench's 1024 random centres (timing and confidences only: every row
     is inside the margin gate) and with site centres (the label check; it
     must leave rows outside the gate), then the clip case (f32 operands,
-    the FMA tail) and the triclinic case at n_c = 8.  Returns the timed case's results
-    with the largest error of the bench cases."""
+    the FMA tail), the triclinic case at n_c = 8 and the 'logistic' cutoff
+    off and on the preshift route.  Returns the timed case's results with
+    the largest error of the bench cases."""
     shear = np.array([[0.0, 0.0, 0.0], [0.2, 0.0, 0.0], [-0.1, 0.15, 0.0]])
     tail_partition_cases()
     sy = add_site_centres(bench_system(32, seed=7), device)
@@ -934,23 +999,34 @@ def phase_kernels(device):
     # the clip case in f32 similarities: clipping flattens the rows, so
     # most top-2 margins sit inside the bf16 gate; f32 without the clip (the
     # FMA K1s); K1s clusters of 1 (triclinic, 128 centres), 2 (384) and 8
-    # CTAs in two passes (2176)
-    for label, sy, peak, bf16 in (
+    # CTAs in two passes (2176); the engines' default cutoff shape
+    # ('logistic') off and on the preshift route (the bench lattice takes
+    # it at steepness 6)
+    r2 = dict(cutoff=CUTOFF, steep=STEEP)
+    for label, sy, peak, bf16, cut in (
             ("clip f32 n_c=8", lattice_system(8, 64, 8, 128, seed=3), "clip",
-             False),
+             False, r2),
             ("f32 K=384 n_c=8", lattice_system(8, 64, 8, 384, seed=4),
-             "none", False),
+             "none", False, r2),
             ("triclinic n_c=8",
              lattice_system(8, 64, 8, 128, seed=5, shear=shear), "none",
-             True),
+             True, r2),
             ("K=384 n_c=8", lattice_system(8, 64, 8, 384, seed=6), "none",
-             True),
+             True, r2),
             ("K=2176 n_c=14", lattice_system(14, 128, 4, 2176, seed=8),
-             "none", True)):
+             "none", True, r2),
+            ("logistic n_c=8", lattice_system(8, 64, 8, 128, seed=10),
+             "none", True, dict(cutoff="logistic", steep=STEEP)),
+            ("logistic preshift n_c=21",
+             lattice_system(21, 128, 4, 1024, seed=11), "none", True,
+             dict(cutoff="logistic", steep=6.0))):
         add_site_centres(sy, device)
-        kernel_cases(sy, sy["centers"], device, peak_evening=peak,
-                     n_lv_frames=8, s_tile_gather=128, full_mask=False,
-                     label=label, reps=0, bf16=bf16)
+        got = kernel_cases(sy, sy["centers"], device, peak_evening=peak,
+                           n_lv_frames=8, s_tile_gather=128,
+                           full_mask=False, label=label, reps=0, bf16=bf16,
+                           **cut)
+        check(got["preshift"] == ("preshift" in label),
+              f"{label}: the basis took preshift={got['preshift']}")
     for name in KERNELS:
         r = res[name]
         lib = ("none" if r["library_ms"] is None
@@ -3323,7 +3399,7 @@ def phase_cli(device, ctx):
             check(f"streamed {n_frames} frames" in out,
                   "analyze --streaming: no summary line")
         # pass 2 writes the lv of a whole block to device memory before
-        # the similarity (K1's lv_tile → assign_tail): 1024 x 768 x 9344 f32
+        # the similarity (K1's whole-row lv_tile): 1024 x 768 x 9344 bf16
         print("analyze --streaming at the defaults (1024-frame blocks), "
               "seeding, fit, pass 2 and save, from the .npy and the XYZ: "
               + ", ".join(f"{w:.2f} s" for w in walls) + "; peak device "
@@ -3331,7 +3407,7 @@ def phase_cli(device, ctx):
         small = str(tmp / "md64.npy")
         convert_to_npy(ArrayTrajectory(frames[:64], sn.structure), small)
         # the subprocess shares the card: hand back this process's cached
-        # blocks, and stream in 64-frame blocks (1.8 GB of lv)
+        # blocks, and stream in 64-frame blocks (0.9 GB of bf16 lv)
         torch.cuda.empty_cache()
         proc = subprocess.Popen(
             [sys.executable, "-m", "sitator_tpu_torch", "analyze", small,
@@ -5517,8 +5593,9 @@ def no_sharing_system(seed):
 
 
 KERNELS = {
-    "K1": dict(name="K1 unique-atom assign (lv_tile + assign_tail with "
-                    "sims_wgmma)",
+    "K1": dict(name="K1 unique-atom assign (lv_tile's whole rows with the "
+                    "norm and bf16 copy, sims_wgmma, merge; f32 or clip: "
+                    "lv_tile + assign_tail)",
                source="sitator_tpu_torch/csrc/lv_tile.cu",
                also=["sitator_tpu_torch/csrc/assign_tail.cu",
                      "sitator_tpu_torch/csrc/sims_wgmma.cu"],

@@ -17,9 +17,11 @@
 // order.  Three launches, each its own C entry so that every stage can be
 // timed alone:
 //   - row_prep_kernel (one warp a row): the clip in place, inv_norm, and for
-//     bf16 operands a bf16 copy of the clipped row (K3 with bf16 operands
-//     and no clip skips it: lv_gather.cu writes the bf16 copy and inv_norm
-//     itself, in this kernel's order);
+//     bf16 operands a bf16 copy of the clipped row.  Only the clip and f32
+//     operands run it, on K1 and K3 alike: with bf16 operands and no clip
+//     (the default) the landmark stage owns whole rows and writes the bf16
+//     copy and inv_norm itself, in this kernel's order (lv_tile.cu's
+//     whole-row form on K1, lv_gather.cu on K3);
 //   - the product: with bf16 operands (the reference's mxu_bf16=True) on the
 //     tensor cores, sims_wgmma.cu (128 x 256 blocks); with f32 operands
 //     (mxu_bf16=False; wgmma has no full-f32 mode and TF32 is not the

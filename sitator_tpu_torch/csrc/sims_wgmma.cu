@@ -15,9 +15,10 @@
 // 25 TFLOP/s achieved).
 //
 // Design: one block of 384 threads computes a 128-row x 256-centre tile.
-//   - Operands: row_prep_kernel (K1) or lv_gather (K3) writes a bf16 copy of
-//     the lv (rows x SP, K-major); the wrapper rounds the centres once to a
-//     bf16 (KP x SP) K-major copy.  TMA loads 128 x 64 and 256 x 64 boxes of
+//   - Operands: the landmark stage writes a bf16 copy of the lv (rows x SP,
+//     K-major): lv_tile's whole-row form on K1's default route, lv_gather
+//     on K3's, row_prep_kernel after the clip; the wrapper rounds the
+//     centres once to a bf16 (KP x SP) K-major copy.  TMA loads 128 x 64 and 256 x 64 boxes of
 //     the two into a 4-stage shared-memory ring (48 KB a stage) in the
 //     128-byte swizzle that wgmma reads; full/empty mbarriers hand the
 //     stages over.

@@ -51,6 +51,7 @@ import torch
 
 from sitator_tpu_torch.core import SiteNetwork
 from sitator_tpu_torch.io import ArrayTrajectory, ChunkedFeeder
+from sitator_tpu_torch.ops import _cuda
 from sitator_tpu_torch.ops import landmark as lmops
 from sitator_tpu_torch.ops.cluster import dotprod_fit
 from sitator_tpu_torch.ops.jumps import jump_fold
@@ -883,6 +884,7 @@ class StreamingLandmarkAnalysis:
 
         jumps0 = int(np.sum(host_acc.get("res_cnt", 0)))   # resumed
         folds0 = jump_fold.launches
+        lv0 = (_cuda.lv_tile.rows_launches, _cuda.lv_tile.f32_launches)
         acc = _zero_accumulators(K, self.max_mobile_per_site)
         for k, v in host_acc.items():
             if k in acc:
@@ -1211,6 +1213,8 @@ class StreamingLandmarkAnalysis:
                         busy_s=decode1[1] - decode0[1], threads=N_THREADS),
             fold=dict(launches=jump_fold.launches - folds0,
                       jumps=int(totals["res_cnt"].sum()) - jumps0),
+            lv_tile=dict(rows=_cuda.lv_tile.rows_launches - lv0[0],
+                         f32=_cuda.lv_tile.f32_launches - lv0[1]),
             stage=dict(lanes.stage),
             frames=n_frames - start_lo, block_frames=B,
             start_ns=t_run + offset, wall_s=wall_ns * 1e-9,

@@ -45,10 +45,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # mob, vpu, midx, mmul, kill, anchors, col_map, out, B, MP, M_out,
-    # n_st, UP, s_tile, vmax, out_cols, params, triclinic, r2, preshift,
-    # stream
-    "sit_lv_tile": [_P] * 8 + [_I] * 8 + [_P, _I, _I, _I, _P],
+    # mob, vpu, midx, mmul, kill, anchors, col_map (or NULL), out (or
+    # NULL), lvb (or NULL), inv_norm (or NULL), B, MP, M_out, n_st, UP,
+    # s_tile, vmax, out_cols, params, triclinic, r2, preshift, stream
+    "sit_lv_tile": [_P] * 10 + [_I] * 8 + [_P, _I, _I, _I, _P],
     # mob, vp, mask, out (or NULL), lvb (or NULL), inv_norm (or NULL), B,
     # MP, V, SP, params, triclinic, r2, full_mask, stream
     "sit_lv_gather": [_P] * 6 + [_I] * 4 + [_P, _I, _I, _I, _P],
@@ -200,21 +200,35 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
-def lv_tile(mob, vpu, midx, mmul, kill, anchors, col_map, out, params, *,
-            triclinic, r2_cutoff, preshift):
-    """Landmark vectors of every (ion, kd site tile) into ``out (B, M_out,
-    out_cols)``: column ``c`` of the kd-ordered site axis lands in
+def lv_tile(mob, vpu, midx, mmul, kill, anchors, params, *, triclinic,
+            r2_cutoff, preshift, out=None, col_map=None):
+    """Landmark vectors of every (ion, kd site tile); ``midx`` / ``mmul
+    (n_st, s_tile, vmax)`` are the membership lists of
+    ``landmark_mxu.membership_lists``.  With ``out (B, M_out, out_cols)``
+    the f32 form: column ``c`` of the kd-ordered site axis lands in
     ``out[..., col_map[c]]`` (skipped where ``col_map[c] < 0``), ion rows
-    beyond ``M_out`` are skipped.  ``midx`` / ``mmul (n_st, s_tile, vmax)``
-    are the membership lists of ``landmark_mxu.membership_lists``."""
+    beyond ``M_out`` are skipped.  Without, the whole-row form: each block
+    sweeps every tile of its ions, forms each row's norm in
+    :func:`row_prep`'s order and returns ``(lvb, inv_norm)``: the bf16 rows
+    ``(B * MP, SP)`` and ``rsqrt(max(norm², 1e-24))``, bit-equal to
+    :func:`row_prep` on the f32 rows.  Returns ``out`` in the f32 form.
+    ``.rows_launches`` and ``.f32_launches`` count the launches of each
+    form."""
     B, _, MP = mob.shape
     n_st, s_tile, vmax = midx.shape
     UP = vpu.shape[-1]
     SP = n_st * s_tile
-    _, M_out, out_cols = out.shape
-    if MP % 32 or M_out > MP:
-        raise ValueError("lv_tile needs MP % 32 == 0, M_out <= MP")
+    rows = out is None
+    M_out, out_cols = (MP, SP) if rows else out.shape[1:]
+    if MP % 32 or M_out > MP or (rows and s_tile % 32):
+        raise ValueError("lv_tile needs MP % 32 == 0, M_out <= MP and, for "
+                         "whole rows, s_tile % 32 == 0")
     p = _host_params(params)
+    dev = mob.device
+    lvb = inv_norm = None
+    if rows:
+        lvb = torch.empty((B * MP, SP), device=dev, dtype=torch.bfloat16)
+        inv_norm = torch.empty(B * MP, device=dev, dtype=torch.float32)
     _call("sit_lv_tile",
           _check(mob, "mob", torch.float32, (B, 3, MP)),
           _check(vpu, "vpu", torch.float32, (B, n_st, 3, UP)),
@@ -222,10 +236,22 @@ def lv_tile(mob, vpu, midx, mmul, kill, anchors, col_map, out, params, *,
           _check(mmul, "mmul", torch.float32, (n_st, s_tile, vmax)),
           _check(kill, "kill", torch.float32, (SP,)),
           _check(anchors, "anchors", torch.float32, (n_st, 3)),
-          _check(col_map, "col_map", torch.int32, (SP,)),
-          _check(out, "out", torch.float32, (B, M_out, out_cols)),
+          None if rows else _check(col_map, "col_map", torch.int32, (SP,)),
+          None if rows else _check(out, "out", torch.float32,
+                                   (B, M_out, out_cols)),
+          None if lvb is None else lvb.data_ptr(),
+          None if inv_norm is None else inv_norm.data_ptr(),
           B, MP, M_out, n_st, UP, s_tile, vmax, out_cols, p.data_ptr(),
           int(triclinic), int(r2_cutoff), int(preshift), _stream())
+    if not rows:
+        lv_tile.f32_launches += 1
+        return out
+    lv_tile.rows_launches += 1
+    return lvb, inv_norm
+
+
+lv_tile.rows_launches = 0
+lv_tile.f32_launches = 0
 
 
 def lv_gather(mob, vp, mask, params, *, triclinic, r2_cutoff, full_mask,

@@ -45,6 +45,7 @@ from sitator_tpu_torch.ops.kernel_common import (as_f32, cell_array,
                                                  round_up as _round_up,
                                                  softplus,
                                                  tiled_assign_plain)
+from sitator_tpu_torch.util.timing import stage_mark
 
 logger = logging.getLogger(__name__)
 
@@ -489,11 +490,10 @@ def _mxu_lv_cuda(mob, vpu, A, kill, params, anchors, *, M, inv_order,
                          device=mob.device)
     col_map[inv_order.long()] = torch.arange(S, dtype=torch.int32,
                                              device=mob.device)
-    out = torch.empty((B, M, S), device=mob.device)
-    _cuda.lv_tile(mob, vpu, *members, kill, anchors, col_map, out, params,
-                  triclinic=triclinic, r2_cutoff=r2_cutoff,
-                  preshift=preshift)
-    return out
+    return _cuda.lv_tile(mob, vpu, *members, kill, anchors, params,
+                         triclinic=triclinic, r2_cutoff=r2_cutoff,
+                         preshift=preshift, col_map=col_map,
+                         out=torch.empty((B, M, S), device=mob.device))
 
 
 def _mxu_assign_plain(mob, vpu, A, kill, cpad, params, anchors, *,
@@ -521,23 +521,40 @@ def _mxu_assign_plain(mob, vpu, A, kill, cpad, params, anchors, *,
 def _mxu_assign_cuda(mob, vpu, A, kill, cpad, params, anchors, *,
                      triclinic, r2_cutoff, peak_clip, preshift, mxu_bf16,
                      members):
-    """K1 on the card: ``lv_tile`` writes the block's lv tiles in kd order to
-    scratch (summing over the membership lists), then ``assign_tail`` clips
-    (optionally), normalises, multiplies by the centres (on the tensor cores
-    with bf16 operands) and takes the arg-max.  Keeping lv on chip, as the
-    TPU kernel does in VMEM, is later work."""
+    """K1 on the card, summing over the membership lists.  With bf16
+    similarity operands, no clip (the default) and ``s_tile % 32 == 0``
+    (every basis the tile chooser makes) ``lv_tile``'s whole-row form (a
+    block sweeps every site tile of its ions) forms each row's norm itself
+    in ``row_prep``'s order and writes only the bf16 copy and ``inv_norm``;
+    the tensor-core product (``sims_wgmma``) and the merge follow: the f32
+    lv never reaches device memory and ``row_prep`` is not launched.
+    Otherwise its f32 form writes the block's lv tiles in kd order to
+    scratch and ``assign_tail`` clips (optionally), normalises, multiplies
+    by the centres and takes the arg-max (the clip needs each row's
+    second-largest value before the norm; a tile width off the warp's 32
+    lanes cannot keep ``row_prep``'s sum order in whole rows).  The
+    landmark stage ends with ``lv_tile`` on the whole-row route, with
+    ``row_prep`` on the other (``util.timing.stage_mark``)."""
     from sitator_tpu_torch.ops import _cuda
     B, _, MP = mob.shape
     n_st, _, s_tile = A.shape
     SP = n_st * s_tile
-    lv = torch.empty((B, MP, SP), device=mob.device)
-    col_map = torch.arange(SP, dtype=torch.int32, device=mob.device)
-    _cuda.lv_tile(mob, vpu, *members, kill, anchors, col_map, lv, params,
-                  triclinic=triclinic, r2_cutoff=r2_cutoff,
-                  preshift=preshift)
-    labels, confs = _cuda.assign_tail(
-        lv.view(B * MP, SP), cpad, float(params[-1]), peak_clip=peak_clip,
-        mxu_bf16=mxu_bf16)
+    kw = dict(triclinic=triclinic, r2_cutoff=r2_cutoff, preshift=preshift)
+    thr = float(params[-1])
+    if mxu_bf16 and not peak_clip and s_tile % 32 == 0:
+        lvb, inv_norm = _cuda.lv_tile(mob, vpu, *members, kill, anchors,
+                                      params, **kw)
+        stage_mark()
+        labels, confs = _cuda.argmax_merge(
+            *_cuda.sims_argmax(lvb, inv_norm, cpad), thr)
+    else:
+        lv = _cuda.lv_tile(
+            mob, vpu, *members, kill, anchors, params, **kw,
+            col_map=torch.arange(SP, dtype=torch.int32, device=mob.device),
+            out=torch.empty((B, MP, SP), device=mob.device))
+        labels, confs = _cuda.assign_tail(
+            lv.view(B * MP, SP), cpad, thr, peak_clip=peak_clip,
+            mxu_bf16=mxu_bf16)
     return labels.view(B, MP), confs.view(B, MP)
 
 

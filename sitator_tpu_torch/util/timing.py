@@ -263,7 +263,8 @@ def recent_runs():
       (``assign_ms``) and from there to the end of its fold (``fold_ms``),
       CUDA events on the compute stream; with the kernel routes (K1, K3)
       on one device also from the start of its assignment to the end of
-      its landmark stage (``lv_ms``: ``lv_tile`` and ``row_prep`` on K1,
+      its landmark stage (``lv_ms``: ``lv_tile`` on K1's whole-row route,
+      ``lv_tile`` and ``row_prep`` with the clip or f32 operands,
       ``lv_gather`` on K3, before the similarity product);
     - ``gate``: the fused-route gate's decision
       (``ops.landmark_mxu._engine_gate``: ``route``, ``cost_ratio``,
@@ -275,6 +276,12 @@ def recent_runs():
     - ``fold``: the jump-scan kernel's launches in the run (``launches``,
       ``ops.jumps.jump_fold.launches``; 0 on a CPU device, where the plain
       loop runs) and the jumps the run tallied (``jumps``);
+    - ``lv_tile``: K1's landmark kernel's launches in the run by form
+      (``ops._cuda.lv_tile.rows_launches``, ``.f32_launches``): ``rows``,
+      the whole-row form (bf16 operands, no clip: the bf16 copy and
+      ``inv_norm``, no ``row_prep``), ``f32``, the f32 form (K1 with the
+      clip or f32 operands, and K2); 0 on a CPU device and on the gather
+      route;
     - ``stage``: the run-ahead upload's staging of host blocks into its
       slots (``streaming._Lanes.upload``): the bytes copied as slabs, one
       a run of consecutive columns (``slab_bytes``), the bytes copied by
